@@ -1,23 +1,34 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --kernels  # build + kernel phases 1-2 only
+    python3 chip_smoke.py --kernels  # build + kernel phases 1, 2 and 4 only
 
-Builds the port's CUDA kernel from ``stan4bart_torch/csrc`` with nvcc,
-then:
+Builds the port's CUDA kernels from ``stan4bart_torch/csrc`` with nvcc
+(one process per source, started together), then:
 
-1. holds the sweep kernel against its plain PyTorch version at a small
-   size (n = 2000, 20 trees, 16 chains; 3 chained sweeps, unweighted,
-   weighted and a probit-style target) — identical forests, leaf values
-   and fits within float32 tolerance;
+1. holds both sweep kernels against their plain PyTorch version at small
+   sizes (20 trees, 16 chains, 3 chained sweeps, unweighted, weighted and
+   a probit-style target), at n = 2000 and at n = 9191, which is not a
+   multiple of the obs-tiled kernel's tile: identical forests, leaf
+   values and fits within float32 tolerance; and the obs-tiled kernel
+   against the single-pass kernel on the same inputs, identical forests;
 2. does the same at the bench shape (n = 10000, 75 trees, 9 BART
    variables, 256 chains, one sweep from a prior-drawn forest) and times
-   the kernel and the plain version with CUDA events;
-3. runs the main path: ``stan4bart_torch.stan4bart`` on the flagship
-   Friedman model at n = 10000 with 256 chains on the card (150
-   iterations, 75 of them warmup), checks that every sweep went through
-   the kernel, that the draws are finite and that the fit passes the
-   reference's quality gates.
+   both kernels and the plain version with CUDA events;
+3. runs the single-pass kernel's main path: ``stan4bart_torch.stan4bart``
+   on the flagship Friedman model at n = 10000 with 256 chains on the card
+   (150 iterations, 75 of them warmup), checks that every sweep went
+   through that kernel, that the draws are finite and that the fit passes
+   the reference's quality gates;
+4. holds the obs-tiled kernel against the plain version at the
+   reference's large-n shapes (n = 50000 with 64 chains, n = 200000 with
+   16 chains; 75 trees, 9 variables) and times both;
+5. runs the obs-tiled kernel's main path: the same fit at n = 50000 with
+   64 chains, every sweep through the obs-tiled kernel, with the same
+   checks.  It runs 300 iterations, 150 of them warmup: at n = 50000
+   the chains' sigma needs about 150-225 iterations to come down from
+   its start (the 25-iteration blocks it prints show it), and at 150 /
+   75 the posterior-mean sigma misses the gate.
 
 Prints the card (``nvidia-smi``), a ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -42,6 +53,8 @@ LV_TOL = dict(rtol=2e-4, atol=2e-5)
 FIT_TOL = dict(rtol=5e-4, atol=5e-4)
 # HBM rate of the H100 SXM (NVIDIA data sheet) for the memory bound
 HBM_BYTES_PER_S = 3.35e12
+P = 9
+KERNELS = ("bart_sweep_batch", "bart_sweep_tiled")
 
 FLAGSHIP = ("y ~ bart(. - g.1 - g.2 - X4 - z) + X4 + z + (1 + X4 | g.1) "
             "+ (1 | g.2)")
@@ -61,12 +74,12 @@ def forest_setup(n, trees, chains, seed, device):
     from stan4bart_torch.ops.bart_sweep_kernel import make_sweep_consts
 
     rng = np.random.default_rng(seed)
-    X = rng.uniform(size=(n, 9))
+    X = rng.uniform(size=(n, P))
     y = (10 * np.sin(np.pi * X[:, 0] * X[:, 1]) + 20 * (X[:, 2] - .5) ** 2
          + 5 * X[:, 4] + rng.normal(size=n))
     cfg = ops.BartConfig(num_trees=trees)
     ranks = ops.compute_ranks(X, ops.make_cut_grid(X, cfg.n_cuts))
-    sp = np.full(9, 1.0 / 9)
+    sp = np.full(P, 1.0 / P)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     state = ops.sample_trees_from_prior(
@@ -97,51 +110,71 @@ def compare(name, sk, sp_, vk, vp):
     return int(same.sum()), err
 
 
-def phase_small(device):
-    """Kernel vs plain at a small shape, 3 chained sweeps per case."""
+def as_state(state, out, target):
+    """The BartState of a sweep's raw outputs (feature, cut, leaf_value,
+    leaf_idx, tree_fit, resid)."""
+    return state._replace(feature=out[0], cut=out[1], leaf_value=out[2],
+                          leaf_idx=out[3], tree_fit=out[4],
+                          allfit=target - out[5])
+
+
+def phase_small(device, n):
+    """Both kernels (through their wrappers) vs plain, and tiled vs
+    single-pass, 3 chained sweeps per case.  Returns the max |kernel -
+    plain| of each kernel."""
     from stan4bart_torch.ops import bart as ops
     from stan4bart_torch.ops.bart_sweep_kernel import (
-        bart_sweep_fused_batch, sweep_plain)
+        bart_sweep_fused_batch, bart_sweep_fused_batch_tiled, sweep_plain)
 
-    cfg, state, yt, consts, gen = forest_setup(2000, 20, 16, 1, device)
-    C, N = 16, 2000
-    wts = torch.as_tensor(np.random.default_rng(2).uniform(0.5, 2.0, N),
+    C = 16
+    cfg, state, yt, consts, gen = forest_setup(n, 20, C, 1, device)
+    wts = torch.as_tensor(np.random.default_rng(2).uniform(0.5, 2.0, n),
                           dtype=torch.float32, device=device)
     y_probit = ops.sample_probit_latents(
-        torch.zeros((C, N), device=device), (yt > 0).float(), gen)
-    cases = {"unweighted": (yt.expand(C, N), None),
-             "weighted": (yt.expand(C, N), wts),
+        torch.zeros((C, n), device=device), (yt > 0).float(), gen)
+    cases = {"unweighted": (yt.expand(C, n), None),
+             "weighted": (yt.expand(C, n), wts),
              "probit": (y_probit, None)}
-    max_err = 0.0
+    err = {("batch", "plain"): 0.0, ("tiled", "plain"): 0.0,
+           ("tiled", "batch"): 0.0}
     for case, (target, w) in cases.items():
         sigma = torch.full((C,), 1.0 if case == "probit" else 0.9,
                            device=device)
-        sk = sp_ = state
+        sb = st = sp_ = state
         for sweep in range(3):
             var = ops.draw_variates(gen, C, cfg.num_trees, torch.float32,
                                     device)
-            sk, vk = bart_sweep_fused_batch(cfg, sk, target, consts, sigma,
+            sb, vb = bart_sweep_fused_batch(cfg, sb, target, consts, sigma,
                                             None, weights=w, variates=var)
+            st, vt = bart_sweep_fused_batch_tiled(
+                cfg, st, target, consts, sigma, None, weights=w,
+                variates=var)
             # the plain version on the same card and inputs
-            args = (cfg, sp_.feature, sp_.cut, sp_.leaf_idx, sp_.tree_fit,
-                    (target - sp_.allfit).contiguous(), sigma * sigma,
-                    sp_.sigma_mu * sp_.sigma_mu, var[0], var[1], consts)
-            f, c, lv, li, tf, r = sweep_plain(*args, weights=w)
-            sp_ = sp_._replace(feature=f, cut=c, leaf_value=lv, leaf_idx=li,
-                               tree_fit=tf, allfit=target - r)
-            vp = ops.count_variable_use(f, 9)
-            n_same, err = compare(f"{case} sweep {sweep}", sk, sp_, vk, vp)
-            if n_same != C:
-                raise AssertionError(
-                    f"phase 1 {case} sweep {sweep}: {C - n_same} of {C} "
-                    "chains differ from the plain version")
-            max_err = max(max_err, err)
-        print(f"phase 1 {case}: 3 sweeps, {C}/{C} chains identical, "
-              f"internal nodes {int((sk.feature >= 0).sum())}", flush=True)
-    print(f"phase 1 ok: max |kernel - plain| {max_err:.3g} "
-          f"(leaf values rtol {LV_TOL['rtol']} atol {LV_TOL['atol']}, "
-          f"fits rtol {FIT_TOL['rtol']} atol {FIT_TOL['atol']})", flush=True)
-    return max_err
+            out = sweep_plain(cfg, sp_.feature, sp_.cut, sp_.leaf_idx,
+                              sp_.tree_fit, (target - sp_.allfit).contiguous(),
+                              sigma * sigma, sp_.sigma_mu * sp_.sigma_mu,
+                              var[0], var[1], consts, weights=w)
+            sp_ = as_state(sp_, out, target)
+            vp = ops.count_variable_use(out[0], P)
+            runs = {"batch": (sb, vb), "tiled": (st, vt), "plain": (sp_, vp)}
+            for a, b in err:
+                tag = f"phase 1 n={n} {case} sweep {sweep}: {a} vs {b}"
+                n_same, e = compare(tag, runs[a][0], runs[b][0],
+                                    runs[a][1], runs[b][1])
+                if n_same != C:
+                    raise AssertionError(
+                        f"{tag}: {C - n_same} of {C} chains differ")
+                err[a, b] = max(err[a, b], e)
+        print(f"phase 1 n={n} {case}: 3 sweeps, {C}/{C} chains identical "
+              "(batch vs plain, tiled vs plain, tiled vs batch), internal "
+              f"nodes {int((st.feature >= 0).sum())}", flush=True)
+    print(f"phase 1 n={n} ok: max |batch - plain| "
+          f"{err['batch', 'plain']:.3g}, |tiled - plain| "
+          f"{err['tiled', 'plain']:.3g}, |tiled - batch| "
+          f"{err['tiled', 'batch']:.3g} (leaf values rtol {LV_TOL['rtol']} "
+          f"atol {LV_TOL['atol']}, fits rtol {FIT_TOL['rtol']} atol "
+          f"{FIT_TOL['atol']})", flush=True)
+    return err["batch", "plain"], err["tiled", "plain"]
 
 
 def _time(fn, reps):
@@ -167,69 +200,127 @@ def copy_bandwidth(device, nbytes=2 ** 30, reps=5):
     return 2 * nbytes / (ms * 1e-3)
 
 
-def phase_full(device, reps=7, C=256, N=10_000, T=75):
-    """Kernel vs plain at the bench shape, and their times."""
-    from stan4bart_torch.ops import bart as ops
-    from stan4bart_torch.ops.bart_sweep_kernel import (
-        sweep_cuda, sweep_plain)
+def sweep_bytes(C, T, N, M):
+    """Bytes one sweep must move: per (chain, tree) leaf_idx and tree_fit
+    read and written (16 B per observation), the ranks table, the
+    residual in and out, the tree rows and the variates."""
+    return (C * T * N * 16 + P * N * 4 + C * N * 8
+            + C * T * (M * 4 * 2 + M * 4 * 3 + 8 * 4 + 128 * 4))
 
-    P = 9
-    cfg, state, yt, consts, gen = forest_setup(N, T, C, 3, device)
+
+def sweep_args(N, T, C, seed, device):
+    """One sweep's kernel operands from a prior-drawn forest."""
+    from stan4bart_torch.ops import bart as ops
+
+    cfg, state, yt, consts, gen = forest_setup(N, T, C, seed, device)
     state = state._replace(sigma_mu=torch.full((C,), 0.5 / (2 * np.sqrt(T)),
                                                device=device))
     var = ops.draw_variates(gen, C, T, torch.float32, device)
-    sigma2 = torch.full((C,), 1.0, device=device)
     args = (cfg, state.feature, state.cut, state.leaf_idx, state.tree_fit,
-            (yt - state.allfit).contiguous(), sigma2,
+            (yt - state.allfit).contiguous(), torch.full((C,), 1.0,
+                                                         device=device),
             (state.sigma_mu ** 2).contiguous(), var[0].contiguous(),
             var[1].contiguous(), consts)
-    outk = sweep_cuda(*args)
-    outp = sweep_plain(*args)
-    torch.cuda.synchronize()
-    sk = state._replace(feature=outk[0], cut=outk[1], leaf_value=outk[2],
-                        leaf_idx=outk[3], tree_fit=outk[4], allfit=yt - outk[5])
-    sp_ = state._replace(feature=outp[0], cut=outp[1], leaf_value=outp[2],
-                         leaf_idx=outp[3], tree_fit=outp[4],
-                         allfit=yt - outp[5])
-    n_same, err = compare("full width", sk, sp_,
-                          ops.count_variable_use(outk[0], P),
-                          ops.count_variable_use(outp[0], P))
-    print(f"phase 2: {n_same}/{C} chains identical to the plain version "
-          f"(n={N}, trees={T}, P={P}); max |kernel - plain| on them "
-          f"{err:.3g}", flush=True)
-    if n_same < C - 1:
-        raise AssertionError(f"phase 2: only {n_same}/{C} chains identical")
+    return cfg, state, yt, args
 
-    k_ms, k_all = _time(lambda: sweep_cuda(*args), reps)
+
+def check_sweep(name, outs, state, yt, C, N, T, min_same):
+    """Hold each of ``outs`` (label -> raw outputs) against ``plain``."""
+    from stan4bart_torch.ops.bart import count_variable_use
+
+    ref = as_state(state, outs["plain"], yt)
+    vref = count_variable_use(ref.feature, P)
+    res = {}
+    for label, out in outs.items():
+        if label == "plain":
+            continue
+        s = as_state(state, out, yt)
+        n_same, err = compare(f"{name} {label}", s, ref,
+                              count_variable_use(s.feature, P), vref)
+        print(f"{name}: {label} {n_same}/{C} chains identical to the plain "
+              f"version (n={N}, trees={T}, P={P}); max |kernel - plain| on "
+              f"them {err:.3g}", flush=True)
+        if n_same < min_same:
+            raise AssertionError(f"{name}: {label} only {n_same}/{C} "
+                                 "chains identical")
+        res[label] = (n_same, err)
+    return res
+
+
+def phase_full(device, reps=7, C=256, N=10_000, T=75):
+    """Both kernels vs plain at the bench shape, and their times."""
+    from stan4bart_torch.ops.bart_sweep_kernel import (
+        sweep_cuda, sweep_plain, sweep_tiled_cuda)
+
+    cfg, state, yt, args = sweep_args(N, T, C, 3, device)
+    outs = {"batch": sweep_cuda(*args), "tiled": sweep_tiled_cuda(*args),
+            "plain": sweep_plain(*args)}
+    torch.cuda.synchronize()
+    res = check_sweep("phase 2", outs, state, yt, C, N, T, C - 1)
+    same_bt = all(torch.equal(x, y) for x, y in zip(outs["batch"],
+                                                    outs["tiled"]))
+    print(f"phase 2: tiled and batch outputs bit-identical: {same_bt}",
+          flush=True)
+
+    b_ms, b_all = _time(lambda: sweep_cuda(*args), reps)
+    t_ms, t_all = _time(lambda: sweep_tiled_cuda(*args), reps)
     p_ms, p_all = _time(lambda: sweep_plain(*args), max(5, reps // 2))
-    # bytes the sweep must move: per (chain, tree) leaf_idx and tree_fit
-    # read and written (16 B per observation), the ranks table, the
-    # residual in and out, the tree rows and the variates
-    M = cfg.max_nodes
-    nbytes = (C * T * N * 16 + P * N * 4 + C * N * 8
-              + C * T * (M * 4 * 2 + M * 4 * 3 + 8 * 4 + 128 * 4))
+    nbytes = sweep_bytes(C, T, N, cfg.max_nodes)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bw = copy_bandwidth(device)
-    print(f"phase 2 times over {reps} reps: kernel median {k_ms:.4f} ms "
-          f"{[round(t, 4) for t in k_all]}; plain median {p_ms:.4f} ms; "
-          f"memory bound {bound_ms:.4f} ms ({nbytes / 1e9:.4f} GB at "
-          f"{HBM_BYTES_PER_S / 1e12} TB/s), {nbytes / bw * 1e3:.4f} ms at "
-          f"the measured copy rate {bw / 1e12:.3f} TB/s", flush=True)
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                max_abs_err=err, n_same=n_same)
+    print(f"phase 2 times over {reps} reps: batch kernel median {b_ms:.4f} "
+          f"ms {[round(t, 4) for t in b_all]}; tiled kernel median "
+          f"{t_ms:.4f} ms {[round(t, 4) for t in t_all]}; plain median "
+          f"{p_ms:.4f} ms; memory bound {bound_ms:.4f} ms ({nbytes / 1e9:.4f} "
+          f"GB at {HBM_BYTES_PER_S / 1e12} TB/s), {nbytes / bw * 1e3:.4f} ms "
+          f"at the measured copy rate {bw / 1e12:.3f} TB/s", flush=True)
+    return dict(ms=b_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                max_abs_err=res["batch"][1],
+                tiled_ms=t_ms, tiled_max_abs_err=res["tiled"][1])
 
 
-def phase_main(device, iters=150, warmup=75, n=10_000, chains=256,
+def phase_large(device, N, C, reps=7, T=75):
+    """The obs-tiled kernel vs plain at a large-n shape, and their times."""
+    from stan4bart_torch.ops.bart_sweep_kernel import (
+        sweep_plain, sweep_tiled_cuda)
+
+    cfg, state, yt, args = sweep_args(N, T, C, 4, device)
+    outs = {"tiled": sweep_tiled_cuda(*args), "plain": sweep_plain(*args)}
+    torch.cuda.synchronize()
+    n_same, err = check_sweep(f"phase 4 n={N}", outs, state, yt, C, N, T,
+                              C - 1)["tiled"]
+    del outs
+    k_ms, k_all = _time(lambda: sweep_tiled_cuda(*args), reps)
+    p_ms, p_all = _time(lambda: sweep_plain(*args), max(5, reps // 2))
+    nbytes = sweep_bytes(C, T, N, cfg.max_nodes)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase 4 n={N} chains={C}: tiled kernel median {k_ms:.4f} ms "
+          f"{[round(t, 4) for t in k_all]}; plain median {p_ms:.4f} ms "
+          f"{[round(t, 4) for t in p_all]}; memory bound {bound_ms:.4f} ms "
+          f"({nbytes / 1e9:.4f} GB at {HBM_BYTES_PER_S / 1e12} TB/s); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    torch.cuda.empty_cache()
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, max_abs_err=err,
+                n_same=n_same)
+
+
+def phase_main(device, label, n, chains, kernel, iters=150, warmup=75,
                trees=75):
-    """The port's main path at full width, through the user entry point."""
+    """A main path at full width, through the user entry point: every
+    sweep must launch ``kernel`` and no other sweep kernel."""
     import stan4bart_torch
-    from stan4bart_torch.ops.bart_sweep_kernel import bart_sweep_fused_batch
+    from stan4bart_torch.ops.bart_sweep_kernel import (
+        bart_sweep_fused_batch, bart_sweep_fused_batch_tiled)
     from stan4bart_torch.utils.friedman import (
         friedman_dataframe, generate_friedman_data)
 
+    counts = {"bart_sweep_batch": bart_sweep_fused_batch,
+              "bart_sweep_tiled": bart_sweep_fused_batch_tiled}
     d = generate_friedman_data(n, ranef=True, causal=True)
     df = friedman_dataframe(d)
-    bart_sweep_fused_batch.launches = 0
+    for fn in counts.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     fit = stan4bart_torch.stan4bart(
         FLAGSHIP, df, treatment="z", chains=chains, iter=iters,
@@ -237,42 +328,50 @@ def phase_main(device, iters=150, warmup=75, n=10_000, chains=256,
         stan_args={"max_treedepth": 6}, bart_args={"n_trees": trees},
         device=device)
     wall = time.perf_counter() - t0
-    launches = bart_sweep_fused_batch.launches
+    launches = {k: fn.launches for k, fn in counts.items()}
     expected = iters * fit.prog.skip_bart + 1
-    if launches != expected:
-        raise AssertionError(f"sweep kernel launched {launches} times, "
-                             f"expected {expected}")
+    for k, got in launches.items():
+        want = expected if k == kernel else 0
+        if got != want:
+            raise AssertionError(f"{label}: {k} launched {got} times, "
+                                 f"expected {want}")
     for name in ("stan", "bart_train", "bart_test", "k"):
         arr = getattr(fit.draws, name)
         if not np.all(np.isfinite(arr)):
-            raise AssertionError(f"non-finite {name} draws")
+            raise AssertionError(f"{label}: non-finite {name} draws")
     bart = fit.fitted("indiv.bart")
     cor = float(np.corrcoef(bart - bart.mean(),
                             d["mu_bart"] - d["mu_bart"].mean())[0, 1])
     sigma = float(fit.fitted("sigma"))
+    trace = fit.extract("sigma", combine_chains=False, include_warmup=True)
+    blocks = " ".join(f"{b.mean():.3f}/{int((b.mean(0) > 1.4).sum())}"
+                      for b in np.split(trace, range(25, iters, 25)))
     stan = fit.extract("stan")
     names = fit.stan_names
     td = float(stan[names.index("treedepth__")].mean())
     tm = fit.timings
     draws_s = chains * (iters - warmup) / tm["sample"]
-    print(f"phase 3: stan4bart n={n} chains={chains} trees={trees} "
+    print(f"{label}: stan4bart n={n} chains={chains} trees={trees} "
           f"iter={iters} warmup={warmup}: {wall:.1f} s wall, sampling "
           f"{draws_s:.1f} draws/s; per-phase s: NUTS+linear/level Gibbs "
           f"{tm['nuts_gibbs']:.2f}, sweep {tm['sweep']:.2f}, post "
           f"{tm['post']:.2f}, warmup {tm['warmup']:.2f}, sample "
           f"{tm['sample']:.2f}; mean treedepth {td:.2f}", flush=True)
-    print(f"phase 3 quality: cor(indiv.bart, mu_bart) {cor:.4f} (>= 0.95), "
-          f"sigma {sigma:.4f} (0.8 < sigma < 1.4); sweep launches "
-          f"{launches} = {iters} iterations + 1 init", flush=True)
+    print(f"{label} quality: cor(indiv.bart, mu_bart) {cor:.4f} (>= 0.95), "
+          f"sigma {sigma:.4f} (0.8 < sigma < 1.4); {kernel} launches "
+          f"{launches[kernel]} = {iters} iterations + 1 init, other sweep "
+          "kernel 0", flush=True)
+    print(f"{label} sigma by 25-iteration block, warmup included (mean "
+          f"over chains/chains above 1.4): {blocks}", flush=True)
     if cor < 0.95 or not 0.8 < sigma < 1.4:
-        raise AssertionError("phase 3 quality gates failed")
-    return launches
+        raise AssertionError(f"{label} quality gates failed")
+    return launches[kernel]
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
-                    help="build and run kernel phases 1-2 only")
+                    help="build and run kernel phases 1, 2 and 4 only")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -285,27 +384,52 @@ def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    cuda_build.build("bart_sweep_batch", verbose=True)
-    print(f"build: bart_sweep_batch ({time.perf_counter() - t0:.1f} s)",
-          flush=True)
+    secs = cuda_build.build(list(KERNELS), verbose=True)
+    print("build: " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+          + f" ({time.perf_counter() - t0:.1f} s in all)", flush=True)
 
-    err1 = phase_small(device)
+    err_b, err_t = 0.0, 0.0
+    for n in (2000, 9191):
+        eb, et = phase_small(device, n)
+        err_b, err_t = max(err_b, eb), max(err_t, et)
     full = phase_full(device)
-    launches = None
+    launches = {k: None for k in KERNELS}
     if not args.kernels:
-        launches = phase_main(device)
+        launches["bart_sweep_batch"] = phase_main(
+            device, "phase 3", 10_000, 256, "bart_sweep_batch")
+    large = {n: phase_large(device, n, c)
+             for n, c in ((50_000, 64), (200_000, 16))}
+    if not args.kernels:
+        launches["bart_sweep_tiled"] = phase_main(
+            device, "phase 5", 50_000, 64, "bart_sweep_tiled", iters=300,
+            warmup=150)
 
+    big = large[50_000]
     print(json.dumps({"kernels": [{
         "name": "bart_sweep_batch",
         "route": "cuda",
         "source": "stan4bart_torch/csrc/bart_sweep_batch.cu",
         "replaces": "stan4bart_tpu/ops/bart_sweep_kernel.py:817",
-        "launches": launches,
-        "max_abs_err": max(err1, full["max_abs_err"]),
+        "launches": launches["bart_sweep_batch"],
+        "max_abs_err": max(err_b, full["max_abs_err"]),
         "ms": full["ms"],
         "kernel_ms": full["ms"],
         "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "bart_sweep_tiled",
+        "route": "cuda",
+        "source": "stan4bart_torch/csrc/bart_sweep_tiled.cu",
+        "replaces": "stan4bart_tpu/ops/bart_sweep_kernel.py:1446",
+        "launches": launches["bart_sweep_tiled"],
+        "max_abs_err": max([err_t, full["tiled_max_abs_err"]]
+                           + [r["max_abs_err"] for r in large.values()]),
+        "ms": big["ms"],
+        "kernel_ms": big["ms"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
     }]}), flush=True)

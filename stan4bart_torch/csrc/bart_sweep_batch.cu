@@ -8,7 +8,8 @@
 // normals, and updates the tree's leaf indices, its fitted values and
 // the running residual.  The kernel draws no random numbers, so it and
 // its plain PyTorch version (ops/bart.py:tree_step) consume identical
-// variates.
+// variates.  The per-tree steps and their fixed-order sums are in
+// sweep_common.cuh, shared with the obs-tiled kernel.
 //
 // What bounds it: per (chain, tree) it reads leaf_idx, tree_fit and one
 // cut-rank row (shared by every chain, so it stays in L2) and writes
@@ -16,163 +17,37 @@
 // a memory-bound stream.  The design keeps everything else on chip: the
 // running residual (4 B per observation) and a byte copy of the tree's
 // leaf indices live in shared memory for the whole sweep, so each
-// observation's device-memory bytes are touched once per tree.
-//
-// Determinism: every sum is taken in a fixed order.  The six move
-// statistics are per-thread strided sums, then a warp butterfly, then
-// the warps in order.  The per-node leaf statistics go to one
-// 128-bin histogram per warp; within a warp, lanes holding the same node
-// are grouped with __match_any_sync and their leader adds the group in
-// lane order, so no two lanes ever add to one bin at once.  The warp
-// histograms are summed in warp order.  The same inputs give the same
-// forest on every run.
+// observation's device-memory bytes are touched once per tree.  That
+// caps n at what shared memory holds (the wrapper sends n > 10368 to the
+// obs-tiled kernel, bart_sweep_tiled.cu).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sweep_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kNodePad = 128;   // heap slots; max_nodes <= 127
-constexpr int kLeaf = -1;
-constexpr int kInactive = -2;
-constexpr unsigned kFull = 0xffffffffu;
-
-struct SweepArgs {
-  const int32_t* feature_in;   // (C, T, M)
-  const int32_t* cut_in;       // (C, T, M)
-  const int32_t* lidx_in;      // (C, T, N)
-  const float* tfit_in;        // (C, T, N)
-  const float* resid0;         // (C, N) y_target - allfit
-  const float* sigma2;         // (C,)
-  const float* tau2;           // (C,)
-  const float* u;              // (C, T, 8) proposal uniforms
-  const float* zn;             // (C, T, 128) leaf normals
-  const int32_t* ranks_t;      // (P, N) cut ranks
-  const float* spcum;          // (P,) split-probability cumsum
-  const float* psplit;         // (max_depth + 2,) p_split by depth
-  const float* weights;        // (N,) or nullptr
-  int32_t* feature_out;
-  int32_t* cut_out;
-  float* lv_out;               // (C, T, M)
-  int32_t* lidx_out;
-  float* tfit_out;
-  float* resid_out;            // (C, N)
-  int T, N, P, M, max_depth, n_cuts;
-  float p_grow, p_prune;
-  float trans_grow0;           // log(p_prune) - log(p_grow)
-  float trans_prune0;          // log(p_grow) - log(p_prune)
-};
-
-// index of the target-th set bit (0-based, from node 0 up) of a 128-bit
-// mask; 0 when there is none
-__device__ int pick_marked(const unsigned* bits, int count, float u) {
-  int target = (int)floorf(u * (float)count);
-  target = min(target, count - 1);
-  if (target < 0) return 0;
-  for (int k = 0; k < 4; ++k) {
-    int pc = __popc(bits[k]);
-    if (target < pc) {
-      unsigned b = bits[k];
-      for (int j = 0; j < target; ++j) b &= b - 1;
-      return 32 * k + (__ffs(b) - 1);
-    }
-    target -= pc;
-  }
-  return 0;
-}
-
-__device__ float leaf_marginal(float n, float s, float s2, float t2) {
-  float denom = s2 + n * t2;
-  return 0.5f * logf(s2 / denom) + t2 * s * s / (2.0f * s2 * denom);
-}
+using namespace s4b;
 
 __global__ void __launch_bounds__(kThreads)
 bart_sweep_batch_kernel(SweepArgs a) {
   extern __shared__ float4 smem4[];
   float* R = reinterpret_cast<float*>(smem4);               // (N,)
   uint8_t* lidx_s = reinterpret_cast<uint8_t*>(R + a.N);    // (N,)
+  __shared__ TreeShared s;
 
-  __shared__ int feat_s[kNodePad];
-  __shared__ int cut_s[kNodePad];
-  __shared__ float lv_s[kNodePad];
-  __shared__ float hist[kWarps][2][kNodePad];
-  __shared__ float red_s[kWarps][6];
-  __shared__ float stage_w[kWarps][32];
-  __shared__ float stage_wr[kWarps][32];
-  __shared__ unsigned nog_bits_s[4];
-  // eta, lft, rgt, move (0 grow, 1 prune, 2 change), accept, v, c,
-  // n_leaf, n_nog
-  __shared__ int sc[9];
-
-  const int N = a.N, M = a.M, T = a.T;
+  const int N = a.N, T = a.T;
   const int c = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const float s2 = a.sigma2[c], t2 = a.tau2[c];
 
   for (int i = tid; i < N; i += kThreads) R[i] = a.resid0[(size_t)c * N + i];
 
   for (int t = 0; t < T; ++t) {
     const size_t ct = (size_t)c * T + t;
-    const float* u = a.u + ct * 8;
-    for (int m = tid; m < kNodePad; m += kThreads) {
-      feat_s[m] = m < M ? a.feature_in[ct * M + m] : kInactive;
-      cut_s[m] = m < M ? a.cut_in[ct * M + m] : 0;
-    }
-    for (int j = tid; j < kWarps * 2 * kNodePad; j += kThreads)
-      (&hist[0][0][0])[j] = 0.0f;
-    __syncthreads();
-
-    // (a) node picks and proposal draws: one warp, one bit per node
-    if (warp == 0) {
-      unsigned leaf_bits[4], nog_bits[4];
-      for (int k = 0; k < 4; ++k) {
-        int node = 32 * k + lane;
-        int f = feat_s[node];
-        int lc = 2 * node + 1, rc = 2 * node + 2;
-        int fl = lc < M ? feat_s[lc] : kInactive;
-        int fr = rc < M ? feat_s[rc] : kInactive;
-        leaf_bits[k] = __ballot_sync(kFull, f == kLeaf);
-        nog_bits[k] = __ballot_sync(kFull, f >= 0 && fl == kLeaf &&
-                                               fr == kLeaf);
-      }
-      if (lane == 0) {
-        int n_leaf = 0, n_nog = 0;
-        for (int k = 0; k < 4; ++k) {
-          n_leaf += __popc(leaf_bits[k]);
-          n_nog += __popc(nog_bits[k]);
-          nog_bits_s[k] = nog_bits[k];
-        }
-        float u_move = u[0];
-        bool grow = u_move < a.p_grow;
-        bool prune = !grow && u_move < a.p_grow + a.p_prune;
-        int v = 0;
-        for (int j = 0; j < a.P; ++j) v += a.spcum[j] <= u[3] ? 1 : 0;
-        v = min(v, a.P - 1);
-        int cn = min((int)floorf(u[4] * (float)a.n_cuts), a.n_cuts - 1);
-        int eta = grow ? pick_marked(leaf_bits, n_leaf, u[1])
-                       : pick_marked(nog_bits, max(n_nog, 1), u[2]);
-        sc[0] = eta;
-        sc[1] = min(2 * eta + 1, M - 1);
-        sc[2] = min(2 * eta + 2, M - 1);
-        sc[3] = grow ? 0 : (prune ? 1 : 2);
-        sc[5] = v;
-        sc[6] = cn;
-        sc[7] = n_leaf;
-        sc[8] = n_nog;
-      }
-    }
-    __syncthreads();
-
-    const int eta = sc[0], lft = sc[1], rgt = sc[2], move = sc[3];
-    const int cn = sc[6];
-    const bool grow = move == 0;
-    const int32_t* rank_row = a.ranks_t + (size_t)sc[5] * N;
+    const Move mv = begin_tree(a, s, ct);
     const int32_t* li_in = a.lidx_in + ct * N;
     const float* tf_in = a.tfit_in + ct * N;
 
-    // (b) partial residual and the six move statistics
+    // partial residual and the six move statistics
     float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int i = tid; i < N; i += kThreads) {
       int li = li_in[i];
@@ -180,93 +55,13 @@ bart_sweep_batch_kernel(SweepArgs a) {
       R[i] = r;
       float w = a.weights ? a.weights[i] : 1.0f;
       float wr = a.weights ? w * r : r;
-      bool gl = rank_row[i] <= cn;
+      bool gl = mv.rank_row[i] <= mv.cn;
       lidx_s[i] = (uint8_t)(li | (gl ? 0x80 : 0));
-      bool ml = li == lft;
-      bool mem = grow ? (li == eta) : (ml || li == rgt);
-      if (mem) {
-        acc[0] += w;
-        acc[1] += wr;
-        if (gl) {
-          acc[2] += w;
-          acc[3] += wr;
-        }
-      }
-      if (ml) {
-        acc[4] += w;
-        acc[5] += wr;
-      }
+      add_move_stats(acc, mv, li, gl, w, wr);
     }
-    for (int k = 0; k < 6; ++k) {
-      float x = acc[k];
-      for (int off = 16; off > 0; off >>= 1)
-        x += __shfl_xor_sync(kFull, x, off);
-      if (lane == 0) red_s[warp][k] = x;
-    }
-    __syncthreads();
+    const bool accept = decide(a, s, mv, acc, ct, s2, t2);
 
-    // (c) the Metropolis-Hastings decision
-    if (tid == 0) {
-      float st[6];
-      for (int k = 0; k < 6; ++k) {
-        float x = 0.0f;
-        for (int wp = 0; wp < kWarps; ++wp) x += red_s[wp][k];
-        st[k] = x;
-      }
-      float n_all = st[0], s_all = st[1], n_ln = st[2], s_ln = st[3];
-      float n_lo = st[4], s_lo = st[5];
-      float n_rn = n_all - n_ln, s_rn = s_all - s_ln;
-      float n_ro = n_all - n_lo, s_ro = s_all - s_lo;
-      float m_all = leaf_marginal(n_all, s_all, s2, t2);
-      float m_ln = leaf_marginal(n_ln, s_ln, s2, t2);
-      float m_rn = leaf_marginal(n_rn, s_rn, s2, t2);
-      float m_lo = leaf_marginal(n_lo, s_lo, s2, t2);
-      float m_ro = leaf_marginal(n_ro, s_ro, s2, t2);
-      int n_leaf = sc[7], n_nog = sc[8];
-      int d = 31 - __clz(eta + 1);
-      float ps_d = a.psplit[d];
-      float split_term = logf(ps_d)
-          + 2.0f * log1pf(-a.psplit[min(d + 1, a.max_depth + 1)])
-          - log1pf(-ps_d);
-      bool valid;
-      float log_accept;
-      if (grow) {
-        int parent = eta > 0 ? (eta - 1) / 2 : 0;
-        bool parent_was_nog =
-            eta > 0 && ((nog_bits_s[parent >> 5] >> (parent & 31)) & 1u);
-        int n_nog_grow = n_nog + 1 - (parent_was_nog ? 1 : 0);
-        float trans = a.trans_grow0 + logf((float)n_leaf)
-            - logf((float)n_nog_grow);
-        log_accept = split_term + trans + (m_ln + m_rn - m_all);
-        valid = d < a.max_depth && n_ln > 0.0f && n_rn > 0.0f;
-      } else if (move == 1) {
-        float trans = a.trans_prune0 + logf((float)n_nog)
-            - logf((float)max(n_leaf - 1, 1));
-        log_accept = -split_term + trans + (m_all - m_lo - m_ro);
-        valid = n_nog > 0;
-      } else {
-        log_accept = m_ln + m_rn - m_lo - m_ro;
-        valid = n_nog > 0 && n_ln > 0.0f && n_rn > 0.0f;
-      }
-      bool accept = valid && (logf(u[5]) < log_accept);
-      if (accept) {
-        if (move == 1) {
-          feat_s[eta] = kLeaf;
-          feat_s[lft] = kInactive;
-          feat_s[rgt] = kInactive;
-        } else {
-          feat_s[eta] = sc[5];
-          feat_s[lft] = kLeaf;
-          feat_s[rgt] = kLeaf;
-          cut_s[eta] = cn;
-        }
-      }
-      sc[4] = accept ? 1 : 0;
-    }
-    __syncthreads();
-
-    // (d) new leaf indices and per-node leaf statistics
-    const bool accept = sc[4] != 0;
+    // new leaf indices and per-node leaf statistics
     int32_t* li_out = a.lidx_out + ct * N;
     for (int base = 0; base < N; base += kThreads) {
       int i = base + tid;
@@ -275,56 +70,21 @@ bart_sweep_batch_kernel(SweepArgs a) {
       float w = 0.0f, wr = 0.0f;
       if (in) {
         int packed = lidx_s[i];
-        li = packed & 0x7f;
-        if (accept) {
-          bool mem = grow ? (li == eta) : (li == lft || li == rgt);
-          if (mem) li = move == 1 ? eta : ((packed & 0x80) ? lft : rgt);
-        }
+        li = moved_leaf(mv, accept, packed & 0x7f, (packed & 0x80) != 0);
         li_out[i] = li;
         lidx_s[i] = (uint8_t)li;
         w = a.weights ? a.weights[i] : 1.0f;
         wr = a.weights ? w * R[i] : R[i];
       }
-      stage_w[warp][lane] = w;
-      stage_wr[warp][lane] = wr;
-      unsigned grp = __match_any_sync(kFull, li);
-      __syncwarp();
-      if (in && lane == __ffs(grp) - 1) {
-        float sw = 0.0f, swr = 0.0f;
-        for (unsigned g = grp; g; g &= g - 1) {
-          int l = __ffs(g) - 1;
-          sw += stage_w[warp][l];
-          swr += stage_wr[warp][l];
-        }
-        hist[warp][0][li] += sw;
-        hist[warp][1][li] += swr;
-      }
-      __syncwarp();
+      hist_add(s, in, li, w, wr);
     }
     __syncthreads();
+    draw_leaves(a, s, ct, s2, t2);
 
-    // (e) conjugate leaf draws
-    for (int m = tid; m < M; m += kThreads) {
-      float cnt = 0.0f, sm = 0.0f;
-      for (int wp = 0; wp < kWarps; ++wp) {
-        cnt += hist[wp][0][m];
-        sm += hist[wp][1][m];
-      }
-      float pv = 1.0f / (cnt / s2 + 1.0f / t2);
-      float pm = pv * sm / s2;
-      float mu = pm + sqrtf(pv) * a.zn[ct * kNodePad + m];
-      float lv = feat_s[m] == kLeaf ? mu : 0.0f;
-      lv_s[m] = lv;
-      a.lv_out[ct * M + m] = lv;
-      a.feature_out[ct * M + m] = feat_s[m];
-      a.cut_out[ct * M + m] = cut_s[m];
-    }
-    __syncthreads();
-
-    // (f) the tree's new fit and the residual without it
+    // the tree's new fit and the residual without it
     float* tf_out = a.tfit_out + ct * N;
     for (int i = tid; i < N; i += kThreads) {
-      float nf = lv_s[lidx_s[i]];
+      float nf = s.lv[lidx_s[i]];
       tf_out[i] = nf;
       R[i] = R[i] - nf;
     }

@@ -12,7 +12,8 @@ advances all chains:
 3. parametric mean -> BART offset, sigma handoff, and the warmup leaf-scale
    rescale schedule ``1 << (8 it / warmup)``;
 4. ``skip_bart`` BART sweeps over all chains in one call of the sweep
-   kernel (probit: truncated-normal latents first);
+   kernel, the obs-tiled one past n = 10368 (probit: truncated-normal
+   latents first);
 5. the additive-level interweave between the trees and the random-effect
    intercepts (``level_gibbs``);
 6. BART fit -> Stan offset, and the draw row: 7 NUTS diagnostics then the
@@ -37,7 +38,9 @@ from stan4bart_torch.models.parametric import ParametricModel
 from stan4bart_torch.ops import bart as bart_ops
 from stan4bart_torch.ops.bart import BartConfig, BartState
 from stan4bart_torch.ops.bart_sweep_kernel import (
+    MAX_NPAD,
     bart_sweep_fused_batch,
+    bart_sweep_fused_batch_tiled,
     make_sweep_consts,
 )
 from stan4bart_torch.ops.nuts import (
@@ -144,6 +147,9 @@ class GibbsProgram:
                         else None)
         self.sweep_consts = make_sweep_consts(
             bart_cfg, ranks, self.split_probs, device=self.device)
+        # the obs-tiled sweep kernel past the single-pass kernel's shared
+        # memory, on the JAX package's boundary (npad 10368)
+        self.sweep_tiled = self.sweep_consts.npad > MAX_NPAD
 
         D = pm.cfg.K + pm.cfg.q
         if gram_lik is None:
@@ -230,9 +236,10 @@ class GibbsProgram:
         return cfg.node_scale * rng_scale / (k * math.sqrt(cfg.num_trees))
 
     def _sweep(self, bart_state, y_target, sigma, gen):
-        return bart_sweep_fused_batch(
-            self.bart_cfg, bart_state, y_target, self.sweep_consts, sigma,
-            gen, weights=self.weights)
+        sweep = (bart_sweep_fused_batch_tiled if self.sweep_tiled
+                 else bart_sweep_fused_batch)
+        return sweep(self.bart_cfg, bart_state, y_target, self.sweep_consts,
+                     sigma, gen, weights=self.weights)
 
     def _logp(self, q_anchor, stan_offset, y_stan):
         """The per-chain log-density NUTS runs on this iteration."""

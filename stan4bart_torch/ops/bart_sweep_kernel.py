@@ -1,16 +1,20 @@
-"""Whole-sweep BART Gibbs kernel over a batch of chains.
+"""Whole-sweep BART Gibbs kernels over a batch of chains.
 
-Counterpart of the TPU kernel ``_sweep_call_batch`` in
-``stan4bart_tpu/ops/bart_sweep_kernel.py`` (public wrapper
-``bart_sweep_fused_batch``).  One call runs the sequential sweep over all
-trees of every chain:
+Counterparts of the TPU kernels ``_sweep_call_batch`` and
+``_sweep_call_tiled`` in ``stan4bart_tpu/ops/bart_sweep_kernel.py``
+(public wrappers ``bart_sweep_fused_batch`` and
+``bart_sweep_fused_batch_tiled``).  One call runs the sequential sweep
+over all trees of every chain:
 
-* on a CUDA tensor it launches the hand-written Hopper kernel
+* on a CUDA tensor it launches a hand-written Hopper kernel:
   ``stan4bart_torch/csrc/bart_sweep_batch.cu`` (one thread block per
-  chain, the running residual in shared memory);
-* on a CPU tensor it runs the plain PyTorch version of the same function,
+  chain, the running residual in shared memory, n <= 10368) or
+  ``stan4bart_torch/csrc/bart_sweep_tiled.cu`` (the same function with
+  the residual in device memory and the observations streamed in tiles,
+  any n);
+* on a CPU tensor it runs the plain PyTorch version of that function,
   ``ops/bart.py:sweep_trees`` (``tree_step`` looped over trees with the
-  residual carried as the kernel carries it).
+  residual carried as the kernels carry it), for both wrappers.
 
 Both consume the same pre-drawn variates ``(u (C, T, 8), zn (C, T,
 128))``, drawn here from the caller's generator when not supplied, so
@@ -40,7 +44,7 @@ from stan4bart_torch.utils.device import resolve_device
 
 NODE_PAD = 128
 # widest observation row the single-pass kernel takes (the JAX package's
-# single-pass limit; wider fits need the obs-tiled kernel)
+# single-pass limit); wider fits go to the obs-tiled kernel
 MAX_NPAD = 10_368
 
 
@@ -103,10 +107,10 @@ def _ptr(x):
     return ctypes.c_void_p(0 if x is None else x.data_ptr())
 
 
-def sweep_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
-               tau2, u, zn, consts: SweepConsts, weights=None):
-    """Launch the Hopper kernel on the current stream; same contract as
-    ``sweep_plain`` (all float inputs float32)."""
+def _launch(name: str, cfg: BartConfig, feature, cut, lidx, tfit, resid0,
+            sigma2, tau2, u, zn, consts: SweepConsts, weights=None):
+    """Check the operands and launch kernel ``csrc/<name>.cu`` on the
+    current stream; returns its fresh outputs."""
     from stan4bart_torch.ops.cuda_build import load
 
     C, T, M = feature.shape
@@ -135,8 +139,7 @@ def sweep_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
     tfit_o = torch.empty_like(tfit)
     resid_o = torch.empty_like(resid0)
 
-    lib = load("bart_sweep_batch")
-    fn = lib.bart_sweep_batch_launch
+    fn = getattr(load(name), f"{name}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
                    + [ctypes.c_float] * 4 + [ctypes.c_void_p])
@@ -152,41 +155,53 @@ def sweep_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
              math.log(cfg.p_grow) - math.log(cfg.p_prune),
              ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"bart_sweep_batch launch failed: CUDA error "
-                           f"{err}")
-    bart_sweep_fused_batch.launches += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return feature_o, cut_o, lv_o, lidx_o, tfit_o, resid_o
 
 
-def check_kernel_supports(consts: SweepConsts, dtype) -> None:
-    """Raise for a sweep the CUDA kernel does not take: float32 state and
-    n <= 10368 (wider fits need the obs-tiled kernel)."""
+def sweep_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
+               tau2, u, zn, consts: SweepConsts, weights=None):
+    """Launch ``csrc/bart_sweep_batch.cu`` on the current stream; same
+    contract as ``sweep_plain`` (all float inputs float32)."""
+    out = _launch("bart_sweep_batch", cfg, feature, cut, lidx, tfit, resid0,
+                  sigma2, tau2, u, zn, consts, weights)
+    bart_sweep_fused_batch.launches += 1
+    return out
+
+
+def sweep_tiled_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
+                     sigma2, tau2, u, zn, consts: SweepConsts,
+                     weights=None):
+    """Launch the obs-tiled ``csrc/bart_sweep_tiled.cu`` on the current
+    stream; same contract as ``sweep_plain`` at any n (all float inputs
+    float32)."""
+    out = _launch("bart_sweep_tiled", cfg, feature, cut, lidx, tfit, resid0,
+                  sigma2, tau2, u, zn, consts, weights)
+    bart_sweep_fused_batch_tiled.launches += 1
+    return out
+
+
+def check_kernel_supports(consts: SweepConsts, dtype,
+                          tiled: bool = False) -> None:
+    """Raise for a sweep a CUDA kernel does not take: float32 state only;
+    past npad 10368 only the obs-tiled kernel."""
     if dtype != torch.float32:
-        raise ValueError("the CUDA sweep kernel requires float32 state")
-    if consts.npad > MAX_NPAD:
-        raise NotImplementedError(
-            f"n = {consts.n_obs} needs the obs-tiled sweep kernel "
-            f"(npad {consts.npad} > {MAX_NPAD}), which is not ported yet "
-            "(ROADMAP queue 2 item 2)")
+        raise ValueError("the CUDA sweep kernels require float32 state")
+    if not tiled and consts.npad > MAX_NPAD:
+        raise ValueError(
+            f"n = {consts.n_obs} (npad {consts.npad} > {MAX_NPAD}) is past "
+            "the single-pass sweep kernel's shared memory; use "
+            "bart_sweep_fused_batch_tiled")
 
 
-def bart_sweep_fused_batch(cfg: BartConfig, state: BartState, y_target,
-                           consts: SweepConsts, sigma, gen, *, weights=None,
-                           variates=None):
-    """One sweep over all trees of a batched BartState (leading chain
-    axis).  y_target (C, N), sigma (C,), weights (N,) or None, gen a
-    ``torch.Generator`` on the state's device (unused when ``variates``
-    are given).  Returns (state, varcount (C, P)).
-
-    On a CUDA state this launches the Hopper kernel (float32 only; the
-    single-pass kernel takes n <= 10368, wider fits raise); on a CPU state
-    it runs the plain version."""
+def _fused(tiled: bool, cfg: BartConfig, state: BartState, y_target,
+           consts: SweepConsts, sigma, gen, weights, variates):
     dev = state.allfit.device
     dtype = state.allfit.dtype
     C, T = state.feature.shape[:2]
     on_cuda = dev.type == "cuda"
     if on_cuda:
-        check_kernel_supports(consts, dtype)
+        check_kernel_supports(consts, dtype, tiled=tiled)
     work = torch.float32 if on_cuda else dtype
     if variates is None:
         variates = draw_variates(gen, C, T, torch.float32, dev)
@@ -201,7 +216,8 @@ def bart_sweep_fused_batch(cfg: BartConfig, state: BartState, y_target,
             state.tree_fit.to(work).contiguous(), resid0, sigma2, tau2,
             u, zn, consts)
     if on_cuda:
-        feature, cut, lv, lidx, tfit, resid = sweep_cuda(*args, weights=w)
+        launch = sweep_tiled_cuda if tiled else sweep_cuda
+        feature, cut, lv, lidx, tfit, resid = launch(*args, weights=w)
     else:
         feature, cut, lv, lidx, tfit, resid = sweep_plain(*args, weights=w)
     new_state = state._replace(
@@ -211,4 +227,31 @@ def bart_sweep_fused_batch(cfg: BartConfig, state: BartState, y_target,
     return new_state, count_variable_use(feature, consts.spcum.shape[0])
 
 
+def bart_sweep_fused_batch(cfg: BartConfig, state: BartState, y_target,
+                           consts: SweepConsts, sigma, gen, *, weights=None,
+                           variates=None):
+    """One sweep over all trees of a batched BartState (leading chain
+    axis).  y_target (C, N), sigma (C,), weights (N,) or None, gen a
+    ``torch.Generator`` on the state's device (unused when ``variates``
+    are given).  Returns (state, varcount (C, P)).
+
+    On a CUDA state this launches ``csrc/bart_sweep_batch.cu`` (float32
+    only, n <= 10368; wider fits raise and belong to
+    ``bart_sweep_fused_batch_tiled``); on a CPU state it runs the plain
+    version."""
+    return _fused(False, cfg, state, y_target, consts, sigma, gen, weights,
+                  variates)
+
+
+def bart_sweep_fused_batch_tiled(cfg: BartConfig, state: BartState,
+                                 y_target, consts: SweepConsts, sigma, gen,
+                                 *, weights=None, variates=None):
+    """``bart_sweep_fused_batch`` at any n: on a CUDA state this launches
+    the obs-tiled ``csrc/bart_sweep_tiled.cu`` (float32 only); on a CPU
+    state it runs the same plain version."""
+    return _fused(True, cfg, state, y_target, consts, sigma, gen, weights,
+                  variates)
+
+
 bart_sweep_fused_batch.launches = 0
+bart_sweep_fused_batch_tiled.launches = 0

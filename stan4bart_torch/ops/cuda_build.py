@@ -4,8 +4,9 @@ Each kernel source ``stan4bart_torch/csrc/<name>.cu`` exposes a plain C
 launcher.  It is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library under ``build/stan4bart_torch/`` at the root of the
 checkout on first use, and loaded with ``ctypes``.  The library's file
-name carries a hash of the source, so an edited source is rebuilt.
-Nothing here runs when the module is imported.
+name carries a hash of the source and of every ``csrc`` header it
+includes, so an edited source or header is rebuilt.  Nothing here runs
+when the module is imported.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,6 +29,7 @@ NVCC_FLAGS = [
     # their plain PyTorch versions do
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -40,35 +43,63 @@ def _nvcc() -> str:
     return nvcc
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` files it includes, directly or
+    through another include, in the order first met."""
+    out: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(name: str, verbose: bool = False) -> float:
-    """Compile kernel ``name`` unless it is built already.  Returns the
-    seconds the build took (0.0 for a library already present); raises
-    with the compiler's output when the build fails."""
-    out = library_path(name)
-    if out.exists():
-        return 0.0
+def build(names: list[str], verbose: bool = False) -> dict[str, float]:
+    """Compile the kernels ``names`` that are not built already, one nvcc
+    process each, all started together.  Returns each kernel's build
+    seconds (0.0 for a library already present); raises with the
+    compiler's output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
+    procs, seconds, failed = {}, {}, []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if verbose and log:
-        print(log, flush=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-    os.replace(tmp, out)
-    return time.perf_counter() - t0
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS]
+        if verbose:
+            cmd += ["-Xptxas", "-v"]
+        cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    for name, (proc, tmp, out) in procs.items():
+        log = proc.communicate()[0]
+        seconds[name] = time.perf_counter() - t0
+        if verbose and log:
+            print(log, flush=True)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -77,7 +108,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         path = library_path(name)
         if not path.exists():
-            build(name)
+            build([name])
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
     return lib

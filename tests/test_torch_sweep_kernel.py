@@ -88,10 +88,14 @@ def test_kernel_limits_raise():
     consts = tk.make_sweep_consts(tcfg, ranks, np.full(3, 1 / 3),
                                   device="cpu")
     assert consts.npad > tk.MAX_NPAD
-    with pytest.raises(NotImplementedError, match="obs-tiled"):
+    # past npad 10368 only the obs-tiled kernel takes the sweep
+    with pytest.raises(ValueError, match="bart_sweep_fused_batch_tiled"):
         tk.check_kernel_supports(consts, torch.float32)
-    with pytest.raises(ValueError, match="float32"):
-        tk.check_kernel_supports(consts._replace(npad=128), torch.float64)
+    tk.check_kernel_supports(consts, torch.float32, tiled=True)
+    for tiled in (False, True):
+        with pytest.raises(ValueError, match="float32"):
+            tk.check_kernel_supports(consts._replace(npad=128),
+                                     torch.float64, tiled=tiled)
     tk.check_kernel_supports(consts._replace(npad=tk.MAX_NPAD),
                              torch.float32)
     with pytest.raises(ValueError, match="max_depth <= 6"):
