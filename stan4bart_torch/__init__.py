@@ -7,13 +7,12 @@ Gibbs-alternated with NUTS over the rstanarm multilevel log-posterior,
     binary:      P(y_i = 1 | b) = Phi( f(X^b_i) + X^f_i beta + Z_i b )
 
 with every chain of a fit advanced as one batch on one device.  The BART
-sweep runs as a hand-written CUDA kernel on the GPU
-(``csrc/bart_sweep_batch.cu``) and as its plain PyTorch version on the
-CPU.  Entry points run on ``device="cuda"`` unless the caller passes
-``device="cpu"``.
+sweep runs as a hand-written CUDA kernel on the GPU (``csrc/*.cu``) and
+as its plain PyTorch version on the CPU.  Entry points run on
+``device="cuda"`` unless the caller passes ``device="cpu"``.
 """
 
-from stan4bart_torch.fit import stan4bart  # noqa: F401
+from stan4bart_torch.fit import chi, stan4bart  # noqa: F401
 from stan4bart_torch.models import priors  # noqa: F401
 from stan4bart_torch.models.priors import (  # noqa: F401
     cauchy,

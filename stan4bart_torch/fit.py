@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from stan4bart_torch.formula.design import ModelFrame, build_model_frame
-from stan4bart_torch.gibbs import OFFSET_TYPES, GibbsProgram
+from stan4bart_torch.gibbs import OFFSET_TYPES, GibbsDraw, GibbsProgram
 from stan4bart_torch.models.assemble import build_parametric_model
 from stan4bart_torch.ops.bart import BartConfig
 from stan4bart_torch.ops.nuts import NutsConfig
@@ -112,12 +112,18 @@ def _resolve_bart_args(bart_args: dict | None, is_binary: bool):
             _unported(f"bart_args {name}")
     pop("sweep_kernel")   # the port always runs its sweep kernel
 
-    k_init = 2.0
+    # k: numeric -> fixed; chi spec (dict or ("chi", df, scale)) ->
+    # sampled from k = 2; default = fixed k = 2
+    k_init, k_df, k_scale = 2.0, 0.0, float("inf")
     if k is not None:
         if isinstance(k, (int, float)):
             k_init = float(k)
+        elif isinstance(k, dict) and k.get("dist") == "chi":
+            k_df, k_scale = float(k["df"]), float(k["scale"])
+        elif isinstance(k, (tuple, list)) and k and k[0] == "chi":
+            k_df, k_scale = float(k[1]), float(k[2])
         else:
-            _unported("a chi(df, scale) hyperprior on k")
+            raise ValueError(f"cannot interpret bart k spec: {k!r}")
 
     if ba:
         warnings.warn(f"ignoring unsupported bart_args: {sorted(ba)}")
@@ -125,9 +131,52 @@ def _resolve_bart_args(bart_args: dict | None, is_binary: bool):
     cfg = BartConfig(
         num_trees=n_trees, max_depth=max_depth, n_cuts=n_cuts,
         power=power, base=base, node_scale=3.0 if is_binary else 0.5,
-        k_init=k_init, sigma_mu_fixed=sigma_mu_fixed,
+        k_init=k_init, k_df=k_df, k_scale=k_scale,
+        sigma_mu_fixed=sigma_mu_fixed,
     )
     return cfg, split_probs
+
+
+def chi(df=1.25, scale=float("inf")):
+    """k hyperprior spec for ``bart_args={"k": chi(...)}``, mirroring the
+    reference's chi() quoting (stan4bart.R:202-210)."""
+    return {"dist": "chi", "df": df, "scale": scale}
+
+
+class CallbackDraw:
+    """Named per-iteration view of ONE chain handed to user callbacks —
+    parity with the reference's (yhat.train, yhat.test, stan named vector)
+    environment (init.cpp:849-911; test-11-callback.R).
+
+    Attributes: ``yhat_train`` (n,), ``yhat_test`` (n_test,) or None,
+    ``stan_pars`` (full diagnostic+constrained row), ``names``; index by
+    parameter name: ``draw["beta.1"]``.  ``raw`` is the underlying
+    GibbsDraw.  The callback runs under ``torch.func.vmap`` over the
+    chains, so every value is one chain's tensor and the callback must
+    return a tensor or a dict / tuple of tensors."""
+
+    def __init__(self, draw, names, name_idx, has_test):
+        self.raw = draw
+        self.yhat_train = draw.bart_train
+        self.yhat_test = draw.bart_test if has_test else None
+        self.stan_pars = draw.stan
+        self.names = names
+        self._idx = name_idx
+
+    def __getitem__(self, name):
+        return self.raw.stan[self._idx[name]]
+
+
+def _per_chain_callback(callback, names, has_test):
+    """``callback`` of one chain's CallbackDraw as a function of the
+    chain-batched GibbsDraw (vmapped over the chain dimension)."""
+    idx = {n: i for i, n in enumerate(names)}
+
+    def one(*leaves):
+        return callback(CallbackDraw(GibbsDraw(*leaves), names, idx,
+                                     has_test))
+
+    return lambda draw: torch.func.vmap(one)(*draw)
 
 
 def _data_columns(data) -> dict:
@@ -172,6 +221,12 @@ def stan4bart(
     ``warmup`` (default iter/2); ``skip`` thins (int, pair, or dict with
     'bart'/'stan' entries).
 
+    ``callback``: optional ``f(draw) -> tensor | dict | tuple`` of one
+    chain's :class:`CallbackDraw`, stored per iteration and read back with
+    ``fit.extract("callback")``; ``keep_fits=False`` stores only the
+    callback's outputs (nothing without a callback).  Either runs the
+    per-chain driver (``GibbsProgram.step``).
+
     ``device`` (default ``"cuda"``) is where every chain runs; without a
     CUDA device this raises unless ``device="cpu"`` is given.  ``dtype``
     defaults to float32 (the CUDA sweep kernel's type); float64 runs on
@@ -185,8 +240,6 @@ def stan4bart(
         raise ValueError(f"offset_type must be one of {OFFSET_TYPES}")
     if algorithm != "nuts":
         _unported(f"algorithm={algorithm!r}")
-    if callback is not None or not keep_fits:
-        _unported("callback= / keep_fits=False")
     if cores is not None and cores > 1:
         _unported("multi-device chain dispatch (cores > 1)")
     if not isinstance(iter, (int, np.integer)) or iter <= 0:
@@ -279,6 +332,9 @@ def stan4bart(
         t0=resolved_stan_args.adapt_t0,
         stepsize_jitter=resolved_stan_args.stepsize_jitter,
         freeze_rule=resolved_stan_args.freeze_rule,
+        pooled=resolved_stan_args.pooled_adaptation,
+        pooled_parts=resolved_stan_args.pooled_parts,
+        pooled_between=resolved_stan_args.pooled_between,
     )
     bart_offset_init, sigma_init = _init_parametric_fit(mf, family)
 
@@ -310,6 +366,25 @@ def stan4bart(
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
 
+    # callback semantics (init.cpp:849-911; test-11-callback.R): the user
+    # callback gets a NAMED view of one chain's draw; its results are
+    # stored beside the raw draws, and with keep_fits=False ONLY the
+    # callback results are stored.  keep_fits=False with no callback
+    # stores nothing at all (the reference allocates no sample storage,
+    # init.cpp:691-720): only the final sampler states survive.  Any
+    # of these runs the per-chain GibbsProgram.step.
+    if callback is not None:
+        named = _per_chain_callback(callback, prog.stan_names(),
+                                    test_frame is not None)
+    if callback is not None and keep_fits:
+        cb = lambda d: {"draw": d, "callback": named(d)}  # noqa: E731
+    elif callback is not None:
+        cb = named
+    elif not keep_fits:
+        cb = lambda d: None  # noqa: E731 — store nothing
+    else:
+        cb = None
+
     if refresh is None:
         refresh = max(iter // 10, 1)
     if verbose > 1:
@@ -318,8 +393,12 @@ def stan4bart(
     t_start = time.perf_counter()
     final_states, draws, run_info = prog.run_chains_chunked(
         gen, chains, chunk_size, bart_offset_init=bart_offset_init,
-        sigma_init=sigma_init, keep_warmup=True, verbose=verbose,
-        refresh=refresh, progress=_progress)
+        sigma_init=sigma_init, keep_warmup=True, callback=cb,
+        verbose=verbose, refresh=refresh, progress=_progress)
+    callback_draws = None
+    if callback is not None and keep_fits:
+        callback_draws = draws["callback"]
+        draws = draws["draw"]
     timings = dict(
         total=time.perf_counter() - t_start,
         warmup=run_info["warmup_s"],
@@ -338,8 +417,10 @@ def stan4bart(
         stan_names=prog.stan_names(),
         test_frame=test_frame, treatment=treatment,
         final_states=final_states,
+        keep_fits=keep_fits,
         sigma_init=sigma_init,
         seed=int(seed),
+        callback_draws=callback_draws,
         prior_info=assemble_info.get("prior_summary"),
         timings=timings,
     )

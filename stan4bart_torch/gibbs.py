@@ -1,9 +1,10 @@
 """The coupled BART + NUTS Gibbs sampler over a batch of chains.
 
-Counterpart of ``stan4bart_tpu/gibbs.py`` on its main path
-(``GibbsProgram.step_batched`` driven by ``run_chains_chunked``).  Every
-state tensor carries the chain as its leading dimension; one iteration
-advances all chains:
+Counterpart of ``stan4bart_tpu/gibbs.py`` on its single-device paths:
+``GibbsProgram.step_batched`` (the main path) and the per-chain
+``GibbsProgram.step`` (fits with a callback or ``keep_fits=False``), both
+driven by ``run_chains_chunked``.  Every state tensor carries the chain as
+its leading dimension; one iteration advances all chains:
 
 1. ``skip_stan`` NUTS transitions over the parametric posterior given the
    current BART fit as offset (Gram-anchored likelihood), with Stan's
@@ -12,8 +13,9 @@ advances all chains:
 3. parametric mean -> BART offset, sigma handoff, and the warmup leaf-scale
    rescale schedule ``1 << (8 it / warmup)``;
 4. ``skip_bart`` BART sweeps over all chains in one call of the sweep
-   kernel, the obs-tiled one past n = 10368 (probit: truncated-normal
-   latents first);
+   kernel (probit: truncated-normal latents first): for ``step_batched``
+   the single-pass kernel, the obs-tiled one past n = 10368; for ``step``
+   the per-chain kernel, the obs-tiled one past n = 51840;
 5. the additive-level interweave between the trees and the random-effect
    intercepts (``level_gibbs``);
 6. BART fit -> Stan offset, and the draw row: 7 NUTS diagnostics then the
@@ -38,7 +40,9 @@ from stan4bart_torch.models.parametric import ParametricModel
 from stan4bart_torch.ops import bart as bart_ops
 from stan4bart_torch.ops.bart import BartConfig, BartState
 from stan4bart_torch.ops.bart_sweep_kernel import (
+    MAX_N_CHAIN,
     MAX_NPAD,
+    bart_sweep_fused,
     bart_sweep_fused_batch,
     bart_sweep_fused_batch_tiled,
     make_sweep_consts,
@@ -72,6 +76,20 @@ class GibbsDraw(NamedTuple):
     bart_test: torch.Tensor     # (C, N_test)
     varcount: torch.Tensor      # (C, P_bart) int32
     k: torch.Tensor             # (C,)
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of same-structured dicts, tuples, lists and
+    NamedTuples; None stays None."""
+    t = trees[0]
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (tuple, list)):
+        items = [tree_map(fn, *xs) for xs in zip(*trees)]
+        return type(t)(*items) if hasattr(t, "_fields") else type(t)(items)
+    return fn(*trees)
 
 
 class GibbsProgram:
@@ -150,6 +168,9 @@ class GibbsProgram:
         # the obs-tiled sweep kernel past the single-pass kernel's shared
         # memory, on the JAX package's boundary (npad 10368)
         self.sweep_tiled = self.sweep_consts.npad > MAX_NPAD
+        # the per-chain step's kernel up to its shared-memory ceiling, the
+        # JAX package's per-chain limit (npad 51840)
+        self.sweep_single_ok = self.sweep_consts.npad <= MAX_N_CHAIN
 
         D = pm.cfg.K + pm.cfg.q
         if gram_lik is None:
@@ -198,7 +219,8 @@ class GibbsProgram:
         it = np.arange(max(self.warmup, 1))
         mod = 1 << (8 * it // max(self.warmup, 1))
         self.rescale_sched = (it % mod) == 0
-        # wall-clock seconds per phase of step_batched, summed over calls
+        # wall-clock seconds per phase of step / step_batched, summed over
+        # calls
         self.phase_s = {"nuts_gibbs": 0.0, "sweep": 0.0, "post": 0.0}
 
     def _t(self, x):
@@ -235,9 +257,20 @@ class GibbsProgram:
             rng_scale = resp.amax(-1) - resp.amin(-1)
         return cfg.node_scale * rng_scale / (k * math.sqrt(cfg.num_trees))
 
-    def _sweep(self, bart_state, y_target, sigma, gen):
-        sweep = (bart_sweep_fused_batch_tiled if self.sweep_tiled
-                 else bart_sweep_fused_batch)
+    def _sweep(self, bart_state, y_target, sigma, gen, per_chain):
+        """One sweep of every chain.  ``step_batched`` (not per_chain)
+        takes the single-pass kernel, the obs-tiled one past npad 10368;
+        ``step`` (per_chain) the per-chain kernel up to npad 51840.  Past
+        that the JAX package's ``step`` runs its XLA sweep; the port must
+        not run its plain sweep on the card, so it takes the obs-tiled
+        kernel, which computes the same function and gives bit-identical
+        forests (a change of route, not of result)."""
+        if per_chain and self.sweep_single_ok:
+            sweep = bart_sweep_fused
+        elif per_chain or self.sweep_tiled:
+            sweep = bart_sweep_fused_batch_tiled
+        else:
+            sweep = bart_sweep_fused_batch
         return sweep(self.bart_cfg, bart_state, y_target, self.sweep_consts,
                      sigma, gen, weights=self.weights)
 
@@ -253,10 +286,11 @@ class GibbsProgram:
 
     @torch.no_grad()
     def init_state(self, gen, n_chains: int, bart_offset_init=None,
-                   sigma_init=1.0) -> GibbsState:
+                   sigma_init=1.0, per_chain: bool = False) -> GibbsState:
         """Prior-drawn tree structures, one BART sweep to seed the Stan
-        offset, probit latents from that forest, uniform(-init_r, init_r)
-        parametric starts and Stan's initial stepsize search."""
+        offset (through ``step``'s sweep when ``per_chain``), probit
+        latents from that forest, uniform(-init_r, init_r) parametric
+        starts and Stan's initial stepsize search."""
         pm, cfg = self.pm, self.bart_cfg
         C, N, dev, dt = n_chains, self.N, self.device, self.dtype
         q0 = (torch.rand((C, pm.num_upars), generator=gen, dtype=dt,
@@ -277,7 +311,8 @@ class GibbsProgram:
             latents = torch.zeros((C, N), dtype=dt, device=dev)
             y_target = self.y - bart_offset
             sigma = torch.full((C,), float(sigma_init), dtype=dt, device=dev)
-        bart_state, _ = self._sweep(bart_state, y_target, sigma, gen)
+        bart_state, _ = self._sweep(bart_state, y_target, sigma, gen,
+                                    per_chain)
         stan_offset = self._stan_offset_from_fit(bart_state.allfit)
 
         nuts = nuts_init(q0, stepsize=self.stepsize_init)
@@ -474,6 +509,19 @@ class GibbsProgram:
                      gen):
         """One Gibbs iteration of every chain; the BART sweep of all
         chains is one call of the sweep kernel.  Returns (states, draw)."""
+        return self._iterate(states, it, is_warmup, gen, per_chain=False)
+
+    @torch.no_grad()
+    def step(self, states: GibbsState, it: int, is_warmup: bool, gen):
+        """The JAX package's per-chain iteration (``GibbsProgram.step``,
+        vmapped there), which serves callbacks and ``keep_fits=False``:
+        ``step_batched``'s phases with the per-chain sweep kernel.  It
+        consumes ``gen`` as ``step_batched`` does and gives the same
+        states and draws.  Returns (states, draw)."""
+        return self._iterate(states, it, is_warmup, gen, per_chain=True)
+
+    def _iterate(self, states: GibbsState, it: int, is_warmup: bool, gen,
+                 per_chain: bool):
         t0 = time.perf_counter()
         nuts, info, bart_state, bart_offset, sigma = self._pre_sweep(
             states, it, is_warmup, gen)
@@ -488,20 +536,12 @@ class GibbsProgram:
             else:
                 y_target = self.y - bart_offset
             bart_state, varcount = self._sweep(bart_state, y_target, sigma,
-                                               gen)
+                                               gen, per_chain)
         t0 = self._mark("sweep", t0)
         out = self._post_sweep(nuts, info, bart_state, bart_offset, latents,
                                varcount, gen)
         self._mark("post", t0)
         return out
-
-    def step(self, state, it, is_warmup):
-        """The JAX package's per-chain iteration, which serves callbacks,
-        keep_fits=False and pooled adaptation; not in this slice."""
-        raise NotImplementedError(
-            "the per-chain GibbsProgram.step is not ported to "
-            "stan4bart_torch yet (ROADMAP queue 1 item 8); use "
-            "step_batched")
 
     def _disengage(self, state: GibbsState) -> GibbsState:
         """Freeze the sampling stepsize (rule: bar, last or mid)."""
@@ -520,8 +560,9 @@ class GibbsProgram:
     def run_chains_chunked(self, gen, n_chains: int,
                            chunk_size: int | None = None,
                            bart_offset_init=None, sigma_init=1.0,
-                           keep_warmup: bool = True, verbose: int = 0,
-                           refresh: int | None = None, progress=None):
+                           keep_warmup: bool = True, callback=None,
+                           verbose: int = 0, refresh: int | None = None,
+                           progress=None):
         """Warmup then sampling for ``n_chains`` chains, in chunks of at
         most ``chunk_size`` iterations (None = one chunk per phase).
         After each chunk the draws move to the host, ``progress(phase,
@@ -529,18 +570,28 @@ class GibbsProgram:
         KeyboardInterrupt between iterations returns the draws completed
         so far as a valid partial fit.
 
-        Returns ``(final_states, draws, info)``: draws a GibbsDraw of
-        numpy arrays with leading (chains, iterations); info the measured
-        wall-clock ``warmup_s`` / ``sample_s``, the per-phase seconds of
-        the iterations, the completed counts and an ``interrupted`` flag.
+        ``callback``: optional ``f(draw) -> outputs``, a dict, tuple or
+        NamedTuple of tensors with a leading chain dimension (or None to
+        store nothing), stored in place of each GibbsDraw.  As in the JAX
+        package, a fit with a callback runs the per-chain ``step``; one
+        without runs ``step_batched``.
+
+        Returns ``(final_states, draws, info)``: draws a GibbsDraw (or the
+        callback's outputs) of numpy arrays with leading (chains,
+        iterations); info the measured wall-clock ``warmup_s`` /
+        ``sample_s``, the per-phase seconds of the iterations, the
+        completed counts and an ``interrupted`` flag.
         """
-        states = self.init_state(gen, n_chains, bart_offset_init, sigma_init)
+        per_chain = callback is not None
+        step = self.step if per_chain else self.step_batched
+        states = self.init_state(gen, n_chains, bart_offset_init, sigma_init,
+                                 per_chain=per_chain)
         pieces, draws, keep = [], [], False
 
         def flush():
             if draws and keep:
-                pieces.append(GibbsDraw(*(torch.stack(x, 1).cpu().numpy()
-                                          for x in zip(*draws))))
+                pieces.append(tree_map(
+                    lambda *x: torch.stack(x, 1).cpu().numpy(), *draws))
             draws.clear()
 
         info = {"warmup_s": 0.0, "sample_s": 0.0, "interrupted": False,
@@ -560,9 +611,9 @@ class GibbsProgram:
                     n = min(chunk, total - it0)
                     t0 = time.perf_counter()
                     for i in range(n):
-                        states, d = self.step_batched(
-                            states, it0 + i, phase == "warmup", gen)
-                        draws.append(d)
+                        states, d = step(states, it0 + i, phase == "warmup",
+                                         gen)
+                        draws.append(d if callback is None else callback(d))
                         info[f"{phase}_done"] = it0 + i + 1
                     flush()
                     info[f"{phase}_s"] += time.perf_counter() - t0
@@ -586,8 +637,7 @@ class GibbsProgram:
                 f"{info['warmup_done']} warmup + {info['sample_done']} "
                 "sampling draws completed so far as a partial fit")
         info.update(self.phase_s)
-        merged = GibbsDraw(*(np.concatenate(x, axis=1)
-                             for x in zip(*pieces)))
+        merged = tree_map(lambda *x: np.concatenate(x, axis=1), *pieces)
         return states, merged, info
 
     def stan_names(self) -> list[str]:

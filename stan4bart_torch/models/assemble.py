@@ -69,8 +69,8 @@ class StanArgs:
 
 # (field, default) pairs this slice of the port does not implement
 _UNPORTED = (
-    ("qr", False), ("centered_ranef", False), ("pooled_adaptation", False),
-    ("sigma_gibbs", False), ("leaf_gibbs", 0), ("leaf_block", 0),
+    ("qr", False), ("centered_ranef", False), ("sigma_gibbs", False),
+    ("leaf_gibbs", 0), ("leaf_block", 0),
     ("obs_shards", 0), ("keep_trees", False),
 )
 
@@ -104,6 +104,9 @@ def _validate_stan_args(sa: StanArgs):
     check("stepsize_jitter", sa.stepsize_jitter, lo=0.0, hi=1.0)
     if sa.freeze_rule not in ("bar", "mid", "last"):
         raise ValueError("stan_args freeze_rule must be bar, mid, or last")
+    if sa.pooled_parts not in ("metric", "stepsize", "both"):
+        raise ValueError(
+            "stan_args pooled_parts must be metric, stepsize, or both")
     for name, default in _UNPORTED:
         if getattr(sa, name) != default:
             raise NotImplementedError(

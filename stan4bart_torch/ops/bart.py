@@ -40,7 +40,10 @@ class BartConfig(NamedTuple):
     p_prune: float = 0.25
     # p_change = 1 - p_grow - p_prune
     node_scale: float = 0.5      # 3.0 for binary
-    k_init: float = 2.0          # leaf-prior k, fixed
+    k_init: float = 2.0          # leaf-prior k (its start when sampled)
+    # chi(df, scale) hyperprior on k; k_df = 0 keeps k fixed at k_init
+    k_df: float = 0.0
+    k_scale: float = float("inf")
     # fixed leaf-prior sd replacing the data-driven range scaling
     sigma_mu_fixed: float | None = None
 
@@ -411,10 +414,76 @@ def bart_sweep(cfg: BartConfig, state: BartState, y_target, ranks,
         torch.as_tensor(node_depths(cfg), dtype=torch.long, device=dev),
         torch.as_tensor(split_prob_by_depth(cfg), dtype=dtype, device=dev),
         weights=w)
+    k, sigma_mu = state.k, state.sigma_mu
+    if cfg.k_df > 0:
+        k, sigma_mu = chi_k_update(cfg, feature, lv, k, sigma_mu, gen)
     new_state = state._replace(
         feature=feature, cut=cut, leaf_value=lv, leaf_idx=lidx,
-        allfit=y_target - resid, tree_fit=fit)
+        allfit=y_target - resid, tree_fit=fit, k=k, sigma_mu=sigma_mu)
     return new_state, count_variable_use(feature, spcum.shape[0])
+
+
+def standard_gamma(shape, gen):
+    """One Gamma(shape, 1) draw per entry of ``shape`` (a float tensor),
+    by Marsaglia and Tsang's squeeze-free rejection from the generator's
+    normals and uniforms (``torch._standard_gamma`` takes no generator).
+    Each round proposes 4 candidates per entry still open and keeps the
+    first accepted (each is accepted with probability above 0.95, so one
+    round almost always ends it); shapes below 1 draw at shape + 1 and
+    scale by U^(1 / shape)."""
+    n_try = 4
+    dtype, dev = shape.dtype, shape.device
+    tiny = torch.finfo(dtype).tiny
+    boost = shape < 1.0
+    a = torch.where(boost, shape + 1.0, shape)
+    d = a - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    out = torch.full_like(a, math.nan)
+    open_ = torch.ones_like(a, dtype=torch.bool)
+    while bool(open_.any()):
+        x = torch.randn(a.shape + (n_try,), generator=gen, dtype=dtype,
+                        device=dev)
+        u = torch.rand(a.shape + (n_try,), generator=gen, dtype=dtype,
+                       device=dev)
+        v = (1.0 + c[..., None] * x) ** 3
+        ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d[..., None]
+                        - d[..., None] * v
+                        + d[..., None] * torch.log(v.clamp(min=tiny)))
+        first = ok.int().argmax(-1, keepdim=True)
+        g = (d[..., None] * v).gather(-1, first)[..., 0]
+        take = open_ & ok.any(-1)
+        out = torch.where(take, g, out)
+        open_ = open_ & ~take
+    if bool(boost.any()):
+        u = torch.rand(a.shape, generator=gen, dtype=dtype, device=dev)
+        out = torch.where(boost, out * u ** (1.0 / shape), out)
+    return out
+
+
+def chi_k_update(cfg: BartConfig, feature, leaf_value, k, sigma_mu, gen,
+                 gamma=None):
+    """The chi(df, scale) hyperprior draw of k after a sweep, per chain:
+    with A = k sigma_mu fixed, k^2 ~ Gamma((df + m) / 2, rate) where m
+    counts the leaves of every tree and rate = sum(leaf^2) / (2 A^2)
+    (+ 1 / (2 scale^2) for a finite scale); sigma_mu becomes A / k.
+
+    feature/leaf_value (C, T, M), k/sigma_mu (C,); gamma (C,) optional
+    standard gamma draws replacing the draw from ``gen``.  Returns
+    (k, sigma_mu)."""
+    C = feature.shape[0]
+    dtype = leaf_value.dtype
+    is_leaf = (feature == LEAF).reshape(C, -1)
+    m = is_leaf.sum(1).to(dtype)
+    A = k * sigma_mu
+    ssq = torch.where(is_leaf, leaf_value.reshape(C, -1), 0.0).pow(2).sum(1)
+    rate = ssq / (2.0 * A * A)
+    if math.isfinite(cfg.k_scale):
+        rate = rate + 1.0 / (2.0 * cfg.k_scale ** 2)
+    if gamma is None:
+        gamma = standard_gamma((cfg.k_df + m) / 2.0, gen)
+    k_new = torch.sqrt(torch.as_tensor(gamma, dtype=dtype,
+                                       device=leaf_value.device) / rate)
+    return k_new, A / k_new
 
 
 def count_variable_use(feature, n_vars: int):

@@ -1,25 +1,29 @@
 """Whole-sweep BART Gibbs kernels over a batch of chains.
 
-Counterparts of the TPU kernels ``_sweep_call_batch`` and
-``_sweep_call_tiled`` in ``stan4bart_tpu/ops/bart_sweep_kernel.py``
-(public wrappers ``bart_sweep_fused_batch`` and
-``bart_sweep_fused_batch_tiled``).  One call runs the sequential sweep
-over all trees of every chain:
+Counterparts of the TPU kernels ``_sweep_call_batch``,
+``_sweep_call_tiled`` and ``_sweep_call`` in
+``stan4bart_tpu/ops/bart_sweep_kernel.py`` (public wrappers
+``bart_sweep_fused_batch``, ``bart_sweep_fused_batch_tiled`` and
+``bart_sweep_fused``).  One call runs the sequential sweep over all trees
+of every chain:
 
 * on a CUDA tensor it launches a hand-written Hopper kernel:
   ``stan4bart_torch/csrc/bart_sweep_batch.cu`` (one thread block per
-  chain, the running residual in shared memory, n <= 10368) or
-  ``stan4bart_torch/csrc/bart_sweep_tiled.cu`` (the same function with
-  the residual in device memory and the observations streamed in tiles,
-  any n);
+  chain, the running residual and a byte copy of the leaf indices in
+  shared memory, n <= 10368), ``stan4bart_torch/csrc/bart_sweep_tiled.cu``
+  (the same function with the residual in device memory and the
+  observations streamed in tiles, any n) or
+  ``stan4bart_torch/csrc/bart_sweep_chain.cu`` (the per-chain driver's
+  sweep: the residual alone in shared memory, n <= 51840);
 * on a CPU tensor it runs the plain PyTorch version of that function,
   ``ops/bart.py:sweep_trees`` (``tree_step`` looped over trees with the
-  residual carried as the kernels carry it), for both wrappers.
+  residual carried as the kernels carry it), for every wrapper.
 
-Both consume the same pre-drawn variates ``(u (C, T, 8), zn (C, T,
+All consume the same pre-drawn variates ``(u (C, T, 8), zn (C, T,
 128))``, drawn here from the caller's generator when not supplied, so
-they compare chain for chain.  The varcount is counted outside the
-kernel.
+they compare chain for chain, and all end with the chi(df, scale) k
+update (``ops/bart.py:chi_k_update``) when ``cfg.k_df > 0``.  The
+varcount is counted outside the kernel.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 from stan4bart_torch.ops.bart import (
     BartConfig,
     BartState,
+    chi_k_update,
     count_variable_use,
     draw_variates,
     node_depths,
@@ -46,6 +51,10 @@ NODE_PAD = 128
 # widest observation row the single-pass kernel takes (the JAX package's
 # single-pass limit); wider fits go to the obs-tiled kernel
 MAX_NPAD = 10_368
+# widest observation row the per-chain kernel takes (the JAX package's
+# per-chain limit, ``sweep_single_ok``): the residual alone fills the
+# shared memory a Hopper block may opt in to
+MAX_N_CHAIN = 51_840
 
 
 class SweepConsts(NamedTuple):
@@ -181,27 +190,67 @@ def sweep_tiled_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
     return out
 
 
+def sweep_chain_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
+                     sigma2, tau2, u, zn, consts: SweepConsts,
+                     weights=None):
+    """Launch the per-chain ``csrc/bart_sweep_chain.cu`` on the current
+    stream; same contract as ``sweep_plain`` up to n = 51840 (all float
+    inputs float32)."""
+    out = _launch("bart_sweep_chain", cfg, feature, cut, lidx, tfit, resid0,
+                  sigma2, tau2, u, zn, consts, weights)
+    bart_sweep_fused.launches += 1
+    return out
+
+
+def chain_smem_bytes(n_obs: int) -> tuple[int, int, int]:
+    """(static, dynamic, opt-in limit) shared-memory bytes per block of
+    the per-chain kernel at ``n_obs`` observations, on the current CUDA
+    device."""
+    from stan4bart_torch.ops.cuda_build import load
+
+    fn = load("bart_sweep_chain").bart_sweep_chain_smem
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+                   ctypes.POINTER(ctypes.c_longlong),
+                   ctypes.POINTER(ctypes.c_int)]
+    st, dy, optin = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_int()
+    err = fn(n_obs, ctypes.byref(st), ctypes.byref(dy), ctypes.byref(optin))
+    if err != 0:
+        raise RuntimeError(f"bart_sweep_chain_smem failed: CUDA error {err}")
+    return st.value, dy.value, optin.value
+
+
+# each kernel's widest padded observation row (None: any n)
+_MAX_NPAD = {"bart_sweep_batch": MAX_NPAD, "bart_sweep_tiled": None,
+             "bart_sweep_chain": MAX_N_CHAIN}
+_LAUNCH = {"bart_sweep_batch": sweep_cuda,
+           "bart_sweep_tiled": sweep_tiled_cuda,
+           "bart_sweep_chain": sweep_chain_cuda}
+
+
 def check_kernel_supports(consts: SweepConsts, dtype,
-                          tiled: bool = False) -> None:
-    """Raise for a sweep a CUDA kernel does not take: float32 state only;
-    past npad 10368 only the obs-tiled kernel."""
+                          kernel: str = "bart_sweep_batch") -> None:
+    """Raise for a sweep CUDA kernel ``kernel`` does not take: float32
+    state only; past npad 10368 (single-pass) or 51840 (per-chain) only
+    the obs-tiled kernel."""
     if dtype != torch.float32:
         raise ValueError("the CUDA sweep kernels require float32 state")
-    if not tiled and consts.npad > MAX_NPAD:
+    limit = _MAX_NPAD[kernel]
+    if limit is not None and consts.npad > limit:
         raise ValueError(
-            f"n = {consts.n_obs} (npad {consts.npad} > {MAX_NPAD}) is past "
-            "the single-pass sweep kernel's shared memory; use "
+            f"n = {consts.n_obs} (npad {consts.npad} > {limit}) is past "
+            f"the shared memory of {kernel}; use "
             "bart_sweep_fused_batch_tiled")
 
 
-def _fused(tiled: bool, cfg: BartConfig, state: BartState, y_target,
-           consts: SweepConsts, sigma, gen, weights, variates):
+def _fused(kernel: str, cfg: BartConfig, state: BartState, y_target,
+           consts: SweepConsts, sigma, gen, weights, variates, gamma):
     dev = state.allfit.device
     dtype = state.allfit.dtype
     C, T = state.feature.shape[:2]
     on_cuda = dev.type == "cuda"
     if on_cuda:
-        check_kernel_supports(consts, dtype, tiled=tiled)
+        check_kernel_supports(consts, dtype, kernel)
     work = torch.float32 if on_cuda else dtype
     if variates is None:
         variates = draw_variates(gen, C, T, torch.float32, dev)
@@ -216,42 +265,68 @@ def _fused(tiled: bool, cfg: BartConfig, state: BartState, y_target,
             state.tree_fit.to(work).contiguous(), resid0, sigma2, tau2,
             u, zn, consts)
     if on_cuda:
-        launch = sweep_tiled_cuda if tiled else sweep_cuda
-        feature, cut, lv, lidx, tfit, resid = launch(*args, weights=w)
+        out = _LAUNCH[kernel](*args, weights=w)
     else:
-        feature, cut, lv, lidx, tfit, resid = sweep_plain(*args, weights=w)
+        out = sweep_plain(*args, weights=w)
+    feature, cut, lv, lidx, tfit, resid = out
+    leaf_value = lv.to(dtype)
+    k, sigma_mu = state.k, state.sigma_mu
+    if cfg.k_df > 0:
+        k, sigma_mu = chi_k_update(cfg, feature, leaf_value, k, sigma_mu,
+                                   gen, gamma=gamma)
     new_state = state._replace(
-        feature=feature, cut=cut, leaf_value=lv.to(dtype), leaf_idx=lidx,
+        feature=feature, cut=cut, leaf_value=leaf_value, leaf_idx=lidx,
         tree_fit=tfit.to(dtype),
-        allfit=(y_target.to(work) - resid).to(dtype))
+        allfit=(y_target.to(work) - resid).to(dtype), k=k,
+        sigma_mu=sigma_mu)
     return new_state, count_variable_use(feature, consts.spcum.shape[0])
 
 
 def bart_sweep_fused_batch(cfg: BartConfig, state: BartState, y_target,
                            consts: SweepConsts, sigma, gen, *, weights=None,
-                           variates=None):
+                           variates=None, gamma=None):
     """One sweep over all trees of a batched BartState (leading chain
     axis).  y_target (C, N), sigma (C,), weights (N,) or None, gen a
     ``torch.Generator`` on the state's device (unused when ``variates``
-    are given).  Returns (state, varcount (C, P)).
+    are given and k is fixed), gamma (C,) optional standard gamma draws
+    replacing those of the chi(df, scale) k update.  Returns (state,
+    varcount (C, P)).
 
     On a CUDA state this launches ``csrc/bart_sweep_batch.cu`` (float32
     only, n <= 10368; wider fits raise and belong to
     ``bart_sweep_fused_batch_tiled``); on a CPU state it runs the plain
     version."""
-    return _fused(False, cfg, state, y_target, consts, sigma, gen, weights,
-                  variates)
+    return _fused("bart_sweep_batch", cfg, state, y_target, consts, sigma,
+                  gen, weights, variates, gamma)
 
 
 def bart_sweep_fused_batch_tiled(cfg: BartConfig, state: BartState,
                                  y_target, consts: SweepConsts, sigma, gen,
-                                 *, weights=None, variates=None):
+                                 *, weights=None, variates=None, gamma=None):
     """``bart_sweep_fused_batch`` at any n: on a CUDA state this launches
     the obs-tiled ``csrc/bart_sweep_tiled.cu`` (float32 only); on a CPU
     state it runs the same plain version."""
-    return _fused(True, cfg, state, y_target, consts, sigma, gen, weights,
-                  variates)
+    return _fused("bart_sweep_tiled", cfg, state, y_target, consts, sigma,
+                  gen, weights, variates, gamma)
+
+
+def bart_sweep_fused(cfg: BartConfig, state: BartState, y_target,
+                     consts: SweepConsts, sigma, gen, *, weights=None,
+                     variates=None, gamma=None):
+    """The per-chain driver's sweep: ``bart_sweep_fused_batch``'s
+    contract on a chain-batched state, where the JAX package vmaps its
+    one-chain ``bart_sweep_fused`` (C = 1 is one chain).  The variates
+    are drawn as the batch wrappers draw them, so ``GibbsProgram.step``
+    and ``step_batched`` consume the generator identically.
+
+    On a CUDA state this launches the per-chain
+    ``csrc/bart_sweep_chain.cu`` (float32 only, n <= 51840; wider fits
+    raise and belong to ``bart_sweep_fused_batch_tiled``); on a CPU state
+    it runs the same plain version."""
+    return _fused("bart_sweep_chain", cfg, state, y_target, consts, sigma,
+                  gen, weights, variates, gamma)
 
 
 bart_sweep_fused_batch.launches = 0
 bart_sweep_fused_batch_tiled.launches = 0
+bart_sweep_fused.launches = 0

@@ -41,6 +41,14 @@ class NutsConfig(NamedTuple):
     # stepsize frozen when adaptation disengages: "bar" (Stan), "last",
     # or "mid" (geometric midpoint)
     freeze_rule: str = "bar"
+    # cross-chain pooled adaptation over the chain dimension (the JAX
+    # package's pooled_axis="chains"): which signals pool, "metric"
+    # (window-end variance), "stepsize" (dual-averaging accept signal and
+    # the window-end restart stepsize) or "both"; pooled_between adds the
+    # between-chain variance of the window means to the pooled metric
+    pooled: bool = False
+    pooled_parts: str = "metric"
+    pooled_between: bool = False
 
 
 class DualAveragingState(NamedTuple):
@@ -106,6 +114,25 @@ def welford_variance(w: WelfordState):
     n = w.count[:, None]
     var = w.m2 / (n - 1.0)
     return (n / (n + 5.0)) * var + 1e-3 * (5.0 / (n + 5.0))
+
+
+def pooled_welford_variance(w: WelfordState, include_between: bool = False):
+    """The pooled metric estimate over the chain dimension, the same row
+    for every chain: the geometric mean of the per-chain variances (robust
+    to chains whose window mean still drifts), regularized as Stan does
+    but with the pooled count n C; optionally plus the between-chain
+    variance of the window means, scaled by C / (C - 1)."""
+    n = w.count[:, None]
+    C = w.count.shape[0]
+    var = torch.exp(torch.log(torch.clamp(w.m2 / (n - 1.0), min=1e-30))
+                    .mean(0, keepdim=True))
+    if include_between:
+        gm = w.mean.mean(0, keepdim=True)
+        var = var + ((w.mean - gm) ** 2).mean(0, keepdim=True) * (
+            C / max(C - 1.0, 1.0))
+    pooled_n = n * C
+    return ((pooled_n / (pooled_n + 5.0)) * var
+            + 1e-3 * (5.0 / (pooled_n + 5.0)))
 
 
 def da_init(stepsize, n_chains, dtype, device):
@@ -409,17 +436,27 @@ def nuts_transition(logdensity_fn: Callable, state: NutsState, gen,
 
     # ---- adaptation -------------------------------------------------------
     welford = state.welford
+    pool_eps = cfg.pooled and cfg.pooled_parts != "metric"
     if adapt_stepsize:
-        da = da_update(da, accept_stat, cfg)
+        # pooled: every chain's dual averaging takes the chains' mean
+        # accept signal
+        da = da_update(da, accept_stat.mean().expand(C) if pool_eps
+                       else accept_stat, cfg)
     if collect:
         welford = welford_update(welford, sample_q)
     if window_end:
-        inv_mass = welford_variance(welford)
+        if cfg.pooled and cfg.pooled_parts != "stepsize":
+            inv_mass = pooled_welford_variance(welford, cfg.pooled_between)
+        else:
+            inv_mass = welford_variance(welford)
         if cfg.window_end_research:
             new_eps = init_stepsize(logdensity_fn, sample_q, inv_mass,
                                     torch.exp(da.log_eps), gen)
         else:
             new_eps = torch.exp(da.log_eps)
+        if pool_eps:
+            # the chains restart from their geometric-mean stepsize
+            new_eps = torch.exp(torch.log(new_eps).mean()).expand(C)
         zero = torch.zeros_like(new_eps)
         da = DualAveragingState(
             log_eps=torch.log(new_eps), log_eps_bar=da.log_eps_bar,

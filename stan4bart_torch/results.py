@@ -3,7 +3,7 @@
 Counterpart of ``stan4bart_tpu/results.py`` in numpy: draw types
 
     ev, ppd, fixef, indiv.fixef, ranef, indiv.ranef, indiv.bart,
-    sigma, Sigma, k, varcount, stan
+    sigma, Sigma, k, varcount, stan, callback
 
 for train or test samples, with warmup inclusion, chain combining, probit
 ``Phi`` transforms, ppd noise injection (incl. weights), and new-group
@@ -25,9 +25,11 @@ from typing import Any
 import numpy as np
 from scipy.stats import norm
 
+from stan4bart_torch.gibbs import tree_map
+
 EXTRACT_TYPES = (
     "ev", "ppd", "fixef", "indiv.fixef", "ranef", "indiv.ranef",
-    "indiv.bart", "sigma", "Sigma", "k", "varcount", "stan",
+    "indiv.bart", "sigma", "Sigma", "k", "varcount", "stan", "callback",
 )
 
 
@@ -37,15 +39,20 @@ class Stan4bartFit:
     pm: Any
     prog: Any
     family: str
-    draws: Any                 # GibbsDraw of numpy, leading (chains, iter)
+    # GibbsDraw of numpy, leading (chains, iter); with keep_fits=False the
+    # callback's outputs instead, or None without a callback
+    draws: Any
     warmup: int
     chains: int
     stan_names: list
     test_frame: Any = None
     treatment: str | None = None
     final_states: Any = None
+    keep_fits: bool = True
     sigma_init: float = 1.0
     seed: int = 0
+    # the callback's outputs beside the raw draws (keep_fits=True)
+    callback_draws: Any = None
     # resolved prior info (assemble info dict) for prior_summary()
     prior_info: dict | None = None
     # measured wall-clock seconds: 'total', 'warmup', 'sample', and the
@@ -66,7 +73,19 @@ class Stan4bartFit:
 
     @property
     def iterations(self) -> int:
-        return self.draws.stan.shape[1]
+        if self.draws is None:  # keep_fits=False with no callback
+            return self.warmup + self.prog.iterations
+        if self.keep_fits:
+            return self.draws.stan.shape[1]
+        shapes = []
+        tree_map(lambda a: shapes.append(a.shape), self.draws)
+        return shapes[0][1]
+
+    def _require_raw(self):
+        if not self.keep_fits:
+            raise ValueError(
+                "raw draws were not stored (keep_fits=False); only "
+                "type='callback' is available (man/stan4bart.Rd:227-242)")
 
     def _slice(self, arr, include_warmup):
         """arr leading axes (chains, iter, ...) -> iteration slice."""
@@ -277,6 +296,17 @@ class Stan4bartFit:
         if sample not in ("train", "test"):
             raise ValueError("sample must be 'train' or 'test'")
 
+        if type == "callback":
+            src = self.callback_draws if self.keep_fits else self.draws
+            if src is None:
+                raise ValueError(
+                    "no callback was supplied to stan4bart()"
+                    + ("" if self.keep_fits else
+                       " and keep_fits=False stored no raw draws"))
+            return tree_map(
+                lambda a: self._flatten(self._slice(a, include_warmup),
+                                        combine_chains), src)
+        self._require_raw()
         if type == "stan":
             return self._flatten(
                 self._slice(self.draws.stan, include_warmup), combine_chains
@@ -395,6 +425,7 @@ class Stan4bartFit:
     def as_array(self, include_warmup: bool = False):
         """(iterations, chains, params) with pretty names — the reference's
         as.array.stan4bartFit (generics.R:18-112)."""
+        self._require_raw()
         stan = self._slice(self.draws.stan, include_warmup)
         keep = [i for i, n in enumerate(self.stan_names)
                 if not n.endswith("__")]
@@ -411,7 +442,9 @@ class Stan4bartFit:
 
     def check_sampler_diagnostics(self):
         """Post-fit warnings: divergences, treedepth saturation, E-BFMI
-        (stan4bart.R:255-297)."""
+        (stan4bart.R:255-297); none without raw draws (keep_fits=False)."""
+        if not self.keep_fits:
+            return
         stan = self.draws.stan[:, self.warmup :]
         div = stan[..., self._name_idx["divergent__"]].sum()
         if div > 0:

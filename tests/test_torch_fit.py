@@ -138,8 +138,7 @@ def test_entry_points_need_cuda_or_explicit_cpu():
                   lambda: state_from_numpy(None)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
-    for kw in ({"algorithm": "vi"}, {"callback": print},
-               {"bart_args": {"k": ("chi", 1.25, float("inf"))}},
+    for kw in ({"algorithm": "vi"}, {"stan_args": {"qr": True}},
                {"bart_args": {"regrow_per_sweep": 2}},
                {"offset_type": "bart"}):
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):

@@ -91,11 +91,11 @@ def test_kernel_limits_raise():
     # past npad 10368 only the obs-tiled kernel takes the sweep
     with pytest.raises(ValueError, match="bart_sweep_fused_batch_tiled"):
         tk.check_kernel_supports(consts, torch.float32)
-    tk.check_kernel_supports(consts, torch.float32, tiled=True)
-    for tiled in (False, True):
+    tk.check_kernel_supports(consts, torch.float32, "bart_sweep_tiled")
+    for kernel in ("bart_sweep_batch", "bart_sweep_tiled"):
         with pytest.raises(ValueError, match="float32"):
             tk.check_kernel_supports(consts._replace(npad=128),
-                                     torch.float64, tiled=tiled)
+                                     torch.float64, kernel)
     tk.check_kernel_supports(consts._replace(npad=tk.MAX_NPAD),
                              torch.float32)
     with pytest.raises(ValueError, match="max_depth <= 6"):
