@@ -3,30 +3,35 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --kernels  # build + kernel phases 1, 2 and 4 only
 
-Builds the port's three CUDA sweep kernels from ``stan4bart_torch/csrc``
+Builds the port's four CUDA kernel sources from ``stan4bart_torch/csrc``
 with nvcc (one process per source, started together), then:
 
 1. holds every sweep kernel against their plain PyTorch version at small
    sizes (20 trees, 16 chains, 3 chained sweeps, unweighted, weighted and
    a probit-style target), at n = 2000 and at n = 9191, which is not a
-   multiple of the obs-tiled kernel's tile: identical forests, leaf
-   values and fits within float32 tolerance; and the obs-tiled and the
-   per-chain kernel against the single-pass kernel on the same inputs,
-   equal to the bit;
+   multiple of any tile: the single-pass and obs-tiled kernels at every
+   cluster size K = 1, 2, 4, 8 (blocks per chain) and the per-chain
+   kernel; identical forests, leaf values and fits within float32
+   tolerance; single-pass and obs-tiled equal to the bit at every K, and
+   equal to the per-chain kernel to the bit at K = 1;
 2. does the same at the bench shape (n = 10000, 75 trees, 9 BART
-   variables, 256 chains, one sweep from a prior-drawn forest) and times
-   the three kernels and the plain version with CUDA events;
+   variables, 256 chains, one sweep from a prior-drawn forest), prints
+   each kernel's K and shared memory per block and times the kernels and
+   the plain version with CUDA events; then holds the ablation stubs of
+   the single-pass kernel (copy, obs) against their plain versions and
+   times copy, obs and the full kernel at 256 and at 64 chains;
 3. runs the single-pass kernel's main path: ``stan4bart_torch.stan4bart``
    on the flagship Friedman model at n = 10000 with 256 chains on the card
    (150 iterations, 75 of them warmup), checks that every sweep went
    through that kernel, that the draws are finite and that the fit passes
-   the reference's quality gates;
-4. holds the obs-tiled kernel against the plain version at the
-   reference's large-n shapes (n = 50000 with 64 chains, n = 200000 with
-   16 chains; 75 trees, 9 variables) and times both; at n = 50000 and at
-   the per-chain kernel's shared-memory ceiling, n = 51840 (64 chains),
-   also the per-chain kernel, against the plain version and to the bit
-   against the obs-tiled one, with its shared memory per block;
+   the reference's quality gates, and prints the K it used;
+4. holds the obs-tiled kernel, at its default K and at K = 1 (residual in
+   device memory), against the plain version at the reference's large-n
+   shapes (n = 50000 with 64 chains, n = 200000 with 16 chains; 75
+   trees, 9 variables) and times them; at n = 50000 and at the per-chain
+   kernel's shared-memory ceiling, n = 51840 (64 chains), also the
+   per-chain kernel, against the plain version and to the bit against
+   the obs-tiled one at K = 1, with its shared memory per block;
 5. runs the obs-tiled kernel's main path: the same fit at n = 50000 with
    64 chains, every sweep through the obs-tiled kernel, with the same
    checks.  It runs 300 iterations, 150 of them warmup: at n = 50000
@@ -63,10 +68,14 @@ import torch
 # own kernel-vs-XLA parity test)
 LV_TOL = dict(rtol=2e-4, atol=2e-5)
 FIT_TOL = dict(rtol=5e-4, atol=5e-4)
+# the obs stub's per-node sums of up to 10^4 residuals of magnitude up to
+# ~20, summed in another order: float32 rounding of up to ~n eps max|r|
+STATS_TOL = dict(rtol=5e-4, atol=1e-2)
 # HBM rate of the H100 SXM (NVIDIA data sheet) for the memory bound
 HBM_BYTES_PER_S = 3.35e12
 P = 9
-KERNELS = ("bart_sweep_batch", "bart_sweep_tiled", "bart_sweep_chain")
+KERNELS = ("bart_sweep_batch", "bart_sweep_tiled", "bart_sweep_chain",
+           "bart_sweep_ablate")
 
 FLAGSHIP = ("y ~ bart(. - g.1 - g.2 - X4 - z) + X4 + z + (1 + X4 | g.1) "
             "+ (1 | g.2)")
@@ -138,12 +147,13 @@ def bit_equal(a, b):
 
 
 def phase_small(device, n):
-    """The three kernels (through their wrappers) vs plain, and obs-tiled
-    and per-chain vs single-pass to the bit, 3 chained sweeps per case.
-    Returns the max |kernel - plain| of each kernel."""
+    """The three kernels (through their wrappers) vs plain, the two
+    chain-batched ones at every cluster size K, 3 chained sweeps per case;
+    to the bit: batch and obs-tiled at equal K, and both at K = 1 with the
+    per-chain kernel.  Returns the max |kernel - plain| of each kernel."""
     from stan4bart_torch.ops import bart as ops
     from stan4bart_torch.ops.bart_sweep_kernel import (
-        bart_sweep_fused, bart_sweep_fused_batch,
+        CLUSTERS, bart_sweep_fused, bart_sweep_fused_batch,
         bart_sweep_fused_batch_tiled, sweep_plain)
 
     C = 16
@@ -155,56 +165,64 @@ def phase_small(device, n):
     cases = {"unweighted": (yt.expand(C, n), None),
              "weighted": (yt.expand(C, n), wts),
              "probit": (y_probit, None)}
-    err = {("batch", "plain"): 0.0, ("tiled", "plain"): 0.0,
-           ("chain", "plain"): 0.0, ("tiled", "batch"): 0.0,
-           ("chain", "batch"): 0.0}
+    err = {"batch": 0.0, "tiled": 0.0, "chain": 0.0}
     for case, (target, w) in cases.items():
         sigma = torch.full((C,), 1.0 if case == "probit" else 0.9,
                            device=device)
-        sb = st = sc = sp_ = state
+        runs = {"chain": state, "plain": state}
+        runs.update({(kind, K): state for kind in ("batch", "tiled")
+                     for K in CLUSTERS})
         for sweep in range(3):
             var = ops.draw_variates(gen, C, cfg.num_trees, torch.float32,
                                     device)
-            sb, vb = bart_sweep_fused_batch(cfg, sb, target, consts, sigma,
-                                            None, weights=w, variates=var)
-            st, vt = bart_sweep_fused_batch_tiled(
-                cfg, st, target, consts, sigma, None, weights=w,
-                variates=var)
-            sc, vc = bart_sweep_fused(cfg, sc, target, consts, sigma, None,
-                                      weights=w, variates=var)
-            # the plain version on the same card and inputs
-            out = sweep_plain(cfg, sp_.feature, sp_.cut, sp_.leaf_idx,
-                              sp_.tree_fit, (target - sp_.allfit).contiguous(),
-                              sigma * sigma, sp_.sigma_mu * sp_.sigma_mu,
-                              var[0], var[1], consts, weights=w)
-            sp_ = as_state(sp_, out, target)
-            vp = ops.count_variable_use(out[0], P)
-            runs = {"batch": (sb, vb), "tiled": (st, vt), "chain": (sc, vc),
-                    "plain": (sp_, vp)}
-            for a, b in err:
-                tag = f"phase 1 n={n} {case} sweep {sweep}: {a} vs {b}"
-                n_same, e = compare(tag, runs[a][0], runs[b][0],
-                                    runs[a][1], runs[b][1])
+            vc = {}
+            for key, st in runs.items():
+                kw = dict(weights=w, variates=var)
+                if key == "chain":
+                    runs[key], vc[key] = bart_sweep_fused(
+                        cfg, st, target, consts, sigma, None, **kw)
+                elif key == "plain":
+                    # the plain version on the same card and inputs
+                    out = sweep_plain(
+                        cfg, st.feature, st.cut, st.leaf_idx, st.tree_fit,
+                        (target - st.allfit).contiguous(), sigma * sigma,
+                        st.sigma_mu * st.sigma_mu, var[0], var[1], consts,
+                        weights=w)
+                    runs[key] = as_state(st, out, target)
+                    vc[key] = ops.count_variable_use(out[0], P)
+                else:
+                    fn = (bart_sweep_fused_batch if key[0] == "batch"
+                          else bart_sweep_fused_batch_tiled)
+                    runs[key], vc[key] = fn(cfg, st, target, consts, sigma,
+                                            None, cluster=key[1], **kw)
+            tag = f"phase 1 n={n} {case} sweep {sweep}"
+            for key in runs:
+                if key == "plain":
+                    continue
+                n_same, e = compare(f"{tag}: {key} vs plain", runs[key],
+                                    runs["plain"], vc[key], vc["plain"])
                 if n_same != C:
-                    raise AssertionError(
-                        f"{tag}: {C - n_same} of {C} chains differ")
-                if b == "batch" and not bit_equal(runs[a][0], runs[b][0]):
-                    raise AssertionError(f"{tag}: not equal to the bit")
-                err[a, b] = max(err[a, b], e)
+                    raise AssertionError(f"{tag}: {key} vs plain: "
+                                         f"{C - n_same} of {C} chains differ")
+                kind = key if key == "chain" else key[0]
+                err[kind] = max(err[kind], e)
+            pairs = [(("tiled", K), ("batch", K)) for K in CLUSTERS]
+            pairs.append(("chain", ("batch", 1)))
+            for a, b in pairs:
+                if not bit_equal(runs[a], runs[b]):
+                    raise AssertionError(f"{tag}: {a} and {b} not equal to "
+                                         "the bit")
         print(f"phase 1 n={n} {case}: 3 sweeps, {C}/{C} chains identical "
-              "(batch, tiled and chain vs plain; tiled and chain equal to "
-              "batch to the bit), internal nodes "
-              f"{int((st.feature >= 0).sum())}", flush=True)
-    print(f"phase 1 n={n} ok: max |batch - plain| "
-          f"{err['batch', 'plain']:.3g}, |tiled - plain| "
-          f"{err['tiled', 'plain']:.3g}, |chain - plain| "
-          f"{err['chain', 'plain']:.3g}, |tiled - batch| "
-          f"{err['tiled', 'batch']:.3g}, |chain - batch| "
-          f"{err['chain', 'batch']:.3g} (leaf values rtol {LV_TOL['rtol']} "
-          f"atol {LV_TOL['atol']}, fits rtol {FIT_TOL['rtol']} atol "
+              f"(batch and tiled at K = {CLUSTERS}, and chain, vs plain; "
+              "tiled equal to batch to the bit at every K, chain to batch "
+              "at K = 1), internal nodes "
+              f"{int((runs[('tiled', 1)].feature >= 0).sum())}", flush=True)
+    print(f"phase 1 n={n} ok: max |batch - plain| {err['batch']:.3g}, "
+          f"|tiled - plain| {err['tiled']:.3g}, |chain - plain| "
+          f"{err['chain']:.3g} (leaf values rtol {LV_TOL['rtol']} atol "
+          f"{LV_TOL['atol']}, fits rtol {FIT_TOL['rtol']} atol "
           f"{FIT_TOL['atol']})", flush=True)
-    return (err["batch", "plain"], err["tiled", "plain"],
-            err["chain", "plain"])
+    return err["batch"], err["tiled"], err["chain"]
 
 
 def _time(fn, reps):
@@ -277,15 +295,30 @@ def check_sweep(name, outs, state, yt, C, N, T, min_same):
     return res
 
 
+def smem_note(name, N, T, K):
+    """One line on kernel ``name``'s shared memory per block at K."""
+    from stan4bart_torch.ops.bart_sweep_kernel import kernel_smem
+
+    m = kernel_smem(name, N, T, K)
+    where = "on chip" if m["resid_on_chip"] else "in device memory"
+    return (f"{name} K={K}: {m['static']} B static + {m['dynamic']} B "
+            f"dynamic shared memory per block of the {m['optin']} B opt-in "
+            f"limit, {m['clusters']} clusters resident at once, residual "
+            f"{where}")
+
+
 def phase_full(device, reps=7, C=256, N=10_000, T=75):
     """The three kernels vs plain at the bench shape, and their times."""
     from stan4bart_torch.ops.bart_sweep_kernel import (
+        bart_sweep_fused_batch, bart_sweep_fused_batch_tiled, kernel_smem,
         sweep_chain_cuda, sweep_cuda, sweep_plain, sweep_tiled_cuda)
 
     cfg, state, yt, args = sweep_args(N, T, C, 3, device)
     outs = {"batch": sweep_cuda(*args), "tiled": sweep_tiled_cuda(*args),
             "chain": sweep_chain_cuda(*args), "plain": sweep_plain(*args)}
     torch.cuda.synchronize()
+    kb = bart_sweep_fused_batch.last_cluster
+    kt = bart_sweep_fused_batch_tiled.last_cluster
     res = check_sweep("phase 2", outs, state, yt, C, N, T, C - 1)
     for label in ("tiled", "chain"):
         same = all(torch.equal(x, y) for x, y in zip(outs["batch"],
@@ -294,7 +327,16 @@ def phase_full(device, reps=7, C=256, N=10_000, T=75):
               flush=True)
         if not same:
             raise AssertionError(f"phase 2: {label} differs from batch")
+    del outs
 
+    scan = []
+    for k in range(1, 5):     # at least 2048 observations per block
+        m = kernel_smem("bart_sweep_batch", N, T, k)
+        ms = _time(lambda: sweep_cuda(*args, cluster=k), 3)[0]
+        scan.append(f"K={k} {ms:.4f} ms ({m['clusters']} clusters "
+                    "resident)")
+    print("phase 2: batch kernel by K, median of 3: " + "; ".join(scan),
+          flush=True)
     b_ms, b_all = _time(lambda: sweep_cuda(*args), reps)
     t_ms, t_all = _time(lambda: sweep_tiled_cuda(*args), reps)
     c_ms, c_all = _time(lambda: sweep_chain_cuda(*args), reps)
@@ -302,40 +344,99 @@ def phase_full(device, reps=7, C=256, N=10_000, T=75):
     nbytes = sweep_bytes(C, T, N, cfg.max_nodes)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bw = copy_bandwidth(device)
-    print(f"phase 2 times over {reps} reps: batch kernel median {b_ms:.4f} "
-          f"ms {[round(t, 4) for t in b_all]}; tiled kernel median "
-          f"{t_ms:.4f} ms {[round(t, 4) for t in t_all]}; chain kernel "
-          f"median {c_ms:.4f} ms {[round(t, 4) for t in c_all]}; plain "
-          f"median {p_ms:.4f} ms; memory bound {bound_ms:.4f} ms "
-          f"({nbytes / 1e9:.4f} GB at {HBM_BYTES_PER_S / 1e12} TB/s), "
-          f"{nbytes / bw * 1e3:.4f} ms at the measured copy rate "
-          f"{bw / 1e12:.3f} TB/s", flush=True)
+    print(f"phase 2 {smem_note('bart_sweep_batch', N, T, kb)}; "
+          f"{smem_note('bart_sweep_tiled', N, T, kt)}", flush=True)
+    print(f"phase 2 times over {reps} reps: batch kernel (K={kb}) median "
+          f"{b_ms:.4f} ms {[round(t, 4) for t in b_all]}; tiled kernel "
+          f"(K={kt}) median {t_ms:.4f} ms {[round(t, 4) for t in t_all]}; "
+          f"chain kernel median {c_ms:.4f} ms "
+          f"{[round(t, 4) for t in c_all]}; plain median {p_ms:.4f} ms; "
+          f"memory bound {bound_ms:.4f} ms ({nbytes / 1e9:.4f} GB at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s), {nbytes / bw * 1e3:.4f} ms at "
+          f"the measured copy rate {bw / 1e12:.3f} TB/s; {card()}",
+          flush=True)
     return dict(ms=b_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                max_abs_err=res["batch"][1],
+                max_abs_err=res["batch"][1], cluster=kb,
                 tiled_ms=t_ms, tiled_max_abs_err=res["tiled"][1],
                 chain_ms=c_ms, chain_max_abs_err=res["chain"][1])
 
 
-def phase_large(device, N, C, reps=7, T=75):
-    """The obs-tiled kernel, and the per-chain one where it runs, vs plain
-    at a large-n shape, and their times."""
+def phase_ablate(device, C, reps=7, N=10_000, T=75):
+    """The ablation stubs of the single-pass kernel against their plain
+    versions, and the copy, obs and full times at C chains."""
     from stan4bart_torch.ops.bart_sweep_kernel import (
-        MAX_N_CHAIN, chain_smem_bytes, sweep_chain_cuda, sweep_plain,
+        ablate_cuda, ablate_plain, bart_sweep_ablate, bart_sweep_fused_batch,
+        sweep_cuda)
+
+    cfg, state, yt, args = sweep_args(N, T, C, 5, device)
+    lv = state.leaf_value.contiguous()
+    stub = (args[1], args[2], lv, args[3], args[4], args[5])
+    u, consts = args[8], args[10]
+    err = 0.0
+    for mode in ("copy", "obs"):
+        k = ablate_cuda(mode, *stub, u, consts)
+        p = ablate_plain(mode, *stub)
+        torch.cuda.synchronize()
+        for i, (x, y) in enumerate(zip(k, p)):
+            if x.dtype == torch.int32:
+                if not torch.equal(x, y):
+                    raise AssertionError(f"ablate {mode}: output {i} differs")
+            else:
+                torch.testing.assert_close(
+                    x, y, **(STATS_TOL if i == 6 else FIT_TOL),
+                    msg=f"ablate {mode}: output {i}")
+                err = max(err, float((x - y).abs().max()))
+    K = bart_sweep_ablate.last_cluster
+    ms = {"copy": _time(lambda: ablate_cuda("copy", *stub, u, consts),
+                        reps)[0],
+          "obs": _time(lambda: ablate_cuda("obs", *stub, u, consts),
+                       reps)[0],
+          "full": _time(lambda: sweep_cuda(*args), reps)[0]}
+    plain_ms = _time(lambda: ablate_plain("obs", *stub), 3)[0]
+    if bart_sweep_fused_batch.last_cluster != K:
+        raise AssertionError("ablate: stubs and full kernel differ in K")
+    bound_ms = sweep_bytes(C, T, N, cfg.max_nodes) / HBM_BYTES_PER_S * 1e3
+    print(f"phase 2 ablation C={C} N={N} T={T} K={K}: stubs equal their "
+          f"plain versions (max |stub - plain| {err:.3g}); copy "
+          f"{ms['copy']:.4f} ms, obs {ms['obs']:.4f} ms, full "
+          f"{ms['full']:.4f} ms: node math (full - obs) "
+          f"{ms['full'] - ms['obs']:.4f} ms, observation work (obs - copy) "
+          f"{ms['obs'] - ms['copy']:.4f} ms, floor (copy) {ms['copy']:.4f} "
+          f"ms; bound {bound_ms:.4f} ms; plain obs {plain_ms:.4f} ms; "
+          f"{card()}", flush=True)
+    return dict(ms, max_abs_err=err, bound_ms=bound_ms, plain_ms=plain_ms,
+                cluster=K)
+
+
+def phase_large(device, N, C, reps=7, T=75):
+    """The obs-tiled kernel at its default K and at K = 1, and the
+    per-chain one where it runs, vs plain at a large-n shape, and their
+    times; the per-chain kernel to the bit against the obs-tiled one at
+    K = 1."""
+    from stan4bart_torch.ops.bart_sweep_kernel import (
+        MAX_CLUSTER, MAX_N_CHAIN, bart_sweep_fused_batch_tiled,
+        chain_smem_bytes, kernel_smem, sweep_chain_cuda, sweep_plain,
         sweep_tiled_cuda)
 
     chain = N <= MAX_N_CHAIN
     cfg, state, yt, args = sweep_args(N, T, C, 4, device)
-    outs = {"tiled": sweep_tiled_cuda(*args), "plain": sweep_plain(*args)}
+    outs = {"tiled": sweep_tiled_cuda(*args)}
+    K = bart_sweep_fused_batch_tiled.last_cluster
+    outs["tiled K=1"] = sweep_tiled_cuda(*args, cluster=1)
+    outs["plain"] = sweep_plain(*args)
     if chain:
         outs["chain"] = sweep_chain_cuda(*args)
     torch.cuda.synchronize()
     res = check_sweep(f"phase 4 n={N}", outs, state, yt, C, N, T, C - 1)
-    out = dict(max_abs_err=res["tiled"][1])
+    out = dict(max_abs_err=max(res["tiled"][1], res["tiled K=1"][1]),
+               cluster=K)
+    print(f"phase 4 n={N} {smem_note('bart_sweep_tiled', N, T, K)}; "
+          f"{smem_note('bart_sweep_tiled', N, T, 1)}", flush=True)
     if chain:
-        same = all(torch.equal(x, y) for x, y in zip(outs["tiled"],
+        same = all(torch.equal(x, y) for x, y in zip(outs["tiled K=1"],
                                                      outs["chain"]))
         st, dy, optin = chain_smem_bytes(N)
-        print(f"phase 4 n={N}: chain and tiled outputs bit-identical: "
+        print(f"phase 4 n={N}: chain and tiled (K=1) outputs bit-identical: "
               f"{same}; chain kernel shared memory per block {st} B static "
               f"+ {dy} B dynamic = {st + dy} B of the {optin} B opt-in "
               "limit", flush=True)
@@ -344,12 +445,25 @@ def phase_large(device, N, C, reps=7, T=75):
         out.update(chain_max_abs_err=res["chain"][1], smem=(st, dy, optin))
     del outs
     out["ms"], k_all = _time(lambda: sweep_tiled_cuda(*args), reps)
-    msg = (f"phase 4 n={N} chains={C}: tiled kernel median "
-           f"{out['ms']:.4f} ms {[round(t, 4) for t in k_all]}")
+    out["k1_ms"], k1_all = _time(lambda: sweep_tiled_cuda(*args, cluster=1),
+                                 reps)
+    msg = (f"phase 4 n={N} chains={C}: tiled kernel (K={K}) median "
+           f"{out['ms']:.4f} ms {[round(t, 4) for t in k_all]}; tiled "
+           f"kernel (K=1) median {out['k1_ms']:.4f} ms "
+           f"{[round(t, 4) for t in k1_all]}")
     if chain:
         out["chain_ms"], c_all = _time(lambda: sweep_chain_cuda(*args), reps)
         msg += (f"; chain kernel median {out['chain_ms']:.4f} ms "
                 f"{[round(t, 4) for t in c_all]}")
+    # the obs-tiled kernel at every cluster size, for the cluster rule
+    scan = []
+    for k in range(1, MAX_CLUSTER + 1):
+        m = kernel_smem("bart_sweep_tiled", N, T, k)
+        ms = _time(lambda: sweep_tiled_cuda(*args, cluster=k), 3)[0]
+        scan.append(f"K={k} {ms:.4f} ms ({m['clusters']} clusters resident"
+                    f"{', residual on chip' if m['resid_on_chip'] else ''})")
+    print(f"phase 4 n={N} chains={C}: tiled kernel by K, median of 3: "
+          + "; ".join(scan), flush=True)
     out["plain_ms"], p_all = _time(lambda: sweep_plain(*args),
                                    max(5, reps // 2))
     nbytes = sweep_bytes(C, T, N, cfg.max_nodes)
@@ -358,7 +472,7 @@ def phase_large(device, N, C, reps=7, T=75):
           f"{[round(t, 4) for t in p_all]}; memory bound "
           f"{out['bound_ms']:.4f} ms ({nbytes / 1e9:.4f} GB at "
           f"{HBM_BYTES_PER_S / 1e12} TB/s); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; {card()}",
           flush=True)
     torch.cuda.empty_cache()
     return out
@@ -367,11 +481,13 @@ def phase_large(device, N, C, reps=7, T=75):
 def launch_counters():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from stan4bart_torch.ops.bart_sweep_kernel import (
-        bart_sweep_fused, bart_sweep_fused_batch, bart_sweep_fused_batch_tiled)
+        bart_sweep_ablate, bart_sweep_fused, bart_sweep_fused_batch,
+        bart_sweep_fused_batch_tiled)
 
     return {"bart_sweep_batch": bart_sweep_fused_batch,
             "bart_sweep_tiled": bart_sweep_fused_batch_tiled,
-            "bart_sweep_chain": bart_sweep_fused}
+            "bart_sweep_chain": bart_sweep_fused,
+            "bart_sweep_ablate": bart_sweep_ablate}
 
 
 def run_fit(label, device, n, chains, kernel, iters, warmup, trees,
@@ -404,7 +520,10 @@ def run_fit(label, device, n, chains, kernel, iters, warmup, trees,
                                  f"expected {want}")
     tm = fit.timings
     draws_s = chains * (iters - warmup) / tm["sample"]
+    K = getattr(counts[kernel], "last_cluster", None)
     print(f"{label}: stan4bart n={n} chains={chains} trees={trees} "
+          f"(sweep kernel {kernel}"
+          + ("" if K is None else f", cluster K={K}") + ") "
           f"iter={iters} warmup={warmup}: {wall:.1f} s wall, sampling "
           f"{draws_s:.1f} draws/s; per-phase s: NUTS+linear/level Gibbs "
           f"{tm['nuts_gibbs']:.2f}, sweep {tm['sweep']:.2f}, post "
@@ -538,8 +657,11 @@ def main():
     for n in (2000, 9191):
         err = [max(a, b) for a, b in zip(err, phase_small(device, n))]
     full = phase_full(device)
+    ablate = {c: phase_ablate(device, c) for c in (256, 64)}
     launches = {k: None for k in KERNELS}
     if not args.kernels:
+        # run_fit holds every main path to 0 launches of the stubs
+        launches["bart_sweep_ablate"] = 0
         launches["bart_sweep_batch"] = phase_main(
             device, "phase 3", 10_000, 256, "bart_sweep_batch")
     large = {n: phase_large(device, n, c)
@@ -559,7 +681,7 @@ def main():
         "name": "bart_sweep_batch",
         "route": "cuda",
         "source": "stan4bart_torch/csrc/bart_sweep_batch.cu",
-        "replaces": "stan4bart_tpu/ops/bart_sweep_kernel.py:817",
+        "replaces": "stan4bart_tpu/ops/bart_sweep_kernel.py:859",
         "launches": launches["bart_sweep_batch"],
         "max_abs_err": max(err[0], full["max_abs_err"]),
         "ms": full["ms"],
@@ -568,11 +690,12 @@ def main():
         "bound_ms": full["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "cluster": full["cluster"],
     }, {
         "name": "bart_sweep_tiled",
         "route": "cuda",
         "source": "stan4bart_torch/csrc/bart_sweep_tiled.cu",
-        "replaces": "stan4bart_tpu/ops/bart_sweep_kernel.py:1446",
+        "replaces": "stan4bart_tpu/ops/bart_sweep_kernel.py:1495",
         "launches": launches["bart_sweep_tiled"],
         "max_abs_err": max([err[1], full["tiled_max_abs_err"]]
                            + [r["max_abs_err"] for r in large.values()]),
@@ -582,11 +705,15 @@ def main():
         "bound_ms": big["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "cluster": big["cluster"],
+        "ms_n200000_c16": large[200_000]["ms"],
+        "bound_ms_n200000_c16": large[200_000]["bound_ms"],
+        "cluster_n200000_c16": large[200_000]["cluster"],
     }, {
         "name": "bart_sweep_chain",
         "route": "cuda",
         "source": "stan4bart_torch/csrc/bart_sweep_chain.cu",
-        "replaces": "stan4bart_tpu/ops/bart_sweep_kernel.py:562",
+        "replaces": "stan4bart_tpu/ops/bart_sweep_kernel.py:596",
         "launches": launches["bart_sweep_chain"],
         "max_abs_err": max(chain_errs),
         "ms": big["chain_ms"],
@@ -595,6 +722,23 @@ def main():
         "bound_ms": big["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+    }, {
+        "name": "bart_sweep_ablate",
+        "route": "cuda",
+        "source": "stan4bart_torch/csrc/bart_sweep_ablate.cu",
+        "replaces": "benchmarks/ablate_batch_kernel.py:124",
+        "launches": launches["bart_sweep_ablate"],
+        "max_abs_err": max(a["max_abs_err"] for a in ablate.values()),
+        "ms": ablate[256]["obs"],
+        "kernel_ms": ablate[256]["obs"],
+        "copy_ms": ablate[256]["copy"],
+        "full_ms": ablate[256]["full"],
+        "ms_c64": {k: ablate[64][k] for k in ("copy", "obs", "full")},
+        "plain_ms": ablate[256]["plain_ms"],
+        "bound_ms": ablate[256]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "cluster": ablate[256]["cluster"],
     }]}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,7 @@
 // with the per-tree arithmetic of sweep_common.cuh and every thread
 // walking the observations tid + j * kThreads, so its outputs are
 // bit-identical to bart_sweep_batch.cu's and bart_sweep_tiled.cu's where
-// those run.
+// those run with one block per chain (K = 1).
 //
 // Per tree, three passes over the observations:
 //   1. partial residual (R += this tree's old fit) and the six move
@@ -42,6 +42,8 @@ namespace {
 
 using namespace s4b;
 
+constexpr int kPer = 4;    // observations per thread per histogram step
+
 __global__ void __launch_bounds__(kThreads)
 bart_sweep_chain_kernel(SweepArgs a) {
   extern __shared__ float4 smem4[];
@@ -58,13 +60,14 @@ bart_sweep_chain_kernel(SweepArgs a) {
 
   for (int t = 0; t < T; ++t) {
     const size_t ct = (size_t)c * T + t;
-    const Move mv = begin_tree(a, s, ct);
+    const TreeRows rows = global_rows(a, ct);
+    const Move mv = begin_tree(a, s, rows);
     const int32_t* __restrict__ li_in = a.lidx_in + ct * N;
     const float* __restrict__ tf_in = a.tfit_in + ct * N;
     const int32_t* __restrict__ rank_row = mv.rank_row;
 
     // pass 1: partial residual and the six move statistics
-    float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int i = tid; i < N; i += kThreads) {
       float r = R[i] + tf_in[i];
       R[i] = r;
@@ -72,25 +75,32 @@ bart_sweep_chain_kernel(SweepArgs a) {
       float wr = wts ? w * r : r;
       add_move_stats(acc, mv, li_in[i], rank_row[i] <= mv.cn, w, wr);
     }
-    const bool accept = decide(a, s, mv, acc, ct, s2, t2);
+    const bool accept = decide(a, s, mv, acc, rows, s2, t2);
 
     // pass 2: new leaf indices and per-node leaf statistics
     int32_t* __restrict__ li_out = a.lidx_out + ct * N;
-    for (int base = 0; base < N; base += kThreads) {
-      const int i = base + tid;
-      const bool in = i < N;
-      int li = -1;
-      float w = 0.0f, wr = 0.0f;
-      if (in) {
-        li = moved_leaf(mv, accept, li_in[i], rank_row[i] <= mv.cn);
-        li_out[i] = li;
-        w = wts ? wts[i] : 1.0f;
-        wr = wts ? w * R[i] : R[i];
+    for (int base = 0; base < N; base += kPer * kThreads) {
+      bool in[kPer];
+      int li[kPer];
+      float w[kPer], wr[kPer];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int i = base + k * kThreads + tid;
+        in[k] = i < N;
+        li[k] = -1;
+        w[k] = 0.0f;
+        wr[k] = 0.0f;
+        if (in[k]) {
+          li[k] = moved_leaf(mv, accept, li_in[i], rank_row[i] <= mv.cn);
+          li_out[i] = li[k];
+          w[k] = wts ? wts[i] : 1.0f;
+          wr[k] = wts ? w[k] * R[i] : R[i];
+        }
       }
-      hist_add(s, in, li, w, wr);
+      hist_add<kPer>(s, in, li, w, wr, wts != nullptr);
     }
     __syncthreads();
-    draw_leaves(a, s, ct, s2, t2);
+    draw_leaves(a, s, ct, rows, s2, t2);
 
     // pass 3: the tree's new fit and the residual without it; each
     // thread reads back only the leaf indices it wrote in pass 2

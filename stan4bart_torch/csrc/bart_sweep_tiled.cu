@@ -5,81 +5,102 @@
 // _sweep_call_tiled (body _make_tiled_kernel).  It computes what
 // bart_sweep_batch.cu computes (the same forest, leaf values, leaf
 // indices, tree fits and final residual from the same variates; plain
-// version ops/bart.py:sweep_trees), with the running residual in device
-// memory instead of shared memory, so n is bounded by device memory:
-// one chain's residual at n = 200 000 is 800 KB, more than an SM's
-// shared memory.  One thread block per chain loops over the trees; per
-// tree it streams the observations in tiles of kTile twice:
+// version ops/bart.py:sweep_trees) at any n.  Each chain is one cluster of
+// K thread blocks (sweep_cluster.cuh), block rank r owning one range of
+// the observations, and one of two kernels runs:
 //
-//   pass A  applies the previous tree's new fit (its leaf values kept in
-//           shared memory, its leaf indices read back from lidx_out),
-//           writes that fit to tfit_out, rolls the residual to this
-//           tree's partial residual and sums the six move statistics;
-//           the Metropolis-Hastings decision follows (sweep_common.cuh);
-//   pass B  rewrites the leaf indices and sums the per-node leaf
-//           statistics; the leaf draw follows.
+// * where a block's slice of the residual and a byte copy of its leaf
+//   indices fit in shared memory (n / K up to about 38 000), the
+//   single-pass sweep sweep_on_chip, the same code as
+//   bart_sweep_batch.cu's: 16 B of device memory per observation and tree,
+//   the operands streamed through a ring of tiles with the next tree's
+//   first tiles in flight during the decision;
+// * otherwise the residual lives in device memory (the resid output
+//   buffer), and per tree the block streams its observations in tiles of
+//   kStreamTile twice, each thread issuing all kStreamPer loads of a tile
+//   before it uses them:
 //
-// A flush pass after the last tree applies its fit and leaves the final
-// residual in resid_out, which serves as the running residual
-// throughout.  Each thread owns the observations tid + j * kThreads in
-// both passes, which is the order of bart_sweep_batch.cu's loops, so the
-// two kernels take every sum in the same order and give bit-identical
-// results where both run.
+//     pass A  applies the previous tree's new fit (its leaf values kept in
+//             shared memory, its leaf indices read back from lidx_out),
+//             writes that fit to tfit_out, rolls the residual to this
+//             tree's partial residual and sums the six move statistics;
+//             the Metropolis-Hastings decision follows;
+//     pass B  rewrites the leaf indices and sums the per-node leaf
+//             statistics; the leaf draw follows;
 //
-// What bounds it: bytes.  Per (chain, tree) the sweep must read leaf_idx
-// and tree_fit and write both (16 B per observation).  This design moves
-// 36 B: pass A reads the previous tree's leaf indices, the residual, the
-// tree fit and the leaf indices and writes the previous fit and the
-// residual; pass B reads the leaf indices and the residual again and
-// writes the new leaf indices.  The cut-rank row and the weights are
-// shared by every chain and stay in L2.  Within a tile each thread
-// issues all kPer loads of a pass before it uses them, so a block keeps
-// several loads in flight; with one block per chain a fit of few chains
-// fills few SMs (more blocks per chain is later work).
+//   and a flush pass after the last tree applies its fit.  This moves 36 B
+//   per observation and tree: pass A reads the previous leaf indices, the
+//   residual, the tree fit and the leaf indices and writes the previous
+//   fit and the residual; pass B reads the leaf indices and the residual
+//   again and writes the new leaf indices.
+//
+// Both take every sum in the order of sweep_common.cuh over the same
+// observation ranges and per-thread order (tid + j * kThreads within a
+// block's range), so the two kernels, and bart_sweep_batch.cu at the same
+// K, give bit-identical results.  What bounds the sweep: bytes (16 B per
+// observation and tree must move).  The cluster puts several SMs on a
+// chain where few chains would leave most SMs idle; the cut-rank row and
+// the weights are shared by every chain and stay in L2.
 
-#include "sweep_common.cuh"
+#include "sweep_cluster.cuh"
 
 namespace {
 
 using namespace s4b;
 
-constexpr int kPer = 8;                   // observations per thread per tile
-constexpr int kTile = kThreads * kPer;    // observations per tile
+constexpr int kStreamPer = 8;                    // per thread per tile
+constexpr int kStreamTile = kThreads * kStreamPer;
 
 __global__ void __launch_bounds__(kThreads)
-bart_sweep_tiled_kernel(SweepArgs a) {
+bart_sweep_tiled_on_chip_kernel(SweepArgs a, int K) {
+  extern __shared__ float4 smem4[];
+  __shared__ TreeShared s;
+  sweep_on_chip<Body::kFull>(a, s, reinterpret_cast<unsigned char*>(smem4),
+                             K);
+}
+
+__global__ void __launch_bounds__(kThreads)
+bart_sweep_tiled_stream_kernel(SweepArgs a, int K) {
   __shared__ TreeShared s;
 
   const int N = a.N, T = a.T;
-  const int c = blockIdx.x;
+  const int rank = block_rank(K);
+  const int c = blockIdx.x / K;
+  int start, n;
+  obs_range(N, K, rank, start, n);
   const int tid = threadIdx.x;
   const float s2 = a.sigma2[c], t2 = a.tau2[c];
-  const float* __restrict__ R0 = a.resid0 + (size_t)c * N;
-  float* __restrict__ R = a.resid_out + (size_t)c * N;
-  const float* __restrict__ wts = a.weights;
+  const float* __restrict__ R0 = a.resid0 + (size_t)c * N + start;
+  float* __restrict__ R = a.resid_out + (size_t)c * N + start;
+  const float* __restrict__ wts = a.weights ? a.weights + start : nullptr;
 
   for (int t = 0; t <= T; ++t) {
     const bool flush = t == T;
     const size_t ct = (size_t)c * T + t;
+    const TreeRows rows = global_rows(a, ct);
     Move mv{};
-    if (!flush) mv = begin_tree(a, s, ct);
+    if (!flush) mv = begin_tree(a, s, rows);
     // the previous tree's new leaf indices and its fit (t > 0)
     const int32_t* __restrict__ li_prev =
-        t > 0 ? a.lidx_out + (ct - 1) * N : nullptr;
-    float* __restrict__ tf_prev = t > 0 ? a.tfit_out + (ct - 1) * N : nullptr;
-    const int32_t* __restrict__ li_in = flush ? nullptr : a.lidx_in + ct * N;
-    const float* __restrict__ tf_in = flush ? nullptr : a.tfit_in + ct * N;
-    const int32_t* __restrict__ rank_row = mv.rank_row;
+        t > 0 ? a.lidx_out + (ct - 1) * N + start : nullptr;
+    float* __restrict__ tf_prev =
+        t > 0 ? a.tfit_out + (ct - 1) * N + start : nullptr;
+    const int32_t* __restrict__ li_in =
+        flush ? nullptr : a.lidx_in + ct * N + start;
+    const float* __restrict__ tf_in =
+        flush ? nullptr : a.tfit_in + ct * N + start;
+    const int32_t* __restrict__ rank_row =
+        flush ? nullptr : mv.rank_row + start;
 
     // pass A: apply tree t-1's fit, roll the residual, move statistics
-    float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int base = 0; base < N; base += kTile) {
-      float rv[kPer], tfv[kPer];
-      int lpv[kPer], liv[kPer], rkv[kPer];
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int base = 0; base < n; base += kStreamTile) {
+      float rv[kStreamPer], tfv[kStreamPer];
+      int lpv[kStreamPer], liv[kStreamPer], rkv[kStreamPer];
 #pragma unroll
-      for (int k = 0; k < kPer; ++k) {
+      for (int k = 0; k < kStreamPer; ++k) {
         const int i = base + k * kThreads + tid;
-        if (i < N) {
+        if (i < n) {
           rv[k] = t == 0 ? R0[i] : R[i];
           if (t > 0) lpv[k] = li_prev[i];
           if (!flush) {
@@ -90,9 +111,9 @@ bart_sweep_tiled_kernel(SweepArgs a) {
         }
       }
 #pragma unroll
-      for (int k = 0; k < kPer; ++k) {
+      for (int k = 0; k < kStreamPer; ++k) {
         const int i = base + k * kThreads + tid;
-        if (i < N) {
+        if (i < n) {
           float r = rv[k];
           if (t > 0) {
             float nf = s.lv[lpv[k]];
@@ -110,47 +131,92 @@ bart_sweep_tiled_kernel(SweepArgs a) {
       }
     }
     if (flush) break;
-    const bool accept = decide(a, s, mv, acc, ct, s2, t2);
+    const bool accept = decide(a, s, mv, acc, rows, s2, t2, K);
 
     // pass B: new leaf indices and per-node leaf statistics
-    int32_t* __restrict__ li_out = a.lidx_out + ct * N;
-    for (int base = 0; base < N; base += kTile) {
-      float rv[kPer];
-      int liv[kPer], rkv[kPer];
+    int32_t* __restrict__ li_out = a.lidx_out + ct * N + start;
+    for (int base = 0; base < n; base += kStreamTile) {
+      float rv[kStreamPer];
+      int liv[kStreamPer], rkv[kStreamPer];
 #pragma unroll
-      for (int k = 0; k < kPer; ++k) {
+      for (int k = 0; k < kStreamPer; ++k) {
         const int i = base + k * kThreads + tid;
-        if (i < N) {
+        if (i < n) {
           rv[k] = R[i];
           liv[k] = li_in[i];
           rkv[k] = rank_row[i];
         }
       }
+      bool in[kStreamPer];
+      int li[kStreamPer];
+      float w[kStreamPer], wr[kStreamPer];
 #pragma unroll
-      for (int k = 0; k < kPer; ++k) {
+      for (int k = 0; k < kStreamPer; ++k) {
         const int i = base + k * kThreads + tid;
-        const bool in = i < N;
-        int li = -1;
-        float w = 0.0f, wr = 0.0f;
-        if (in) {
-          li = moved_leaf(mv, accept, liv[k], rkv[k] <= mv.cn);
-          li_out[i] = li;
-          w = wts ? wts[i] : 1.0f;
-          wr = wts ? w * rv[k] : rv[k];
+        in[k] = i < n;
+        li[k] = -1;
+        w[k] = 0.0f;
+        wr[k] = 0.0f;
+        if (in[k]) {
+          li[k] = moved_leaf(mv, accept, liv[k], rkv[k] <= mv.cn);
+          li_out[i] = li[k];
+          w[k] = wts ? wts[i] : 1.0f;
+          wr[k] = wts ? w[k] * rv[k] : rv[k];
         }
-        hist_add(s, in, li, w, wr);
       }
+      hist_add<kStreamPer>(s, in, li, w, wr, wts != nullptr);
     }
     __syncthreads();
-    draw_leaves(a, s, ct, s2, t2);
+    draw_leaves(a, s, ct, rows, s2, t2, K, rank == 0);
   }
+  // no block leaves while another may still read its shared memory
+  if (K > 1) cluster_sync();
+}
+
+// The kernel that runs at N, T and K (on chip where its shared memory fits
+// the device's opt-in limit per block) and its dynamic shared memory.
+int pick(int N, int T, int K, bool* on_chip, size_t* dyn) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr,
+                                          bart_sweep_tiled_on_chip_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, optin = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  *dyn = on_chip_bytes(N, T, K);
+  *on_chip = attr.sharedSizeBytes + *dyn <= (size_t)optin;
+  if (!*on_chip) *dyn = 0;
+  return 0;
 }
 
 }  // namespace
 
-// Launches one sweep over C chains on ``stream``; returns the CUDA error
-// code of the launch (0 on success).  resid_out doubles as the running
-// residual and holds the final one when the kernel ends.
+// Writes the shared memory per block (static, dynamic) of the kernel that
+// runs at N, T and K, the device's opt-in limit per block, the number of
+// clusters of K blocks that can be resident at once, and whether the
+// residual stays on chip; returns the CUDA error code.
+extern "C" int bart_sweep_tiled_info(int N, int T, int K, long long* static_b,
+                                     long long* dynamic_b, int* optin,
+                                     int* clusters, int* resid_on_chip) {
+  bool on_chip = false;
+  size_t dyn = 0;
+  int e = pick(N, T, K, &on_chip, &dyn);
+  if (e != 0) return e;
+  *dynamic_b = (long long)dyn;
+  *resid_on_chip = on_chip ? 1 : 0;
+  return on_chip ? cluster_info(bart_sweep_tiled_on_chip_kernel, K, dyn,
+                                static_b, optin, clusters)
+                 : cluster_info(bart_sweep_tiled_stream_kernel, K, dyn,
+                                static_b, optin, clusters);
+}
+
+// Launches one sweep over C chains in clusters of K blocks on ``stream``;
+// returns the CUDA error code of the launch (0 on success).  resid_out
+// holds the final residual when the kernel ends (and, where the residual
+// does not fit on chip, serves as the running residual throughout).
 extern "C" int bart_sweep_tiled_launch(
     const int32_t* feature_in, const int32_t* cut_in, const int32_t* lidx_in,
     const float* tfit_in, const float* resid0, const float* sigma2,
@@ -160,11 +226,17 @@ extern "C" int bart_sweep_tiled_launch(
     float* lv_out, int32_t* lidx_out, float* tfit_out, float* resid_out,
     int C, int T, int N, int P, int M, int max_depth, int n_cuts,
     float p_grow, float p_prune, float trans_grow0, float trans_prune0,
-    void* stream) {
+    int K, void* stream) {
   SweepArgs a{feature_in, cut_in, lidx_in, tfit_in, resid0, sigma2, tau2,
               u, zn, ranks_t, spcum, psplit, weights, feature_out, cut_out,
               lv_out, lidx_out, tfit_out, resid_out, T, N, P, M, max_depth,
               n_cuts, p_grow, p_prune, trans_grow0, trans_prune0};
-  bart_sweep_tiled_kernel<<<C, kThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  bool on_chip = false;
+  size_t dyn = 0;
+  int e = pick(N, T, K, &on_chip, &dyn);
+  if (e != 0) return e;
+  return on_chip ? launch_clusters(bart_sweep_tiled_on_chip_kernel, a, C, K,
+                                   dyn, stream)
+                 : launch_clusters(bart_sweep_tiled_stream_kernel, a, C, K,
+                                   dyn, stream);
 }

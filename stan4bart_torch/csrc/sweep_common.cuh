@@ -1,27 +1,36 @@
 // Per-tree arithmetic shared by the port's BART sweep kernels.
 //
-// Both kernels (bart_sweep_batch.cu, residual in shared memory, and
-// bart_sweep_tiled.cu, residual in device memory) run one thread block
-// per chain and, per tree, the same steps: load the tree's heap rows and
-// pick the move (begin_tree), sum the six move statistics over the
-// observations (add_move_stats, then decide's fixed-order block sum and
-// the Metropolis-Hastings decision), rewrite the leaf indices
-// (moved_leaf) while summing the per-node leaf statistics (hist_add),
-// and draw the leaf values (draw_leaves).  Only the observation passes
-// differ between the kernels, so the decision arithmetic exists once and
-// the two kernels give the same forest on the same inputs.
+// The kernels (bart_sweep_batch.cu and bart_sweep_tiled.cu, through the
+// cluster layer sweep_cluster.cuh, and bart_sweep_chain.cu) give each
+// chain one thread block, or one cluster of K blocks that split its
+// observations into K fixed ranges, and run per tree the same steps: load
+// the tree's heap rows and pick the move (begin_tree), sum the six move
+// statistics over the observations (add_move_stats, then decide's
+// fixed-order sum and the Metropolis-Hastings decision), rewrite the leaf
+// indices (moved_leaf) while summing the per-node leaf statistics
+// (hist_add), and draw the leaf values (draw_leaves).  Only the
+// observation passes differ between the kernels, so the decision
+// arithmetic exists once and the kernels give the same forest on the same
+// inputs.
 //
-// Every sum is taken in a fixed order.  The six move statistics are
-// per-thread sums over the observations tid, tid + kThreads, ..., then a
-// warp butterfly, then the warps in order.  The per-node leaf statistics
-// go to one 128-bin histogram per warp, filled kThreads observations at a
-// time: within a warp, lanes holding the same node are grouped with
-// __match_any_sync and their leader adds the group in lane order, so no
-// two lanes ever add to one bin at once; the warp histograms are summed
-// in warp order.
+// Every sum is deterministic.  The six move statistics are per-thread
+// sums over a block's observations tid, tid + kThreads, ..., then a warp
+// butterfly, then the warps in order, then (in a cluster) the blocks in
+// rank order.  The per-node leaf statistics are sums of integers: each
+// observation's weight and weighted residual become 64-bit fixed-point
+// numbers, scaled per tree by a power of two from the chain's largest
+// magnitude so that no sum can overflow (fix_scale); within a warp, lanes
+// holding the same node are grouped with __match_any_sync and their
+// values summed by integer warp reductions, and the group's leader adds
+// the sum into the block's histogram with a shared-memory atomic.
+// Integer addition does not depend on order, so these sums are the same
+// in every kernel, at every cluster size and on every run, and they are
+// exact but for the rounding of each value to 2^-scale and of the total
+// back to float.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,6 +67,9 @@ struct SweepArgs {
   float p_grow, p_prune;
   float trans_grow0;           // log(p_prune) - log(p_grow)
   float trans_prune0;          // log(p_grow) - log(p_prune)
+  // the ablation stubs' extra operands (bart_sweep_ablate.cu), else null
+  const float* lv_in;          // (C, T, M) leaf values to look up
+  float* stats_out;            // (C, T, 2, M) per-node leaf statistics
 };
 
 // The block's per-tree state, in shared memory.
@@ -65,15 +77,33 @@ struct TreeShared {
   int feat[kNodePad];
   int cut[kNodePad];
   float lv[kNodePad];          // leaf values of the last drawn tree
-  float hist[kWarps][2][kNodePad];
-  float red[kWarps][6];
-  float stage_w[kWarps][32];
-  float stage_wr[kWarps][32];
+  // per-node sums of the fixed-point weights and weighted residuals
+  unsigned long long hist[2][kNodePad];
+  float red[kWarps][8];
+  // the chain's move statistics (0-5) and largest |w r| and w (6, 7)
+  float tot[8];
+  // the block's sums, read by the other blocks of its cluster (K > 1)
+  float part[8];
+  unsigned long long hsum[2][kNodePad];
   unsigned nog_bits[4];
   // eta, lft, rgt, move (0 grow, 1 prune, 2 change), accept, v, c,
-  // n_leaf, n_nog
-  int sc[9];
+  // n_leaf, n_nog, the fixed-point scales of w and of w r
+  int sc[11];
 };
+
+// Where a tree's input rows are read from: device memory, or copies in
+// shared memory that arrived ahead of the tree (sweep_cluster.cuh).
+struct TreeRows {
+  const int32_t* feat;         // (M,)
+  const int32_t* cut;          // (M,)
+  const float* u;              // (8,) proposal uniforms
+  const float* zn;             // (128,) leaf normals
+};
+
+__device__ inline TreeRows global_rows(const SweepArgs& a, size_t ct) {
+  return {a.feature_in + ct * a.M, a.cut_in + ct * a.M, a.u + ct * 8,
+          a.zn + ct * kNodePad};
+}
 
 // The proposed move of the current tree, as every thread reads it.
 struct Move {
@@ -100,25 +130,43 @@ __device__ inline int pick_marked(const unsigned* bits, int count, float u) {
   return 0;
 }
 
+// the split variable of a tree whose proposal uniform u[3] is u3: the
+// inverse CDF of the split probabilities
+__device__ inline int pick_var(const SweepArgs& a, float u3) {
+  int v = 0;
+  for (int j = 0; j < a.P; ++j) v += a.spcum[j] <= u3 ? 1 : 0;
+  return min(v, a.P - 1);
+}
+
+// a pointer to the same shared-memory object in block ``rank`` of this
+// block's cluster
+template <typename X>
+__device__ inline X* in_rank(X* p, int rank) {
+  return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+}
+
+__device__ inline void cluster_sync() {
+  cooperative_groups::this_cluster().sync();
+}
+
 __device__ inline float leaf_marginal(float n, float s, float s2, float t2) {
   float denom = s2 + n * t2;
   return 0.5f * logf(s2 / denom) + t2 * s * s / (2.0f * s2 * denom);
 }
 
-// Loads tree ct's heap rows, clears the leaf histograms and picks the
+// Loads the tree's heap rows, clears the leaf histograms and picks the
 // move: node picks by warp ballots over the leaf and NOG masks, the
 // variable by inverse CDF, the cut uniformly.  Ends on a block barrier.
 __device__ inline Move begin_tree(const SweepArgs& a, TreeShared& s,
-                                  size_t ct) {
+                                  const TreeRows& rows) {
   const int M = a.M;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* u = a.u + ct * 8;
+  const float* u = rows.u;
   for (int m = tid; m < kNodePad; m += kThreads) {
-    s.feat[m] = m < M ? a.feature_in[ct * M + m] : kInactive;
-    s.cut[m] = m < M ? a.cut_in[ct * M + m] : 0;
+    s.feat[m] = m < M ? rows.feat[m] : kInactive;
+    s.cut[m] = m < M ? rows.cut[m] : 0;
   }
-  for (int j = tid; j < kWarps * 2 * kNodePad; j += kThreads)
-    (&s.hist[0][0][0])[j] = 0.0f;
+  for (int j = tid; j < 2 * kNodePad; j += kThreads) (&s.hist[0][0])[j] = 0;
   __syncthreads();
 
   if (warp == 0) {
@@ -143,9 +191,7 @@ __device__ inline Move begin_tree(const SweepArgs& a, TreeShared& s,
       float u_move = u[0];
       bool grow = u_move < a.p_grow;
       bool prune = !grow && u_move < a.p_grow + a.p_prune;
-      int v = 0;
-      for (int j = 0; j < a.P; ++j) v += a.spcum[j] <= u[3] ? 1 : 0;
-      v = min(v, a.P - 1);
+      int v = pick_var(a, u[3]);
       int cn = min((int)floorf(u[4] * (float)a.n_cuts), a.n_cuts - 1);
       int eta = grow ? pick_marked(leaf_bits, n_leaf, u[1])
                      : pick_marked(nog_bits, max(n_nog, 1), u[2]);
@@ -175,9 +221,12 @@ __device__ inline Move begin_tree(const SweepArgs& a, TreeShared& s,
 // Adds one observation (leaf li, goes left of the proposed split gl,
 // weight w, weighted partial residual wr) to a thread's six move
 // statistics: (n, s) over the move's nodes, over those going left, and
-// over the current left child.
-__device__ inline void add_move_stats(float acc[6], const Move& mv, int li,
+// over the current left child; acc[6] and acc[7] keep the largest |wr|
+// and w, which scale the leaf histograms.
+__device__ inline void add_move_stats(float acc[8], const Move& mv, int li,
                                       bool gl, float w, float wr) {
+  acc[6] = fmaxf(acc[6], fabsf(wr));
+  acc[7] = fmaxf(acc[7], w);
   bool ml = li == mv.lft;
   bool mem = mv.grow ? (li == mv.eta) : (ml || li == mv.rgt);
   if (mem) {
@@ -194,31 +243,88 @@ __device__ inline void add_move_stats(float acc[6], const Move& mv, int li,
   }
 }
 
-// Sums the threads' move statistics in fixed order and makes the
-// Metropolis-Hastings decision; on acceptance rewrites the tree rows in
-// shared memory.  Returns whether the move was accepted.  Called by every
-// thread; contains block barriers.
-__device__ inline bool decide(const SweepArgs& a, TreeShared& s,
-                              const Move& mv, const float acc[6], size_t ct,
-                              float s2, float t2) {
+// The power of two S that turns values of magnitude at most amax into
+// 64-bit integers whose sum over N values cannot overflow:
+// N * amax * 2^S < 2^62.  Kept within a float's exponent range.
+__device__ inline int fix_scale(float amax, int N) {
+  if (!(amax > 0.0f)) return 0;
+  int e;
+  frexpf(amax, &e);                       // amax < 2^e
+  const int en = 32 - __clz(max(N, 1));   // N < 2^en
+  return min(62 - en - e, 127);
+}
+
+// x as a fixed-point integer of scale S (|S| <= 127; x * 2^S is exact)
+__device__ inline long long to_fixed(float x, int S) {
+  const float f = S >= -126 ? __int_as_float((S + 127) << 23)
+                            : ldexpf(1.0f, S);
+  return __float2ll_rn(x * f);
+}
+
+// a fixed-point sum of scale S back to float
+__device__ inline float from_fixed(unsigned long long v, int S) {
+  return (float)ldexp((double)(long long)v, -S);
+}
+
+// Sums the threads' move statistics (acc[0..5], in fixed order) and
+// takes the largest |w r| and w (acc[6], acc[7]) over the chain, leaving
+// the totals in s.tot and the leaf histograms' fixed-point scales in
+// s.sc[9] (w) and s.sc[10] (w r).  Called by every thread; contains block
+// barriers and, in a cluster of K > 1 blocks, one cluster barrier, after
+// which every block adds the blocks' sums in rank order.
+__device__ inline void chain_stats(TreeShared& s, const float acc[8], int N,
+                                   int K) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int k = 0; k < 6; ++k) {
+  for (int k = 0; k < 8; ++k) {
     float x = acc[k];
-    for (int off = 16; off > 0; off >>= 1)
-      x += __shfl_xor_sync(kFull, x, off);
+    for (int off = 16; off > 0; off >>= 1) {
+      const float y = __shfl_xor_sync(kFull, x, off);
+      x = k < 6 ? x + y : fmaxf(x, y);
+    }
     if (lane == 0) s.red[warp][k] = x;
   }
   __syncthreads();
-
-  if (tid == 0) {
-    const float* u = a.u + ct * 8;
-    const int eta = mv.eta, lft = mv.lft, rgt = mv.rgt, move = mv.move;
-    float st[6];
-    for (int k = 0; k < 6; ++k) {
+  if (K > 1) {
+    if (tid < 8) {
       float x = 0.0f;
-      for (int wp = 0; wp < kWarps; ++wp) x += s.red[wp][k];
-      st[k] = x;
+      for (int wp = 0; wp < kWarps; ++wp)
+        x = tid < 6 ? x + s.red[wp][tid] : fmaxf(x, s.red[wp][tid]);
+      s.part[tid] = x;
     }
+    cluster_sync();
+  }
+  if (tid < 8) {
+    float x = 0.0f;
+    if (K == 1) {
+      for (int wp = 0; wp < kWarps; ++wp)
+        x = tid < 6 ? x + s.red[wp][tid] : fmaxf(x, s.red[wp][tid]);
+    } else {
+      x = in_rank(s.part, 0)[tid];
+      for (int r = 1; r < K; ++r) {
+        const float y = in_rank(s.part, r)[tid];
+        x = tid < 6 ? x + y : fmaxf(x, y);
+      }
+    }
+    s.tot[tid] = x;
+    if (tid >= 6) s.sc[9 + (7 - tid)] = fix_scale(x, N);
+  }
+  __syncthreads();
+}
+
+// Sums the threads' move statistics (chain_stats) and makes the
+// Metropolis-Hastings decision; on acceptance rewrites the tree rows in
+// shared memory.  Returns whether the move was accepted.  Called by every
+// thread; every block of a cluster makes the same decision from the same
+// numbers.
+__device__ inline bool decide(const SweepArgs& a, TreeShared& s,
+                              const Move& mv, const float acc[8],
+                              const TreeRows& rows, float s2, float t2,
+                              int K = 1) {
+  chain_stats(s, acc, a.N, K);
+  if (threadIdx.x == 0) {
+    const float* u = rows.u;
+    const int eta = mv.eta, lft = mv.lft, rgt = mv.rgt, move = mv.move;
+    const float* st = s.tot;
     float n_all = st[0], s_all = st[1], n_ln = st[2], s_ln = st[3];
     float n_lo = st[4], s_lo = st[5];
     float n_rn = n_all - n_ln, s_rn = s_all - s_ln;
@@ -284,49 +390,104 @@ __device__ inline int moved_leaf(const Move& mv, bool accept, int li,
   return li;
 }
 
-// Adds one observation per lane (weight w and weighted residual wr in
-// leaf li, ignored unless ``in``) to the warp's leaf histogram.  Every
-// lane of the warp calls it together.
-__device__ inline void hist_add(TreeShared& s, bool in, int li, float w,
-                                float wr) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  s.stage_w[warp][lane] = w;
-  s.stage_wr[warp][lane] = wr;
-  unsigned grp = __match_any_sync(kFull, li);
-  __syncwarp();
-  if (in && lane == __ffs(grp) - 1) {
-    float sw = 0.0f, swr = 0.0f;
-    for (unsigned g = grp; g; g &= g - 1) {
-      int l = __ffs(g) - 1;
-      sw += s.stage_w[warp][l];
-      swr += s.stage_wr[warp][l];
-    }
-    s.hist[warp][0][li] += sw;
-    s.hist[warp][1][li] += swr;
-  }
-  __syncwarp();
+// The sum of v over the lanes of group grp (every lane of the warp calls
+// it together, each with its own group), exact: v (|v| < 2^62) is cut
+// into three 21-bit limbs, each summed by an integer warp reduction.
+__device__ inline long long group_sum(unsigned grp, long long v) {
+  const unsigned l0 = (unsigned)(v & 0x1fffff);
+  const unsigned l1 = (unsigned)((v >> 21) & 0x1fffff);
+  const int l2 = (int)(v >> 42);
+  const long long s0 = (long long)__reduce_add_sync(grp, l0);
+  const long long s1 = (long long)__reduce_add_sync(grp, l1);
+  const long long s2 = (long long)__reduce_add_sync(grp, l2);
+  return s0 + (s1 << 21) + (s2 * (1ll << 42));
 }
 
-// Conjugate leaf draws from the summed histograms; writes the tree's rows
-// out and keeps its leaf values in s.lv.  Called by every thread after a
-// block barrier; ends on one.
-__device__ inline void draw_leaves(const SweepArgs& a, TreeShared& s,
-                                   size_t ct, float s2, float t2) {
-  const int M = a.M;
-  for (int m = threadIdx.x; m < M; m += kThreads) {
-    float cnt = 0.0f, sm = 0.0f;
-    for (int wp = 0; wp < kWarps; ++wp) {
-      cnt += s.hist[wp][0][m];
-      sm += s.hist[wp][1][m];
+// Adds W observations per lane (weight w[k] and weighted residual wr[k]
+// in leaf li[k], ignored unless in[k]) to the block's leaf histograms, in
+// the fixed-point scales chain_stats set.  Every lane of the warp calls it
+// together.  The W observations are independent, so their warp
+// reductions overlap.  Unweighted (every w 1), the weights' sum is the
+// group's size times 2^scale, exactly.
+template <int W>
+__device__ inline void hist_add(TreeShared& s, const bool (&in)[W],
+                                const int (&li)[W], const float (&w)[W],
+                                const float (&wr)[W], bool weighted) {
+  const int lane = threadIdx.x & 31;
+  const int sw_scale = s.sc[9], swr_scale = s.sc[10];
+  unsigned grp[W];
+  long long tr[W], tw[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) grp[k] = __match_any_sync(kFull, li[k]);
+#pragma unroll
+  for (int k = 0; k < W; ++k)
+    tr[k] = group_sum(grp[k], in[k] ? to_fixed(wr[k], swr_scale) : 0);
+#pragma unroll
+  for (int k = 0; k < W; ++k)
+    tw[k] = weighted ? group_sum(grp[k], in[k] ? to_fixed(w[k], sw_scale) : 0)
+                     : (long long)__popc(grp[k]) * to_fixed(1.0f, sw_scale);
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    if (in[k] && lane == __ffs(grp[k]) - 1) {
+      atomicAdd(&s.hist[0][li[k]], (unsigned long long)tw[k]);
+      atomicAdd(&s.hist[1][li[k]], (unsigned long long)tr[k]);
     }
+  }
+}
+
+// In a cluster of K > 1 blocks, publishes the block's leaf histograms and
+// waits on a cluster barrier.  Called by every thread after a block
+// barrier.
+__device__ inline void gather_hist(TreeShared& s, int M, int K) {
+  if (K == 1) return;
+  for (int m = threadIdx.x; m < M; m += kThreads) {
+    s.hsum[0][m] = s.hist[0][m];
+    s.hsum[1][m] = s.hist[1][m];
+  }
+  cluster_sync();
+}
+
+// Node m's leaf statistics (weight and weighted residual sums) over the
+// chain, after gather_hist.
+__device__ inline void leaf_sums(TreeShared& s, int m, int K, float& cnt,
+                                 float& sm) {
+  unsigned long long c = 0, r = 0;
+  if (K == 1) {
+    c = s.hist[0][m];
+    r = s.hist[1][m];
+  } else {
+    for (int k = 0; k < K; ++k) {
+      c += in_rank(&s.hsum[0][0], k)[m];
+      r += in_rank(&s.hsum[1][0], k)[m];
+    }
+  }
+  cnt = from_fixed(c, s.sc[9]);
+  sm = from_fixed(r, s.sc[10]);
+}
+
+// Conjugate leaf draws from the summed histograms; keeps the tree's leaf
+// values in s.lv and, when ``write`` (one block per chain writes), writes
+// the tree's rows out.  Every block of a cluster draws the same values
+// from the same sums.  Called by every thread after a block barrier; ends
+// on one.
+__device__ inline void draw_leaves(const SweepArgs& a, TreeShared& s,
+                                   size_t ct, const TreeRows& rows, float s2,
+                                   float t2, int K = 1, bool write = true) {
+  const int M = a.M;
+  gather_hist(s, M, K);
+  for (int m = threadIdx.x; m < M; m += kThreads) {
+    float cnt, sm;
+    leaf_sums(s, m, K, cnt, sm);
     float pv = 1.0f / (cnt / s2 + 1.0f / t2);
     float pm = pv * sm / s2;
-    float mu = pm + sqrtf(pv) * a.zn[ct * kNodePad + m];
+    float mu = pm + sqrtf(pv) * rows.zn[m];
     float lv = s.feat[m] == kLeaf ? mu : 0.0f;
     s.lv[m] = lv;
-    a.lv_out[ct * M + m] = lv;
-    a.feature_out[ct * M + m] = s.feat[m];
-    a.cut_out[ct * M + m] = s.cut[m];
+    if (write) {
+      a.lv_out[ct * M + m] = lv;
+      a.feature_out[ct * M + m] = s.feat[m];
+      a.cut_out[ct * M + m] = s.cut[m];
+    }
   }
   __syncthreads();
 }

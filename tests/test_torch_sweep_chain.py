@@ -255,7 +255,7 @@ def test_cuda_chain_kernel_matches_plain_and_other_kernels():
     args = _cuda_inputs(3_000, 8)
     k = tk.sweep_chain_cuda(*args)
     p = tk.sweep_plain(*args)
-    b = tk.sweep_cuda(*args)
+    b = tk.sweep_cuda(*args, cluster=1)
     torch.cuda.synchronize()
     for i in (0, 1, 3):
         assert torch.equal(k[i], p[i])
@@ -268,7 +268,7 @@ def test_cuda_chain_kernel_matches_plain_and_other_kernels():
     # at its shared-memory ceiling, bit-identical to the obs-tiled kernel
     args = _cuda_inputs(tk.MAX_N_CHAIN, 9, chains=2)
     k = tk.sweep_chain_cuda(*args)
-    t = tk.sweep_tiled_cuda(*args)
+    t = tk.sweep_tiled_cuda(*args, cluster=1)
     torch.cuda.synchronize()
     for x, y in zip(k, t):
         assert torch.equal(x, y)

@@ -184,8 +184,8 @@ def test_cuda_tiled_kernel_matches_plain_and_batch_kernel():
     torch.testing.assert_close(k[5], p[5], **FIT_TOL)
     # where both kernels run they take every sum in the same order
     args = _cuda_inputs(3_000, 7)
-    k = tk.sweep_tiled_cuda(*args)
-    b = tk.sweep_cuda(*args)
+    k = tk.sweep_tiled_cuda(*args, cluster=1)
+    b = tk.sweep_cuda(*args, cluster=1)
     torch.cuda.synchronize()
     for x, y in zip(k, b):
         assert torch.equal(x, y)
