@@ -9,11 +9,10 @@ with nvcc (one process per source, started together), then:
 1. holds every sweep kernel against their plain PyTorch version at small
    sizes (20 trees, 16 chains, 3 chained sweeps, unweighted, weighted and
    a probit-style target), at n = 2000 and at n = 9191, which is not a
-   multiple of any tile: the single-pass and obs-tiled kernels at every
-   cluster size K = 1, 2, 4, 8 (blocks per chain) and the per-chain
-   kernel; identical forests, leaf values and fits within float32
-   tolerance; single-pass and obs-tiled equal to the bit at every K, and
-   equal to the per-chain kernel to the bit at K = 1;
+   multiple of any tile: the single-pass, obs-tiled and per-chain
+   kernels at every cluster size K = 1, 2, 4, 8 (blocks per chain);
+   identical forests, leaf values and fits within float32 tolerance; the
+   three equal to the bit at every K;
 2. does the same at the bench shape (n = 10000, 75 trees, 9 BART
    variables, 256 chains, one sweep from a prior-drawn forest), prints
    each kernel's K and shared memory per block and times the kernels and
@@ -29,9 +28,10 @@ with nvcc (one process per source, started together), then:
    device memory), against the plain version at the reference's large-n
    shapes (n = 50000 with 64 chains, n = 200000 with 16 chains; 75
    trees, 9 variables) and times them; at n = 50000 and at the per-chain
-   kernel's shared-memory ceiling, n = 51840 (64 chains), also the
-   per-chain kernel, against the plain version and to the bit against
-   the obs-tiled one at K = 1, with its shared memory per block;
+   kernel's limit, n = 51840 (64 chains), also the per-chain kernel at
+   its K, against the plain version and to the bit against the obs-tiled
+   one at the same K, with its K and shared memory per block, and at
+   n = 50000 its time at every K = 2..8 (K = 1 does not fit on chip);
 5. runs the obs-tiled kernel's main path: the same fit at n = 50000 with
    64 chains, every sweep through the obs-tiled kernel, with the same
    checks.  It runs 300 iterations, 150 of them warmup: at n = 50000
@@ -147,10 +147,9 @@ def bit_equal(a, b):
 
 
 def phase_small(device, n):
-    """The three kernels (through their wrappers) vs plain, the two
-    chain-batched ones at every cluster size K, 3 chained sweeps per case;
-    to the bit: batch and obs-tiled at equal K, and both at K = 1 with the
-    per-chain kernel.  Returns the max |kernel - plain| of each kernel."""
+    """The three kernels (through their wrappers) vs plain at every
+    cluster size K, 3 chained sweeps per case; to the bit: the three at
+    equal K.  Returns the max |kernel - plain| of each kernel."""
     from stan4bart_torch.ops import bart as ops
     from stan4bart_torch.ops.bart_sweep_kernel import (
         CLUSTERS, bart_sweep_fused, bart_sweep_fused_batch,
@@ -169,8 +168,8 @@ def phase_small(device, n):
     for case, (target, w) in cases.items():
         sigma = torch.full((C,), 1.0 if case == "probit" else 0.9,
                            device=device)
-        runs = {"chain": state, "plain": state}
-        runs.update({(kind, K): state for kind in ("batch", "tiled")
+        runs = {"plain": state}
+        runs.update({(kind, K): state for kind in ("batch", "tiled", "chain")
                      for K in CLUSTERS})
         for sweep in range(3):
             var = ops.draw_variates(gen, C, cfg.num_trees, torch.float32,
@@ -178,10 +177,7 @@ def phase_small(device, n):
             vc = {}
             for key, st in runs.items():
                 kw = dict(weights=w, variates=var)
-                if key == "chain":
-                    runs[key], vc[key] = bart_sweep_fused(
-                        cfg, st, target, consts, sigma, None, **kw)
-                elif key == "plain":
+                if key == "plain":
                     # the plain version on the same card and inputs
                     out = sweep_plain(
                         cfg, st.feature, st.cut, st.leaf_idx, st.tree_fit,
@@ -191,8 +187,9 @@ def phase_small(device, n):
                     runs[key] = as_state(st, out, target)
                     vc[key] = ops.count_variable_use(out[0], P)
                 else:
-                    fn = (bart_sweep_fused_batch if key[0] == "batch"
-                          else bart_sweep_fused_batch_tiled)
+                    fn = {"batch": bart_sweep_fused_batch,
+                          "tiled": bart_sweep_fused_batch_tiled,
+                          "chain": bart_sweep_fused}[key[0]]
                     runs[key], vc[key] = fn(cfg, st, target, consts, sigma,
                                             None, cluster=key[1], **kw)
             tag = f"phase 1 n={n} {case} sweep {sweep}"
@@ -204,19 +201,18 @@ def phase_small(device, n):
                 if n_same != C:
                     raise AssertionError(f"{tag}: {key} vs plain: "
                                          f"{C - n_same} of {C} chains differ")
-                kind = key if key == "chain" else key[0]
-                err[kind] = max(err[kind], e)
-            pairs = [(("tiled", K), ("batch", K)) for K in CLUSTERS]
-            pairs.append(("chain", ("batch", 1)))
+                err[key[0]] = max(err[key[0]], e)
+            pairs = [((kind, K), ("batch", K)) for K in CLUSTERS
+                     for kind in ("tiled", "chain")]
             for a, b in pairs:
                 if not bit_equal(runs[a], runs[b]):
                     raise AssertionError(f"{tag}: {a} and {b} not equal to "
                                          "the bit")
         print(f"phase 1 n={n} {case}: 3 sweeps, {C}/{C} chains identical "
-              f"(batch and tiled at K = {CLUSTERS}, and chain, vs plain; "
-              "tiled equal to batch to the bit at every K, chain to batch "
-              "at K = 1), internal nodes "
-              f"{int((runs[('tiled', 1)].feature >= 0).sum())}", flush=True)
+              f"(batch, tiled and chain at K = {CLUSTERS} vs plain; tiled "
+              "and chain equal to batch to the bit at every K), internal "
+              f"nodes {int((runs[('tiled', 1)].feature >= 0).sum())}",
+              flush=True)
     print(f"phase 1 n={n} ok: max |batch - plain| {err['batch']:.3g}, "
           f"|tiled - plain| {err['tiled']:.3g}, |chain - plain| "
           f"{err['chain']:.3g} (leaf values rtol {LV_TOL['rtol']} atol "
@@ -300,7 +296,8 @@ def smem_note(name, N, T, K):
     from stan4bart_torch.ops.bart_sweep_kernel import kernel_smem
 
     m = kernel_smem(name, N, T, K)
-    where = "on chip" if m["resid_on_chip"] else "in device memory"
+    where = ("in device memory" if not m["resid_on_chip"]
+             else "on chip" if m["clusters"] else "slice does not fit")
     return (f"{name} K={K}: {m['static']} B static + {m['dynamic']} B "
             f"dynamic shared memory per block of the {m['optin']} B opt-in "
             f"limit, {m['clusters']} clusters resident at once, residual "
@@ -310,8 +307,9 @@ def smem_note(name, N, T, K):
 def phase_full(device, reps=7, C=256, N=10_000, T=75):
     """The three kernels vs plain at the bench shape, and their times."""
     from stan4bart_torch.ops.bart_sweep_kernel import (
-        bart_sweep_fused_batch, bart_sweep_fused_batch_tiled, kernel_smem,
-        sweep_chain_cuda, sweep_cuda, sweep_plain, sweep_tiled_cuda)
+        bart_sweep_fused, bart_sweep_fused_batch,
+        bart_sweep_fused_batch_tiled, kernel_smem, sweep_chain_cuda,
+        sweep_cuda, sweep_plain, sweep_tiled_cuda)
 
     cfg, state, yt, args = sweep_args(N, T, C, 3, device)
     outs = {"batch": sweep_cuda(*args), "tiled": sweep_tiled_cuda(*args),
@@ -319,12 +317,13 @@ def phase_full(device, reps=7, C=256, N=10_000, T=75):
     torch.cuda.synchronize()
     kb = bart_sweep_fused_batch.last_cluster
     kt = bart_sweep_fused_batch_tiled.last_cluster
+    kc = bart_sweep_fused.last_cluster
     res = check_sweep("phase 2", outs, state, yt, C, N, T, C - 1)
-    for label in ("tiled", "chain"):
+    for label, k in (("tiled", kt), ("chain", kc)):
         same = all(torch.equal(x, y) for x, y in zip(outs["batch"],
                                                      outs[label]))
-        print(f"phase 2: {label} and batch outputs bit-identical: {same}",
-              flush=True)
+        print(f"phase 2: {label} (K={k}) and batch (K={kb}) outputs "
+              f"bit-identical: {same}", flush=True)
         if not same:
             raise AssertionError(f"phase 2: {label} differs from batch")
     del outs
@@ -345,11 +344,12 @@ def phase_full(device, reps=7, C=256, N=10_000, T=75):
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bw = copy_bandwidth(device)
     print(f"phase 2 {smem_note('bart_sweep_batch', N, T, kb)}; "
-          f"{smem_note('bart_sweep_tiled', N, T, kt)}", flush=True)
+          f"{smem_note('bart_sweep_tiled', N, T, kt)}; "
+          f"{smem_note('bart_sweep_chain', N, T, kc)}", flush=True)
     print(f"phase 2 times over {reps} reps: batch kernel (K={kb}) median "
           f"{b_ms:.4f} ms {[round(t, 4) for t in b_all]}; tiled kernel "
           f"(K={kt}) median {t_ms:.4f} ms {[round(t, 4) for t in t_all]}; "
-          f"chain kernel median {c_ms:.4f} ms "
+          f"chain kernel (K={kc}) median {c_ms:.4f} ms "
           f"{[round(t, 4) for t in c_all]}; plain median {p_ms:.4f} ms; "
           f"memory bound {bound_ms:.4f} ms ({nbytes / 1e9:.4f} GB at "
           f"{HBM_BYTES_PER_S / 1e12} TB/s), {nbytes / bw * 1e3:.4f} ms at "
@@ -358,7 +358,8 @@ def phase_full(device, reps=7, C=256, N=10_000, T=75):
     return dict(ms=b_ms, plain_ms=p_ms, bound_ms=bound_ms,
                 max_abs_err=res["batch"][1], cluster=kb,
                 tiled_ms=t_ms, tiled_max_abs_err=res["tiled"][1],
-                chain_ms=c_ms, chain_max_abs_err=res["chain"][1])
+                chain_ms=c_ms, chain_max_abs_err=res["chain"][1],
+                chain_cluster=kc)
 
 
 def phase_ablate(device, C, reps=7, N=10_000, T=75):
@@ -410,13 +411,13 @@ def phase_ablate(device, C, reps=7, N=10_000, T=75):
 
 def phase_large(device, N, C, reps=7, T=75):
     """The obs-tiled kernel at its default K and at K = 1, and the
-    per-chain one where it runs, vs plain at a large-n shape, and their
-    times; the per-chain kernel to the bit against the obs-tiled one at
-    K = 1."""
+    per-chain one at its K where it runs, vs plain at a large-n shape, and
+    their times; the per-chain kernel to the bit against the obs-tiled one
+    at the same K, and at n = 50 000 timed at every K it fits."""
     from stan4bart_torch.ops.bart_sweep_kernel import (
-        MAX_CLUSTER, MAX_N_CHAIN, bart_sweep_fused_batch_tiled,
-        chain_smem_bytes, kernel_smem, sweep_chain_cuda, sweep_plain,
-        sweep_tiled_cuda)
+        MAX_CLUSTER, MAX_N_CHAIN, bart_sweep_fused,
+        bart_sweep_fused_batch_tiled, kernel_smem, sweep_chain_cuda,
+        sweep_plain, sweep_tiled_cuda)
 
     chain = N <= MAX_N_CHAIN
     cfg, state, yt, args = sweep_args(N, T, C, 4, device)
@@ -426,6 +427,8 @@ def phase_large(device, N, C, reps=7, T=75):
     outs["plain"] = sweep_plain(*args)
     if chain:
         outs["chain"] = sweep_chain_cuda(*args)
+        kc = bart_sweep_fused.last_cluster
+        tiled_kc = sweep_tiled_cuda(*args, cluster=kc)
     torch.cuda.synchronize()
     res = check_sweep(f"phase 4 n={N}", outs, state, yt, C, N, T, C - 1)
     out = dict(max_abs_err=max(res["tiled"][1], res["tiled K=1"][1]),
@@ -433,16 +436,26 @@ def phase_large(device, N, C, reps=7, T=75):
     print(f"phase 4 n={N} {smem_note('bart_sweep_tiled', N, T, K)}; "
           f"{smem_note('bart_sweep_tiled', N, T, 1)}", flush=True)
     if chain:
-        same = all(torch.equal(x, y) for x, y in zip(outs["tiled K=1"],
+        same = all(torch.equal(x, y) for x, y in zip(tiled_kc,
                                                      outs["chain"]))
-        st, dy, optin = chain_smem_bytes(N)
-        print(f"phase 4 n={N}: chain and tiled (K=1) outputs bit-identical: "
-              f"{same}; chain kernel shared memory per block {st} B static "
-              f"+ {dy} B dynamic = {st + dy} B of the {optin} B opt-in "
-              "limit", flush=True)
+        print(f"phase 4 n={N}: chain and tiled (K={kc}) outputs "
+              f"bit-identical: {same}; "
+              f"{smem_note('bart_sweep_chain', N, T, kc)}; "
+              f"{smem_note('bart_sweep_chain', N, T, 1)}", flush=True)
         if not same:
             raise AssertionError(f"phase 4 n={N}: chain differs from tiled")
-        out.update(chain_max_abs_err=res["chain"][1], smem=(st, dy, optin))
+        if kernel_smem("bart_sweep_chain", N, T, 1)["clusters"] == 0:
+            # no fallback: a K whose slice does not fit raises
+            try:
+                sweep_chain_cuda(*args, cluster=1)
+            except RuntimeError as e:
+                print(f"phase 4 n={N}: chain kernel at K=1 refused: {e}",
+                      flush=True)
+            else:
+                raise AssertionError(f"phase 4 n={N}: chain kernel ran at "
+                                     "K=1, whose slice does not fit")
+        out.update(chain_max_abs_err=res["chain"][1], chain_cluster=kc)
+        del tiled_kc
     del outs
     out["ms"], k_all = _time(lambda: sweep_tiled_cuda(*args), reps)
     out["k1_ms"], k1_all = _time(lambda: sweep_tiled_cuda(*args, cluster=1),
@@ -453,8 +466,11 @@ def phase_large(device, N, C, reps=7, T=75):
            f"{[round(t, 4) for t in k1_all]}")
     if chain:
         out["chain_ms"], c_all = _time(lambda: sweep_chain_cuda(*args), reps)
-        msg += (f"; chain kernel median {out['chain_ms']:.4f} ms "
+        msg += (f"; chain kernel (K={kc}) median {out['chain_ms']:.4f} ms "
                 f"{[round(t, 4) for t in c_all]}")
+        if kc == K:
+            msg += (f", {out['chain_ms'] / out['ms']:.4f}x the tiled "
+                    "kernel's")
     # the obs-tiled kernel at every cluster size, for the cluster rule
     scan = []
     for k in range(1, MAX_CLUSTER + 1):
@@ -464,6 +480,19 @@ def phase_large(device, N, C, reps=7, T=75):
                     f"{', residual on chip' if m['resid_on_chip'] else ''})")
     print(f"phase 4 n={N} chains={C}: tiled kernel by K, median of 3: "
           + "; ".join(scan), flush=True)
+    if chain and N == 50_000:
+        # the per-chain kernel at every K whose slice fits on chip
+        scan = []
+        for k in range(1, MAX_CLUSTER + 1):
+            m = kernel_smem("bart_sweep_chain", N, T, k)
+            if m["clusters"] < 1:
+                scan.append(f"K={k} does not fit")
+                continue
+            ms = _time(lambda: sweep_chain_cuda(*args, cluster=k), 3)[0]
+            scan.append(f"K={k} {ms:.4f} ms ({m['clusters']} clusters "
+                        "resident)")
+        print(f"phase 4 n={N} chains={C}: chain kernel by K, median of 3: "
+              + "; ".join(scan), flush=True)
     out["plain_ms"], p_all = _time(lambda: sweep_plain(*args),
                                    max(5, reps // 2))
     nbytes = sweep_bytes(C, T, N, cfg.max_nodes)
@@ -722,6 +751,13 @@ def main():
         "bound_ms": big["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "cluster": big["chain_cluster"],
+        "ms_n51840_c64": large[51_840]["chain_ms"],
+        "bound_ms_n51840_c64": large[51_840]["bound_ms"],
+        "cluster_n51840_c64": large[51_840]["chain_cluster"],
+        "ms_bench": full["chain_ms"],
+        "bound_ms_bench": full["bound_ms"],
+        "cluster_bench": full["chain_cluster"],
     }, {
         "name": "bart_sweep_ablate",
         "route": "cuda",

@@ -1,11 +1,11 @@
-// The cluster-and-stream layer of the port's chain-batched BART sweeps.
+// The cluster-and-stream layer of the port's BART sweep kernels.
 //
 // One chain is one cluster of K thread blocks (K in 1..8, grid
 // C * K, blocks c * K .. c * K + K - 1 for chain c).  Block rank r owns the
 // observations [start_r, start_r + n_r) of obs_range, and reduces them as
 // one block per chain reduces all of them (sweep_common.cuh); the blocks'
-// sums meet in distributed shared memory, added in rank order, so K = 1 is
-// the one-block-per-chain kernel to the bit and every K is deterministic.
+// sums meet in distributed shared memory, added in rank order, so K = 1
+// sums as one block per chain does and every K is deterministic.
 //
 // The observation passes read three arrays per (chain, tree) from device
 // memory: the leaf indices, the tree's old fit and the cut-rank row of the
@@ -21,9 +21,9 @@
 // trees; it stays in shared memory (sweep_on_chip).
 //
 // sweep_on_chip is the sweep with a block's residual slice and a byte copy
-// of its leaf indices in shared memory: bart_sweep_batch.cu at any K, and
-// bart_sweep_tiled.cu wherever the slice fits, so the two are
-// bit-identical at equal K.  Its ``kBody`` selects the ablation stubs of
+// of its leaf indices in shared memory: bart_sweep_batch.cu and
+// bart_sweep_chain.cu at any K, and bart_sweep_tiled.cu wherever the slice
+// fits, so the three are bit-identical at equal K.  Its ``kBody`` selects the ablation stubs of
 // bart_sweep_ablate.cu, which keep the grid, cluster, shared memory and
 // streaming and drop the node math (kObs) or all arithmetic (kCopy).
 
@@ -148,9 +148,9 @@ enum class Body { kFull, kCopy, kObs };
 // the partial residual and the six move statistics; the decision; pass 2
 // rewrites the leaf indices and fills the leaf histograms; the leaf draw.
 // A flush after the last tree applies its fit.  Each thread rounds the
-// residual as a separate fit pass would (r - fit, then + old fit), so the
-// sums are those of the per-chain kernel.  smem is the dynamic shared
-// memory of on_chip_bytes.
+// residual as a separate fit pass would (r - fit, then + old fit), so each
+// residual value is the plain sweep's (ops/bart.py:sweep_trees).  smem is
+// the dynamic shared memory of on_chip_bytes.
 template <Body kBody>
 __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared& s,
                                      unsigned char* smem, int K) {
@@ -324,18 +324,26 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared& s,
   if (K > 1) cluster_sync();
 }
 
+// ``err`` as an int, with the runtime's last error reset: a refused launch
+// must not surface again at the next good one.
+inline int refused(cudaError_t err) {
+  (void)cudaGetLastError();
+  return (int)err;
+}
+
 // Launches ``kernel(a, K)`` on C * K blocks of kThreads in clusters of K
 // with ``dyn`` bytes of dynamic shared memory; returns the CUDA error code,
 // cudaErrorInvalidValue for a K outside 1..8 (the portable cluster sizes)
-// and cudaErrorInvalidConfiguration when no cluster of the kernel fits on
-// the device.
+// or for more shared memory than a block may have, and
+// cudaErrorInvalidConfiguration when no cluster of the kernel fits on the
+// device.
 template <typename Kernel>
 inline int launch_clusters(Kernel kernel, const SweepArgs& a, int C, int K,
                            size_t dyn, void* stream) {
   if (K < 1 || K > 8) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return refused(err);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = K;
@@ -350,10 +358,10 @@ inline int launch_clusters(Kernel kernel, const SweepArgs& a, int C, int K,
   cfg.numAttrs = 1;
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return refused(err);
   if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
   err = cudaLaunchKernelEx(&cfg, kernel, a, K);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return refused(err);
   return (int)cudaGetLastError();
 }
 

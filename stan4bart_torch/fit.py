@@ -228,20 +228,33 @@ def stan4bart(
     per-chain driver (``GibbsProgram.step``).
 
     ``device`` (default ``"cuda"``) is where every chain runs; without a
-    CUDA device this raises unless ``device="cpu"`` is given.  ``dtype``
+    CUDA device this raises unless ``device="cpu"`` is given.  ``cores``
+    spreads chains over devices in the JAX package; on one device (the
+    CPU, or one visible card) it runs the single-device path, and with
+    more than one visible card ``cores > 1`` is not ported yet.  ``dtype``
     defaults to float32 (the CUDA sweep kernel's type); float64 runs on
     the CPU only.  ``chunk_size`` bounds the iterations between progress
     reports and interrupt checks.
     """
     from stan4bart_torch.results import Stan4bartFit
 
+    if cores is not None and cores <= 0:
+        raise ValueError("'cores' must be a positive integer")
+    # as in the JAX package, chains spread over cores only where the
+    # device type has more than one device; on one device (the CPU, or a
+    # single card) cores > 1 runs the single-device path
+    if (cores is not None and cores > 1
+            and torch.device(device).type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise NotImplementedError(
+            "multi-device chain dispatch (cores > 1 with more than one "
+            "CUDA device) is not ported to stan4bart_torch yet (ROADMAP "
+            "queue 1 item 11)")
     dev = resolve_device(device)
     if offset_type not in OFFSET_TYPES:
         raise ValueError(f"offset_type must be one of {OFFSET_TYPES}")
     if algorithm != "nuts":
         _unported(f"algorithm={algorithm!r}")
-    if cores is not None and cores > 1:
-        _unported("multi-device chain dispatch (cores > 1)")
     if not isinstance(iter, (int, np.integer)) or iter <= 0:
         raise ValueError("'iter' must be a positive integer")
     if warmup is not None and (warmup < 0 or int(warmup) != warmup):

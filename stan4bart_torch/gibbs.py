@@ -263,8 +263,10 @@ class GibbsProgram:
         ``step`` (per_chain) the per-chain kernel up to npad 51840.  Past
         that the JAX package's ``step`` runs its XLA sweep; the port must
         not run its plain sweep on the card, so it takes the obs-tiled
-        kernel, which computes the same function and gives bit-identical
-        forests (a change of route, not of result)."""
+        kernel, which computes the same function.  The three kernels run
+        one on-chip sweep in clusters of K blocks per chain and give
+        bit-identical forests at equal K (a change of route, not of
+        result)."""
         if per_chain and self.sweep_single_ok:
             sweep = bart_sweep_fused
         elif per_chain or self.sweep_tiled:
@@ -517,7 +519,9 @@ class GibbsProgram:
         vmapped there), which serves callbacks and ``keep_fits=False``:
         ``step_batched``'s phases with the per-chain sweep kernel.  It
         consumes ``gen`` as ``step_batched`` does and gives the same
-        states and draws.  Returns (states, draw)."""
+        states and draws (on the card, wherever the two sweep kernels
+        choose the same K, as at the bench shape).  Returns (states,
+        draw)."""
         return self._iterate(states, it, is_warmup, gen, per_chain=True)
 
     def _iterate(self, states: GibbsState, it: int, is_warmup: bool, gen,

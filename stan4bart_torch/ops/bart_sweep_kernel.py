@@ -15,8 +15,8 @@ of every chain:
   n: the same on-chip sweep where a block's slice fits in shared memory,
   else the residual in device memory and the observations streamed in
   tiles) or ``stan4bart_torch/csrc/bart_sweep_chain.cu`` (the per-chain
-  driver's sweep: one block per chain, the residual alone in shared
-  memory, n <= 51840);
+  driver's sweep: the single-pass kernel's on-chip sweep up to n = 51840,
+  where a block's slice fits in shared memory from K = 2 on);
 * on a CPU tensor it runs the plain PyTorch version of that function,
   ``ops/bart.py:sweep_trees`` (``tree_step`` looped over trees with the
   residual carried as the kernels carry it), for every wrapper.
@@ -27,11 +27,13 @@ they compare chain for chain, and all end with the chi(df, scale) k
 update (``ops/bart.py:chi_k_update``) when ``cfg.k_df > 0``.  The
 varcount is counted outside the kernel.
 
-The cluster size K of the two chain-batched kernels is ``cluster_size``'s
-choice from the clusters the device holds at once, unless the caller
-forces it with ``cluster=``; the K of the last launch is the wrapper's
-``last_cluster``.  Every K gives a deterministic forest, and K = 1 is
-bit-identical to the per-chain kernel.
+The cluster size K of every sweep kernel is ``cluster_size``'s choice
+from the clusters the device holds at once, unless the caller forces it
+with ``cluster=``; the K of the last launch is the wrapper's
+``last_cluster``.  Every K gives a deterministic forest, and the three
+sweep kernels are bit-identical at equal K.  A K whose slice does not fit
+on chip has no resident cluster and is never chosen; forced, its launch
+raises.
 
 ``bart_sweep_ablate`` runs the ablation stubs of the single-pass kernel
 (``csrc/bart_sweep_ablate.cu``, counterparts of the TPU stubs in
@@ -64,8 +66,7 @@ NODE_PAD = 128
 # single-pass limit); wider fits go to the obs-tiled kernel
 MAX_NPAD = 10_368
 # widest observation row the per-chain kernel takes (the JAX package's
-# per-chain limit, ``sweep_single_ok``): the residual alone fills the
-# shared memory a Hopper block may opt in to
+# per-chain limit, ``sweep_single_ok``); it always fits on chip at K >= 2
 MAX_N_CHAIN = 51_840
 # cluster sizes the tests and chip_smoke.py hold the kernels at; the
 # kernels take any K in 1..8 (the portable cluster sizes)
@@ -128,7 +129,7 @@ def sweep_plain(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
 
 
 def cluster_size(C: int, N: int, resident) -> int:
-    """Blocks per chain K of the chain-batched kernels, from ``resident``:
+    """Blocks per chain K of the sweep kernels, from ``resident``:
     resident[K - 1] clusters of K blocks fit on the device at once.
     Clusters that do not fit run in later waves, and a wave takes a
     block's fixed per-tree work (move choice, decision, leaf draw, cluster
@@ -161,11 +162,10 @@ def _ptr(x):
 
 
 def _launch(name: str, cfg: BartConfig, feature, cut, lidx, tfit, resid0,
-            sigma2, tau2, u, zn, consts: SweepConsts, weights=None,
-            cluster=None):
+            sigma2, tau2, u, zn, consts: SweepConsts, weights, K: int):
     """Check the operands and launch kernel ``csrc/<name>.cu`` on the
-    current stream (in clusters of ``cluster`` blocks per chain, for the
-    kernels that take one); returns its fresh outputs."""
+    current stream in clusters of K blocks per chain; returns its fresh
+    outputs."""
     from stan4bart_torch.ops.cuda_build import load
 
     C, T, M = feature.shape
@@ -196,10 +196,8 @@ def _launch(name: str, cfg: BartConfig, feature, cut, lidx, tfit, resid0,
 
     fn = getattr(load(name), f"{name}_launch")
     fn.restype = ctypes.c_int
-    k_arg = [] if cluster is None else [cluster]
     fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 4 + [ctypes.c_int] * len(k_arg)
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
     stream = torch.cuda.current_stream(feature.device).cuda_stream
     err = fn(_ptr(feature), _ptr(cut), _ptr(lidx), _ptr(tfit), _ptr(resid0),
              _ptr(sigma2), _ptr(tau2), _ptr(u), _ptr(zn),
@@ -210,7 +208,7 @@ def _launch(name: str, cfg: BartConfig, feature, cut, lidx, tfit, resid0,
              cfg.p_grow, cfg.p_prune,
              math.log(cfg.p_prune) - math.log(cfg.p_grow),
              math.log(cfg.p_grow) - math.log(cfg.p_prune),
-             *k_arg, ctypes.c_void_p(stream))
+             K, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return feature_o, cut_o, lv_o, lidx_o, tfit_o, resid_o
@@ -220,11 +218,12 @@ _info_cache: dict = {}
 
 
 def kernel_smem(name: str, N: int, T: int, K: int) -> dict:
-    """Shared memory per block of the chain-batched kernel ``name``
-    (``bart_sweep_batch`` or ``bart_sweep_tiled``) at N observations, T
-    trees and clusters of K blocks, on the current CUDA device: static and
-    dynamic bytes, the device's opt-in limit, how many clusters can be
-    resident at once, and whether the residual stays on chip."""
+    """Shared memory per block of the sweep kernel ``name``
+    (``bart_sweep_batch``, ``bart_sweep_tiled`` or ``bart_sweep_chain``)
+    at N observations, T trees and clusters of K blocks, on the current
+    CUDA device: static and dynamic bytes, the device's opt-in limit, how
+    many clusters can be resident at once (0 where the on-chip kernels'
+    slice does not fit), and whether the residual stays on chip."""
     key = (name, N, T, K, torch.cuda.current_device())
     if key not in _info_cache:
         from stan4bart_torch.ops.cuda_build import load
@@ -294,32 +293,19 @@ def sweep_tiled_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
 
 def sweep_chain_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
                      sigma2, tau2, u, zn, consts: SweepConsts,
-                     weights=None):
+                     weights=None, cluster=None):
     """Launch the per-chain ``csrc/bart_sweep_chain.cu`` on the current
     stream; same contract as ``sweep_plain`` up to n = 51840 (all float
-    inputs float32)."""
+    inputs float32).  ``cluster`` forces the blocks per chain (default:
+    ``cluster_size``'s rule); a K whose slice does not fit on chip
+    raises."""
+    C, T = feature.shape[:2]
+    K = _cluster("bart_sweep_chain", C, T, consts, cluster)
     out = _launch("bart_sweep_chain", cfg, feature, cut, lidx, tfit, resid0,
-                  sigma2, tau2, u, zn, consts, weights)
+                  sigma2, tau2, u, zn, consts, weights, K)
     bart_sweep_fused.launches += 1
+    bart_sweep_fused.last_cluster = K
     return out
-
-
-def chain_smem_bytes(n_obs: int) -> tuple[int, int, int]:
-    """(static, dynamic, opt-in limit) shared-memory bytes per block of
-    the per-chain kernel at ``n_obs`` observations, on the current CUDA
-    device."""
-    from stan4bart_torch.ops.cuda_build import load
-
-    fn = load("bart_sweep_chain").bart_sweep_chain_smem
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
-                   ctypes.POINTER(ctypes.c_longlong),
-                   ctypes.POINTER(ctypes.c_int)]
-    st, dy, optin = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_int()
-    err = fn(n_obs, ctypes.byref(st), ctypes.byref(dy), ctypes.byref(optin))
-    if err != 0:
-        raise RuntimeError(f"bart_sweep_chain_smem failed: CUDA error {err}")
-    return st.value, dy.value, optin.value
 
 
 # each kernel's widest padded observation row (None: any n)
@@ -417,7 +403,7 @@ def bart_sweep_fused_batch_tiled(cfg: BartConfig, state: BartState,
 
 def bart_sweep_fused(cfg: BartConfig, state: BartState, y_target,
                      consts: SweepConsts, sigma, gen, *, weights=None,
-                     variates=None, gamma=None):
+                     variates=None, gamma=None, cluster=None):
     """The per-chain driver's sweep: ``bart_sweep_fused_batch``'s
     contract on a chain-batched state, where the JAX package vmaps its
     one-chain ``bart_sweep_fused`` (C = 1 is one chain).  The variates
@@ -426,10 +412,11 @@ def bart_sweep_fused(cfg: BartConfig, state: BartState, y_target,
 
     On a CUDA state this launches the per-chain
     ``csrc/bart_sweep_chain.cu`` (float32 only, n <= 51840; wider fits
-    raise and belong to ``bart_sweep_fused_batch_tiled``); on a CPU state
-    it runs the same plain version."""
+    raise and belong to ``bart_sweep_fused_batch_tiled``); ``cluster``
+    forces its blocks per chain.  On a CPU state it runs the same plain
+    version."""
     return _fused("bart_sweep_chain", cfg, state, y_target, consts, sigma,
-                  gen, weights, variates, gamma)
+                  gen, weights, variates, gamma, cluster=cluster)
 
 
 def ablate_plain(mode: str, feature, cut, lv, lidx, tfit, resid0,
@@ -531,4 +518,5 @@ bart_sweep_fused.launches = 0
 bart_sweep_ablate.launches = 0
 bart_sweep_fused_batch.last_cluster = None
 bart_sweep_fused_batch_tiled.last_cluster = None
+bart_sweep_fused.last_cluster = None
 bart_sweep_ablate.last_cluster = None

@@ -253,22 +253,31 @@ def test_cuda_chain_kernel_matches_plain_and_other_kernels():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     args = _cuda_inputs(3_000, 8)
-    k = tk.sweep_chain_cuda(*args)
     p = tk.sweep_plain(*args)
-    b = tk.sweep_cuda(*args, cluster=1)
-    torch.cuda.synchronize()
-    for i in (0, 1, 3):
-        assert torch.equal(k[i], p[i])
-    torch.testing.assert_close(k[2], p[2], **LV_TOL)
-    torch.testing.assert_close(k[4], p[4], **FIT_TOL)
-    torch.testing.assert_close(k[5], p[5], **FIT_TOL)
-    # the same sums in the same order as the single-pass kernel
-    for x, y in zip(k, b):
-        assert torch.equal(x, y)
-    # at its shared-memory ceiling, bit-identical to the obs-tiled kernel
+    for K in tk.CLUSTERS:
+        k = tk.sweep_chain_cuda(*args, cluster=K)
+        b = tk.sweep_cuda(*args, cluster=K)
+        t = tk.sweep_tiled_cuda(*args, cluster=K)
+        torch.cuda.synchronize()
+        assert tk.bart_sweep_fused.last_cluster == K
+        for i in (0, 1, 3):
+            assert torch.equal(k[i], p[i]), (K, i)
+        torch.testing.assert_close(k[2], p[2], **LV_TOL)
+        torch.testing.assert_close(k[4], p[4], **FIT_TOL)
+        torch.testing.assert_close(k[5], p[5], **FIT_TOL)
+        # one on-chip sweep: the same sums in the same order at equal K
+        for x, y, z in zip(k, b, t):
+            assert torch.equal(x, y) and torch.equal(x, z), K
+    # at its limit, bit-identical to the obs-tiled kernel at equal K
     args = _cuda_inputs(tk.MAX_N_CHAIN, 9, chains=2)
-    k = tk.sweep_chain_cuda(*args)
-    t = tk.sweep_tiled_cuda(*args, cluster=1)
-    torch.cuda.synchronize()
-    for x, y in zip(k, t):
-        assert torch.equal(x, y)
+    for K in (2, 8):
+        k = tk.sweep_chain_cuda(*args, cluster=K)
+        t = tk.sweep_tiled_cuda(*args, cluster=K)
+        torch.cuda.synchronize()
+        for x, y in zip(k, t):
+            assert torch.equal(x, y), K
+    # one block's slice does not fit on chip there: no fallback, an error
+    assert tk.kernel_smem("bart_sweep_chain", tk.MAX_N_CHAIN, T,
+                          1)["clusters"] == 0
+    with pytest.raises(RuntimeError, match="bart_sweep_chain launch"):
+        tk.sweep_chain_cuda(*args, cluster=1)

@@ -7,11 +7,11 @@ numpy walk over the trees on small inputs, weighted and unweighted; the
 stubs have no JAX counterpart to call (the TPU stubs live inside
 ``benchmarks/ablate_batch_kernel.py:main``).
 
-On the card (marker ``cuda``; skipped without a GPU): the single-pass and
-obs-tiled kernels against the plain sweep at every cluster size K over 3
-chained sweeps, equal to each other to the bit at equal K, equal to the
-per-chain kernel to the bit at K = 1, and equal to themselves over two
-launches; the stubs against their plain versions.  Tolerances are those
+On the card (marker ``cuda``; skipped without a GPU): the single-pass,
+obs-tiled and per-chain kernels against the plain sweep at every cluster
+size K over 3 chained sweeps, equal to each other to the bit at equal K,
+and the first two equal to themselves over two launches; the stubs
+against their plain versions.  Tolerances are those
 of tests/test_torch_sweep_kernel.py: the same float32 terms summed in
 another order."""
 
@@ -39,6 +39,10 @@ RESIDENT_10K = [264, 198, 124, 92, 0, 0, 0, 0]
 RESIDENT_50K = [132, 66, 39, 62, 47, 39, 32, 30]
 RESIDENT_200K = [132, 66, 39, 30, 22, 17, 15, 15]
 EVERY = [10_000] * 8     # every cluster resident
+# the per-chain kernel at n = 50 000: the obs-tiled kernel's on-chip
+# sweep, with no streaming pass, so one block's whole residual does not
+# fit and K = 1 has no resident cluster
+RESIDENT_CHAIN_50K = [0] + RESIDENT_50K[1:]
 
 
 @pytest.mark.parametrize("chains, n, resident, want", [
@@ -48,9 +52,20 @@ EVERY = [10_000] * 8     # every cluster resident
     (16, 2_000, EVERY, 1),             # too few observations to split
     (16, 9_191, EVERY, 4),             # capped at 2048 observations a block
     (256, 10_000, [264, 128] + [0] * 6, 1),
+    (64, 50_000, RESIDENT_CHAIN_50K, 7),      # the per-chain kernel
+    (64, 51_840, RESIDENT_CHAIN_50K, 7),      # at its limit
+    (256, 10_000, [0] + RESIDENT_10K[1:], 2),  # K = 1 not resident
 ])
 def test_cluster_size(chains, n, resident, want):
     assert tk.cluster_size(chains, n, resident) == want
+
+
+@pytest.mark.parametrize("n", [4_096, 38_000, 50_000, tk.MAX_N_CHAIN])
+def test_cluster_size_skips_k_without_resident_clusters(n):
+    # where a block's slice does not fit (resident[0] == 0, as for the
+    # per-chain kernel past n ~ 38 000), no chain count gives K = 1
+    for chains in (1, 16, 64, 132, 256, 1024):
+        assert tk.cluster_size(chains, n, RESIDENT_CHAIN_50K) > 1
 
 
 def _stub_inputs(n, seed, device="cpu"):
@@ -188,7 +203,7 @@ def test_cuda_cluster_kernels_match_plain(K, n, weighted):
     w = w if weighted else None
     sigma = torch.full((C,), 0.9, device=yt.device)
     kinds = ["tiled"] + (["batch"] if consts.npad <= tk.MAX_NPAD else [])
-    if K == 1 and n <= tk.MAX_N_CHAIN:
+    if consts.npad <= tk.MAX_N_CHAIN:
         kinds.append("chain")
     fns = {"batch": tk.bart_sweep_fused_batch,
            "tiled": tk.bart_sweep_fused_batch_tiled,
@@ -197,7 +212,6 @@ def test_cuda_cluster_kernels_match_plain(K, n, weighted):
     for _ in range(3):
         var = tb.draw_variates(gen, C, T, torch.float32, yt.device)
         for kind, st in runs.items():
-            kw = {} if kind in ("chain", "plain") else {"cluster": K}
             if kind == "plain":
                 out = tk.sweep_plain(
                     cfg, st.feature, st.cut, st.leaf_idx, st.tree_fit,
@@ -209,7 +223,8 @@ def test_cuda_cluster_kernels_match_plain(K, n, weighted):
                     leaf_idx=out[3], tree_fit=out[4], allfit=yt - out[5])
             else:
                 runs[kind] = fns[kind](cfg, st, yt, consts, sigma, None,
-                                       weights=w, variates=var, **kw)[0]
+                                       weights=w, variates=var,
+                                       cluster=K)[0]
         torch.cuda.synchronize()
         ref = runs["plain"]
         for kind in kinds:
@@ -223,6 +238,7 @@ def test_cuda_cluster_kernels_match_plain(K, n, weighted):
         for kind in kinds[1:]:
             assert _states_equal(runs[kind], runs["tiled"]), kind
     assert tk.bart_sweep_fused_batch_tiled.last_cluster == K
+    assert tk.bart_sweep_fused.last_cluster == K
 
 
 @pytest.mark.cuda
