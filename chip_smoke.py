@@ -34,10 +34,11 @@ with nvcc (one process per source, started together), then:
    n = 50000 its time at every K = 2..8 (K = 1 does not fit on chip);
 5. runs the obs-tiled kernel's main path: the same fit at n = 50000 with
    64 chains, every sweep through the obs-tiled kernel, with the same
-   checks.  It runs 300 iterations, 150 of them warmup: at n = 50000
-   the chains' sigma needs about 150-225 iterations to come down from
-   its start (the 25-iteration blocks it prints show it), and at 150 /
-   75 the posterior-mean sigma misses the gate;
+   checks.  It runs 225 iterations, 150 of them warmup, so the gates
+   read the last 75 draws: at n = 50000 the chains' sigma needs about
+   150-225 iterations to come down from its start (the 25-iteration
+   blocks it prints show it), and at 150 / 75 the posterior-mean sigma
+   misses the gate;
 6. runs the per-chain path: the phase 3 fit with ``keep_fits=False`` and
    a callback returning each draw's sigma and BART fit, so every
    iteration is ``GibbsProgram.step`` and every sweep the per-chain
@@ -45,7 +46,22 @@ with nvcc (one process per source, started together), then:
    from the callback's outputs; then a short per-chain fit on the card
    (n = 2000, 16 chains, 40 iterations) with the options that path
    serves: a callback beside the raw draws, pooled adaptation of stepsize
-   and metric, and the chi(df, scale) hyperprior on k.
+   and metric, and the chi(df, scale) hyperprior on k, with its forests
+   stored (``keep_trees``): the last stored forest is the swept one,
+   ``predict`` over them gives the stored BART fit, ``trees()`` and
+   ``print_trees``, and a ``save`` / ``load(device="cuda")`` round trip
+   whose ``continue_sampling(10)`` (per-chain kernel) is held against the
+   original's; then one short fit per non-default ``offset_type`` with a
+   user offset, each finite and with the level interweave off;
+7. runs the stored-forest surfaces at full width: a probit fit of the
+   phase 3 shape (n = 10000, 256 chains, 150 iterations, 75 warmup) with
+   ``keep_trees``, every sweep through the single-pass kernel; the
+   reference's binary gates; ``predict`` over the stored forests against
+   the in-loop test and train fits (1e-5), with its seconds and the peak
+   device memory; ``loo`` / ``waic`` of the probit fit and ``loo`` of the
+   phase 3 gaussian fit; ``continue_sampling(25)`` whole and in chunks of
+   10, each with 25 launches of the single-pass kernel, the gates on the
+   merged draws and the largest whole-vs-chunked difference.
 
 Prints the card (``nvidia-smi``), a ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -519,8 +535,28 @@ def launch_counters():
             "bart_sweep_ablate": bart_sweep_ablate}
 
 
+def reset_counts():
+    """Every launch count set to 0; returns the wrappers by kernel."""
+    counts = launch_counters()
+    for fn in counts.values():
+        fn.launches = 0
+    return counts
+
+
+def check_launches(label, counts, kernel, expected):
+    """``kernel`` launched ``expected`` times since ``reset_counts``, every
+    other kernel not at all."""
+    launches = {k: fn.launches for k, fn in counts.items()}
+    for k, got in launches.items():
+        want = expected if k == kernel else 0
+        if got != want:
+            raise AssertionError(f"{label}: {k} launched {got} times, "
+                                 f"expected {want}")
+    return launches[kernel]
+
+
 def run_fit(label, device, n, chains, kernel, iters, warmup, trees,
-            **fit_kw):
+            binary=False, data=None, **fit_kw):
     """The flagship fit at full width through the user entry point, with
     the launch counts read just after it: every sweep must launch
     ``kernel`` and no other sweep kernel."""
@@ -528,11 +564,10 @@ def run_fit(label, device, n, chains, kernel, iters, warmup, trees,
     from stan4bart_torch.utils.friedman import (
         friedman_dataframe, generate_friedman_data)
 
-    counts = launch_counters()
-    d = generate_friedman_data(n, ranef=True, causal=True)
+    d = (data if data is not None else
+         generate_friedman_data(n, ranef=True, causal=True, binary=binary))
     df = friedman_dataframe(d)
-    for fn in counts.values():
-        fn.launches = 0
+    counts = reset_counts()
     t0 = time.perf_counter()
     kw = dict(stan_args={"max_treedepth": 6}, bart_args={"n_trees": trees})
     kw.update(fit_kw)
@@ -540,13 +575,8 @@ def run_fit(label, device, n, chains, kernel, iters, warmup, trees,
         FLAGSHIP, df, treatment="z", chains=chains, iter=iters,
         warmup=warmup, seed=11, verbose=-1, device=device, **kw)
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counts.items()}
-    expected = iters * fit.prog.skip_bart + 1
-    for k, got in launches.items():
-        want = expected if k == kernel else 0
-        if got != want:
-            raise AssertionError(f"{label}: {k} launched {got} times, "
-                                 f"expected {want}")
+    launches = check_launches(label, counts, kernel,
+                              iters * fit.prog.skip_bart + 1)
     tm = fit.timings
     draws_s = chains * (iters - warmup) / tm["sample"]
     K = getattr(counts[kernel], "last_cluster", None)
@@ -558,7 +588,7 @@ def run_fit(label, device, n, chains, kernel, iters, warmup, trees,
           f"{tm['nuts_gibbs']:.2f}, sweep {tm['sweep']:.2f}, post "
           f"{tm['post']:.2f}, warmup {tm['warmup']:.2f}, sample "
           f"{tm['sample']:.2f}", flush=True)
-    return d, fit, launches[kernel]
+    return d, fit, launches
 
 
 def check_gates(label, cor, sigma, kernel, launches, iters):
@@ -595,7 +625,7 @@ def phase_main(device, label, n, chains, kernel, iters=150, warmup=75,
           f"warmup included (mean over chains/chains above 1.4): {blocks}",
           flush=True)
     check_gates(label, cor, sigma, kernel, launches, iters)
-    return launches
+    return launches, fit
 
 
 def phase_chain(device, label="phase 6", n=10_000, chains=256, iters=150,
@@ -632,10 +662,18 @@ def phase_chain(device, label="phase 6", n=10_000, chains=256, iters=150,
 def phase_options(device, label="phase 6 options", n=2000, chains=16,
                   iters=40, warmup=20, trees=20):
     """A short per-chain fit on the card with a callback beside the raw
-    draws, pooled adaptation of stepsize and metric, and k ~ chi(1.25):
-    the callback's sigma must equal extract('sigma'), k must move, and
-    the chains must share one stepsize and metric after warmup."""
+    draws, pooled adaptation of stepsize and metric, k ~ chi(1.25) and
+    stored forests: the callback's sigma must equal extract('sigma'), k
+    must move, and the chains must share one stepsize and metric after
+    warmup; the last stored forest must be the swept one, ``predict``
+    over the stored forests must give the stored BART fit (1e-5), and a
+    resume of the fit saved and loaded on the card is held against the
+    original's.  Returns the per-chain kernel's launches."""
+    import os
+    import tempfile
+
     import stan4bart_torch
+    from stan4bart_torch.utils.friedman import friedman_dataframe
 
     def callback(draw):
         return {"sigma": draw["aux.1"]}
@@ -645,7 +683,8 @@ def phase_options(device, label="phase 6 options", n=2000, chains=16,
         callback=callback,
         stan_args={"max_treedepth": 6, "pooled_adaptation": True,
                    "pooled_parts": "both"},
-        bart_args={"n_trees": trees, "k": stan4bart_torch.chi(1.25)})
+        bart_args={"n_trees": trees, "k": stan4bart_torch.chi(1.25),
+                   "keep_trees": True})
     sigma_cb = fit.extract("callback")["sigma"]
     k = fit.extract("k", include_warmup=True)
     nuts = fit.final_states.nuts
@@ -660,6 +699,211 @@ def phase_options(device, label="phase 6 options", n=2000, chains=16,
             and np.all(np.isfinite(k)) and np.ptp(k) > 0 and same_eps
             and same_metric):
         raise AssertionError(f"{label} failed")
+
+    # the stored forests: the last is the state step swept, and walking
+    # them over the training rows gives the stored BART fit
+    st = fit.final_states.bart
+    last_same = all(
+        np.array_equal(getattr(fit.draws, name)[:, -1], t.cpu().numpy())
+        for name, t in (("tree_feature", st.feature), ("tree_cut", st.cut),
+                        ("tree_leaf_value", st.leaf_value)))
+    df = friedman_dataframe(d)
+    train_err = float(np.abs(fit.predict(df, type="indiv.bart")
+                             - fit.extract("indiv.bart")).max())
+    rows = len(fit.trees()["n"])
+    fit.print_trees(max_print=2)
+    print(f"{label}: last stored forest equals the swept state: "
+          f"{last_same}; max |predict(train) - extract('indiv.bart')| "
+          f"{train_err:.3g} (<= 1e-5); trees() {rows} rows", flush=True)
+    if not (last_same and train_err <= 1e-5 and rows > 0):
+        raise AssertionError(f"{label}: stored forests")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fit.pkl")
+        fit.save(path)
+        back = stan4bart_torch.Stan4bartFit.load(path, device=device)
+    resumed = {}
+    for which, f in (("original", fit), ("loaded", back)):
+        counts = reset_counts()
+        resumed[which] = f.continue_sampling(10)
+        launches += check_launches(f"{label} resume of the {which} fit",
+                                   counts, "bart_sweep_chain", 10)
+    a, b = resumed["original"], resumed["loaded"]
+    diff = max(float(np.abs(getattr(a.draws, name).astype(np.float64)
+                            - getattr(b.draws, name)).max())
+               for name in ("stan", "bart_train", "tree_leaf_value"))
+    same_trees = all(np.array_equal(getattr(a.draws, name),
+                                    getattr(b.draws, name))
+                     for name in ("tree_feature", "tree_cut"))
+    finite = all(np.all(np.isfinite(getattr(x.draws, name)))
+                 for x in (a, b) for name in ("stan", "bart_train"))
+    print(f"{label}: continue_sampling(10) after save / load on the card: "
+          f"{b.iterations} iterations, 10 per-chain launches each; max "
+          f"|loaded - original| over stan, bart_train and leaf values "
+          f"{diff:.3g}, tree structures equal {same_trees}", flush=True)
+    if not (a.iterations == b.iterations == fit.iterations + 10
+            and finite):
+        raise AssertionError(f"{label}: resume after load")
+    return launches
+
+
+def phase_offset_types(device, n=2000, chains=16, trees=20, iters=20,
+                       warmup=10):
+    """One short fit per non-default offset_type with a user offset taken
+    from the generator's components, each through the single-pass
+    kernel: finite draws and the level interweave off.  Returns the
+    single-pass kernel's launches."""
+    from stan4bart_torch.utils.friedman import generate_friedman_data
+
+    d = generate_friedman_data(n, ranef=True, causal=True)
+    fixef = np.where(d["z"] == 1, d["mu_fixef_1"], d["mu_fixef_0"])
+    offsets = {"fixef": fixef, "ranef": d["mu_ranef"],
+               "bart": d["mu_bart"], "parametric": fixef + d["mu_ranef"]}
+    launches = 0
+    for ot, off in offsets.items():
+        label = f"phase 6 offset_type={ot}"
+        _, fit, got = run_fit(label, device, n, chains, "bart_sweep_batch",
+                              iters, warmup, trees, data=d, offset=off,
+                              offset_type=ot)
+        launches += got
+        finite = all(np.all(np.isfinite(getattr(fit.draws, name)))
+                     for name in ("stan", "bart_train", "bart_test", "k"))
+        print(f"{label}: finite draws {finite}; level interweave "
+              f"{fit.prog.level_gibbs}, linear refresh "
+              f"{fit.prog.linear_gibbs}", flush=True)
+        if not finite or fit.prog.level_gibbs:
+            raise AssertionError(f"{label} failed")
+    return launches
+
+
+def binary_gates(label, fit, d):
+    """The reference's probit gates (tests/test_e2e_binary.py:32-105):
+    cor(posterior-mean P(y=1), true p) > 0.75, deviance < 0.8 x null,
+    ppd in {0, 1} with mean |ppd - ev| < 0.05, and ev = Phi(indiv.bart +
+    indiv.fixef + indiv.ranef)."""
+    from scipy.special import ndtr      # the standard normal cdf
+
+    ev_draws = fit.extract("ev")
+    ev = ev_draws.mean(-1)
+    p_true = ndtr(np.where(d["z"] == 1, d["mu_1"], d["mu_0"]))
+    cor = float(np.corrcoef(ev, p_true)[0, 1])
+    y = d["y"]
+    dev = float(-2 * np.sum(y * np.log(ev) + (1 - y) * np.log1p(-ev)))
+    p0 = y.mean()
+    dev0 = float(-2 * np.sum(y * np.log(p0) + (1 - y) * np.log1p(-p0)))
+    ppd = fit.extract("ppd")
+    zero_one = bool(np.all((ppd == 0.0) | (ppd == 1.0)))
+    ppd_err = float(np.abs(ppd.mean(-1) - ev).mean())
+    del ppd
+    latent = ndtr(fit.extract("indiv.bart") + fit.extract("indiv.fixef")
+                  + fit.extract("indiv.ranef"))
+    latent_err = float(np.abs(ev_draws - latent).max())
+    print(f"{label} binary gates over {ev_draws.shape[1]} draws: cor(ev, "
+          f"true p) {cor:.4f} (> 0.75); deviance {dev:.1f} vs null "
+          f"{dev0:.1f} (< 0.8 x); ppd in {{0, 1}} {zero_one}, mean |ppd - "
+          f"ev| {ppd_err:.4f} (< 0.05); max |ev - Phi(bart + fixef + "
+          f"ranef)| {latent_err:.3g} (<= 1e-6)", flush=True)
+    if not (cor > 0.75 and dev < 0.8 * dev0 and zero_one and ppd_err < 0.05
+            and latent_err <= 1e-6):
+        raise AssertionError(f"{label}: binary gates failed")
+
+
+def phase_probit(device, gauss_fit, label="phase 7", n=10_000, chains=256,
+                 iters=150, warmup=75, trees=75):
+    """The stored-forest surfaces at full width: a probit fit with
+    keep_trees through the single-pass kernel, its gates, predict against
+    the in-loop fits, loo / waic (and loo of the phase 3 gaussian fit),
+    and two resumes.  Returns the single-pass kernel's launches."""
+    from stan4bart_torch.utils.friedman import friedman_dataframe
+
+    d, fit, launches = run_fit(
+        label, device, n, chains, "bart_sweep_batch", iters, warmup, trees,
+        binary=True, bart_args={"n_trees": trees, "keep_trees": True})
+    for name in ("stan", "bart_train", "bart_test", "k", "tree_leaf_value"):
+        if not np.all(np.isfinite(getattr(fit.draws, name))):
+            raise AssertionError(f"{label}: non-finite {name} draws")
+    if fit.draws.tree_feature.shape != (chains, iters, trees, 127):
+        raise AssertionError(f"{label}: stored forests "
+                             f"{fit.draws.tree_feature.shape}")
+    binary_gates(label, fit, d)
+
+    df = friedman_dataframe(d)
+    cf = dict(df)
+    cf["z"] = 1 - np.asarray(df["z"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pred_test = fit.predict(cf, type="indiv.bart")
+    pred_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    test_err = float(np.abs(pred_test
+                            - fit.extract("indiv.bart", sample="test")).max())
+    del pred_test
+    train_err = float(np.abs(fit.predict(df, type="indiv.bart")
+                             - fit.extract("indiv.bart")).max())
+    print(f"{label}: predict over {iters - warmup} x {chains} stored "
+          f"forests of {trees} trees on {n} counterfactual rows took "
+          f"{pred_s:.2f} s, peak device memory {peak / 2 ** 30:.2f} GiB; max "
+          f"|predict - extract('indiv.bart', sample='test')| {test_err:.3g}, "
+          f"train {train_err:.3g} (each <= 1e-5); {card()}", flush=True)
+    if not (test_err <= 1e-5 and train_err <= 1e-5):
+        raise AssertionError(f"{label}: predict differs from the stored fits")
+
+    ic = {}
+    for name, f in (("probit loo", fit.loo), ("probit waic", fit.waic),
+                    ("gaussian (phase 3) loo", gauss_fit.loo)):
+        t0 = time.perf_counter()
+        ic[name] = f()
+        ic[name]["seconds"] = time.perf_counter() - t0
+    msg = []
+    for name, r in ic.items():
+        keys = (("elpd_loo", "p_loo", "looic") if "loo" in name
+                else ("elpd_waic", "p_waic", "waic"))
+        if not all(np.isfinite(r[k]) for k in keys):
+            raise AssertionError(f"{label}: {name} not finite")
+        msg.append(f"{name} " + ", ".join(f"{k} {r[k]:.2f}" for k in keys)
+                   + (f", {r['n_high_k']} of {r['n_obs']} pareto_k > 0.7"
+                      if "loo" in name else "")
+                   + f", {r['seconds']:.2f} s")
+    print(f"{label}: " + "; ".join(msg), flush=True)
+
+    resumed = {}
+    for which, kw in (("whole", {}), ("chunked", {"chunk_size": 10})):
+        counts = reset_counts()
+        t0 = time.perf_counter()
+        resumed[which] = fit.continue_sampling(25, **kw)
+        secs = time.perf_counter() - t0
+        launches += check_launches(f"{label} continue_sampling(25) {which}",
+                                   counts, "bart_sweep_batch", 25)
+        r = resumed[which]
+        grew = all(getattr(r.draws, name).shape[1] == iters + 25
+                   for name in ("tree_feature", "tree_cut",
+                                "tree_leaf_value", "stan"))
+        finite = all(np.all(np.isfinite(getattr(r.draws, name)))
+                     for name in ("stan", "bart_train", "bart_test",
+                                  "tree_leaf_value"))
+        print(f"{label}: continue_sampling(25{', chunk_size=10' if kw else ''}"
+              f") took {secs:.2f} s, 25 single-pass launches; "
+              f"{r.iterations - r.warmup} post-warmup iterations, forests "
+              f"grew by 25 {grew}, finite {finite}", flush=True)
+        if not (r.iterations - r.warmup == iters - warmup + 25 and grew
+                and finite):
+            raise AssertionError(f"{label}: resume {which}")
+    a, b = resumed["whole"], resumed["chunked"]
+    diff = max(float(np.abs(getattr(a.draws, name).astype(np.float64)
+                            - getattr(b.draws, name)).max())
+               for name in ("stan", "bart_train", "tree_leaf_value"))
+    n_struct = int(sum((getattr(a.draws, name) != getattr(b.draws, name))
+                       .sum() for name in ("tree_feature", "tree_cut")))
+    print(f"{label}: whole vs chunked resume: max |whole - chunked| over "
+          f"stan, bart_train and leaf values {diff:.3g}; tree structure "
+          f"entries that differ {n_struct}", flush=True)
+    # the gates on the merged draws; the chunked resume's are the whole
+    # one's when the two drew the same
+    binary_gates(f"{label} resumed whole", a, d)
+    if diff or n_struct:
+        binary_gates(f"{label} resumed chunked", b, d)
+    return launches
 
 
 def main():
@@ -677,30 +921,56 @@ def main():
     device = resolve_device("cuda")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
-    t0 = time.perf_counter()
+    walls, clock = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Wall seconds since the last lap, under ``name``."""
+        now = time.perf_counter()
+        walls[name] = now - clock[0]
+        clock[0] = now
+
     secs = cuda_build.build(list(KERNELS), verbose=True)
+    lap("build")
     print("build: " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
-          + f" ({time.perf_counter() - t0:.1f} s in all)", flush=True)
+          + f" ({walls['build']:.1f} s in all)", flush=True)
 
     err = [0.0, 0.0, 0.0]     # batch, tiled, chain vs plain
     for n in (2000, 9191):
         err = [max(a, b) for a, b in zip(err, phase_small(device, n))]
+    lap("phase 1")
     full = phase_full(device)
     ablate = {c: phase_ablate(device, c) for c in (256, 64)}
-    launches = {k: None for k in KERNELS}
+    lap("phase 2")
+    # launches of each kernel on each main path that ran it
+    paths = {k: {} for k in KERNELS}
     if not args.kernels:
         # run_fit holds every main path to 0 launches of the stubs
-        launches["bart_sweep_ablate"] = 0
-        launches["bart_sweep_batch"] = phase_main(
+        paths["bart_sweep_batch"]["phase 3"], gauss_fit = phase_main(
             device, "phase 3", 10_000, 256, "bart_sweep_batch")
+        lap("phase 3")
     large = {n: phase_large(device, n, c)
              for n, c in ((50_000, 64), (51_840, 64), (200_000, 16))}
+    lap("phase 4")
     if not args.kernels:
-        launches["bart_sweep_tiled"] = phase_main(
-            device, "phase 5", 50_000, 64, "bart_sweep_tiled", iters=300,
+        paths["bart_sweep_tiled"]["phase 5"], _ = phase_main(
+            device, "phase 5", 50_000, 64, "bart_sweep_tiled", iters=225,
             warmup=150)
-        launches["bart_sweep_chain"] = phase_chain(device)
-        phase_options(device)
+        lap("phase 5")
+        paths["bart_sweep_chain"]["phase 6"] = phase_chain(device)
+        lap("phase 6")
+        paths["bart_sweep_chain"]["phase 6 options"] = phase_options(device)
+        paths["bart_sweep_batch"]["phase 6 offset types"] = \
+            phase_offset_types(device)
+        lap("phase 6 options")
+        paths["bart_sweep_batch"]["phase 7"] = phase_probit(device,
+                                                            gauss_fit)
+        del gauss_fit
+        lap("phase 7")
+    print("wall seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items())
+        + f"; {sum(walls.values()):.1f} in all", flush=True)
+    launches = {k: (sum(v.values()) if not args.kernels else None)
+                for k, v in paths.items()}
 
     big = large[50_000]
     chain_errs = [err[2], full["chain_max_abs_err"]] + [
@@ -712,6 +982,7 @@ def main():
         "source": "stan4bart_torch/csrc/bart_sweep_batch.cu",
         "replaces": "stan4bart_tpu/ops/bart_sweep_kernel.py:859",
         "launches": launches["bart_sweep_batch"],
+        "launches_by_path": paths["bart_sweep_batch"],
         "max_abs_err": max(err[0], full["max_abs_err"]),
         "ms": full["ms"],
         "kernel_ms": full["ms"],
@@ -726,6 +997,7 @@ def main():
         "source": "stan4bart_torch/csrc/bart_sweep_tiled.cu",
         "replaces": "stan4bart_tpu/ops/bart_sweep_kernel.py:1495",
         "launches": launches["bart_sweep_tiled"],
+        "launches_by_path": paths["bart_sweep_tiled"],
         "max_abs_err": max([err[1], full["tiled_max_abs_err"]]
                            + [r["max_abs_err"] for r in large.values()]),
         "ms": big["ms"],
@@ -744,6 +1016,7 @@ def main():
         "source": "stan4bart_torch/csrc/bart_sweep_chain.cu",
         "replaces": "stan4bart_tpu/ops/bart_sweep_kernel.py:596",
         "launches": launches["bart_sweep_chain"],
+        "launches_by_path": paths["bart_sweep_chain"],
         "max_abs_err": max(chain_errs),
         "ms": big["chain_ms"],
         "kernel_ms": big["chain_ms"],
@@ -764,6 +1037,7 @@ def main():
         "source": "stan4bart_torch/csrc/bart_sweep_ablate.cu",
         "replaces": "benchmarks/ablate_batch_kernel.py:124",
         "launches": launches["bart_sweep_ablate"],
+        "launches_by_path": paths["bart_sweep_ablate"],
         "max_abs_err": max(a["max_abs_err"] for a in ablate.values()),
         "ms": ablate[256]["obs"],
         "kernel_ms": ablate[256]["obs"],

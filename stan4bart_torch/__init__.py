@@ -13,6 +13,7 @@ as its plain PyTorch version on the CPU.  Entry points run on
 """
 
 from stan4bart_torch.fit import chi, stan4bart  # noqa: F401
+from stan4bart_torch.loo import loo_compare  # noqa: F401
 from stan4bart_torch.models import priors  # noqa: F401
 from stan4bart_torch.models.priors import (  # noqa: F401
     cauchy,

@@ -1,9 +1,12 @@
-"""Carry sampler states of the JAX package into the port.
+"""Carry sampler states and stored draws of the JAX package into the port.
 
 A state of the JAX package (``stan4bart_tpu.gibbs.GibbsState`` /
 ``stan4bart_tpu.ops.bart.BartState``, batched over chains) is turned
 into numpy leaf by leaf and rebuilt here as the port's state, so both
-implementations can start from the same point.  The inputs may be the
+implementations can start from the same point; a fit's stored draws
+(``stan4bart_tpu.gibbs.GibbsDraw`` of numpy arrays with leading (chains,
+iterations)) become the port's, so both fit objects can read the same
+numbers.  The inputs may be the
 JAX NamedTuples themselves or nested dicts of arrays with the same field
 names; every leaf is copied into a numpy array.  Nothing of JAX is
 imported.
@@ -16,7 +19,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from stan4bart_torch.gibbs import GibbsState
+from stan4bart_torch.gibbs import GibbsDraw, GibbsState
 from stan4bart_torch.ops.bart import BartState
 from stan4bart_torch.ops.nuts import DualAveragingState, NutsState, WelfordState
 from stan4bart_torch.utils.device import resolve_device
@@ -74,3 +77,20 @@ def state_from_numpy(d, dtype=torch.float64, device="cuda") -> GibbsState:
         stan_offset=arr("stan_offset"),
         latents=arr("latents"),
     )
+
+
+def draws_from_numpy(d) -> GibbsDraw:
+    """A fit's stored draws, leading (chains, iterations), as the port's
+    GibbsDraw of numpy arrays (what ``Stan4bartFit.draws`` holds): the
+    stan rows, the train/test BART fits, varcount, k and, where they
+    were kept, the stored forests.  The JAX package marks absent forests
+    with zero-size placeholders; they become None here."""
+    out = {}
+    for name in GibbsDraw._fields:
+        a = d.get(name) if isinstance(d, Mapping) else getattr(d, name, None)
+        if a is not None:
+            a = np.array(a)
+            if a.size == 0 and name.startswith("tree_"):
+                a = None
+        out[name] = a
+    return GibbsDraw(**out)

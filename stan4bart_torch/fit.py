@@ -88,7 +88,8 @@ def _init_parametric_fit(mf: ModelFrame, family: str):
 
 
 def _resolve_bart_args(bart_args: dict | None, is_binary: bool):
-    """Map user bart_args (dbarts-style names) onto BartConfig."""
+    """Map user bart_args (dbarts-style names) onto BartConfig; returns
+    (BartConfig, split_probs, keep_trees)."""
     ba = dict(bart_args or {})
 
     def pop(*names, default=None):
@@ -107,7 +108,8 @@ def _resolve_bart_args(bart_args: dict | None, is_binary: bool):
     sigma_mu_fixed = pop("sigma_mu_fixed", default=None)
     if sigma_mu_fixed is not None:
         sigma_mu_fixed = float(sigma_mu_fixed)
-    for name in ("keepTrees", "keep_trees", "p_regrow", "regrow_per_sweep"):
+    keep_trees = bool(pop("keepTrees", "keep_trees", default=False))
+    for name in ("p_regrow", "regrow_per_sweep"):
         if pop(name):
             _unported(f"bart_args {name}")
     pop("sweep_kernel")   # the port always runs its sweep kernel
@@ -134,7 +136,7 @@ def _resolve_bart_args(bart_args: dict | None, is_binary: bool):
         k_init=k_init, k_df=k_df, k_scale=k_scale,
         sigma_mu_fixed=sigma_mu_fixed,
     )
-    return cfg, split_probs
+    return cfg, split_probs, keep_trees
 
 
 def chi(df=1.25, scale=float("inf")):
@@ -176,7 +178,12 @@ def _per_chain_callback(callback, names, has_test):
         return callback(CallbackDraw(GibbsDraw(*leaves), names, idx,
                                      has_test))
 
-    return lambda draw: torch.func.vmap(one)(*draw)
+    def batched(draw):
+        # the stored forests are None without keep_trees
+        dims = tuple(None if x is None else 0 for x in draw)
+        return torch.func.vmap(one, in_dims=dims)(*draw)
+
+    return batched
 
 
 def _data_columns(data) -> dict:
@@ -336,7 +343,9 @@ def stan4bart(
 
     pm, resolved_stan_args, assemble_info = build_parametric_model(
         mf, family, stan_args, dtype=dtype, device=dev)
-    bart_cfg, split_probs = _resolve_bart_args(bart_args, is_binary)
+    bart_cfg, split_probs, keep_trees = _resolve_bart_args(bart_args,
+                                                           is_binary)
+    keep_trees = keep_trees or resolved_stan_args.keep_trees
     nuts_cfg = NutsConfig(
         max_treedepth=resolved_stan_args.max_treedepth,
         delta=resolved_stan_args.adapt_delta,
@@ -351,8 +360,10 @@ def stan4bart(
     )
     bart_offset_init, sigma_init = _init_parametric_fit(mf, family)
 
-    prog = GibbsProgram(
-        pm, bart_cfg, y, mf.bart_X,
+    # everything GibbsProgram takes besides the model and the device, kept
+    # in the fit so that Stan4bartFit.load can rebuild the program
+    program_args = dict(
+        bart_cfg=bart_cfg,
         split_probs=split_probs,
         bart_X_test=test_frame.bart_X if test_frame is not None else None,
         weights=mf.weights,
@@ -369,8 +380,11 @@ def stan4bart(
         linear_gibbs=resolved_stan_args.linear_gibbs,
         level_gibbs=resolved_stan_args.level_gibbs,
         gram_lik=resolved_stan_args.gram_lik,
-        dtype=dtype, device=dev,
+        keep_trees=keep_trees,
+        dtype=dtype,
     )
+    prog = GibbsProgram(pm, y=y, bart_X=mf.bart_X, device=dev,
+                        **program_args)
 
     if seed is None and resolved_stan_args.seed is not None:
         seed = resolved_stan_args.seed
@@ -436,6 +450,11 @@ def stan4bart(
         callback_draws=callback_draws,
         prior_info=assemble_info.get("prior_summary"),
         timings=timings,
+        per_chain=cb is not None,
+        # the generator after the run: continue_sampling draws on from it
+        rng_state=gen.get_state(),
+        stan_args=resolved_stan_args,
+        program_args=program_args,
     )
     if verbose >= 0:
         fit.check_sampler_diagnostics()

@@ -19,11 +19,16 @@ its leading dimension; one iteration advances all chains:
 5. the additive-level interweave between the trees and the random-effect
    intercepts (``level_gibbs``);
 6. BART fit -> Stan offset, and the draw row: 7 NUTS diagnostics then the
-   constrained parameters, the train/test BART fits, varcount and k.
+   constrained parameters, the train/test BART fits, varcount and k, and
+   with ``keep_trees`` the swept forest.
+
+A user offset enters steps 3 and 6 by ``offset_type``: added to the
+whole mean (default), or replacing the fixed effects, the random
+effects, the BART fit or the whole parametric mean.
 
 All randomness comes from one ``torch.Generator`` on the program's device,
-passed in explicitly.  The options outside this slice of the port raise
-NotImplementedError.
+passed in explicitly.  ``continue_chunked`` resumes the sampling phase
+from a final state.
 """
 
 from __future__ import annotations
@@ -76,6 +81,10 @@ class GibbsDraw(NamedTuple):
     bart_test: torch.Tensor     # (C, N_test)
     varcount: torch.Tensor      # (C, P_bart) int32
     k: torch.Tensor             # (C,)
+    # the swept forest, (C, T, M) each, with keep_trees; None otherwise
+    tree_feature: torch.Tensor | None = None
+    tree_cut: torch.Tensor | None = None
+    tree_leaf_value: torch.Tensor | None = None
 
 
 def tree_map(fn, *trees):
@@ -120,13 +129,14 @@ class GibbsProgram:
         linear_gibbs: bool | None = None,
         level_gibbs: bool | None = None,
         gram_lik: bool | None = None,
+        keep_trees: bool = False,
         dtype=torch.float32,
         device="cuda",
     ):
-        if offset_type != "default":
-            raise NotImplementedError(
-                f"offset_type={offset_type!r} is not ported to "
-                "stan4bart_torch yet (ROADMAP queue 1 item 8)")
+        if offset_type not in OFFSET_TYPES:
+            raise ValueError(f"offset_type must be one of {OFFSET_TYPES}")
+        self.offset_type = offset_type
+        self.keep_trees = bool(keep_trees)
         self.pm = pm
         self.bart_cfg = bart_cfg
         self.dtype = dtype
@@ -186,7 +196,9 @@ class GibbsProgram:
                 if np.allclose(lhs_np[:, j], 1.0):
                     terms.append((ti, j))
                     break
-        lvl_elig = bool(terms)
+        # the level interweave moves the parametric mean's intercepts,
+        # which a non-default offset_type replaces or decouples
+        lvl_elig = offset_type == "default" and bool(terms)
         if linear_gibbs is None and level_gibbs is None:
             lg_on = lvl_on = lg_elig and lvl_elig
         else:
@@ -203,7 +215,8 @@ class GibbsProgram:
         if level_gibbs is True and not lvl_elig:
             warnings.warn(
                 "level_gibbs requested but the model is ineligible (needs "
-                "a random-effect intercept term); running without it")
+                "a random-effect intercept term and the default "
+                "offset_type); running without it")
         self.linear_gibbs = lg_on
         self.level_gibbs = lvl_on
         self._level_terms = terms
@@ -238,12 +251,30 @@ class GibbsProgram:
     # ------------------------------------------------------------------
 
     def _bart_offset_from_draw(self, c, tp):
-        mean = self.pm.parametric_mean(c, tp)
-        return mean if self.user_offset is None else mean + self.user_offset
+        """Parametric mean with the offset_type substitution, (C, N)."""
+        pm, ot, uo = self.pm, self.offset_type, self.user_offset
+        if uo is None or ot == "bart":
+            return pm.parametric_mean(c, tp)
+        if ot == "default":
+            return pm.parametric_mean(c, tp) + uo
+        if ot == "ranef":      # the user offset replaces Z b
+            return pm.parametric_mean(c, tp, include_random=False) + uo
+        if ot == "fixef":      # the user offset replaces X beta
+            return pm.parametric_mean(c, tp, include_fixed=False) + uo
+        # parametric: the user offset replaces the whole mean; a view, and
+        # nothing writes into the offsets in place
+        return uo.expand(tp["aux"].shape[0], self.N)
 
     def _stan_offset_from_fit(self, bart_fit):
-        return (bart_fit if self.user_offset is None
-                else bart_fit + self.user_offset)
+        """BART fit -> Stan offset with the offset_type semantics."""
+        ot, uo = self.offset_type, self.user_offset
+        if uo is None:
+            return bart_fit
+        if ot == "bart":       # the user offset replaces the BART fit
+            return uo.expand(bart_fit.shape)
+        if ot == "default":
+            return bart_fit + uo
+        return bart_fit
 
     def _sigma_mu(self, bart_offset, k):
         """Leaf-prior sd in original units, per chain (C,)."""
@@ -474,11 +505,19 @@ class GibbsProgram:
 
     def _post_sweep(self, nuts, info, bart_state, bart_offset, latents,
                     varcount, gen):
-        """Level interweave, BART fit -> Stan offset, draw packaging."""
+        """Level interweave, BART fit -> Stan offset, draw packaging.
+
+        The sweep carries a running residual, so its ``allfit`` (the
+        response minus the residual) drifts from the sum of the trees by
+        the rounding of every tree update, a random walk over the
+        iterations in float32.  Here ``allfit`` becomes the sum of the
+        tree fits again, so the stored BART fit equals the stored forests
+        walked over the training rows (``Stan4bartFit.predict``)."""
         pm, cfg = self.pm, self.bart_cfg
         if self.level_gibbs:
             nuts, bart_state = self._level_gibbs_update(
                 nuts, bart_state, bart_offset, latents, gen)
+        bart_state = bart_state._replace(allfit=bart_state.tree_fit.sum(1))
         bart_fit = bart_state.allfit
         stan_offset = self._stan_offset_from_fit(bart_fit)
         if self.level_gibbs:
@@ -501,9 +540,10 @@ class GibbsProgram:
         new_state = GibbsState(nuts=nuts, bart=bart_state,
                                bart_offset=bart_offset,
                                stan_offset=stan_offset, latents=latents)
-        draw = GibbsDraw(stan=stan_row, bart_train=bart_fit,
-                         bart_test=bart_test, varcount=varcount,
-                         k=bart_state.k)
+        trees = ((bart_state.feature, bart_state.cut, bart_state.leaf_value)
+                 if self.keep_trees else (None, None, None))
+        draw = GibbsDraw(stan_row, bart_fit, bart_test, varcount,
+                         bart_state.k, *trees)
         return new_state, draw
 
     @torch.no_grad()
@@ -587,9 +627,33 @@ class GibbsProgram:
         completed counts and an ``interrupted`` flag.
         """
         per_chain = callback is not None
-        step = self.step if per_chain else self.step_batched
         states = self.init_state(gen, n_chains, bart_offset_init, sigma_init,
                                  per_chain=per_chain)
+        phases = (("warmup", self.warmup, keep_warmup, None),
+                  ("sample", self.iterations, True, self._disengage))
+        return self._drive(states, phases, gen, per_chain, chunk_size,
+                           callback, verbose, refresh, progress)
+
+    def continue_chunked(self, states: GibbsState, iterations: int,
+                         chunk_size: int | None, gen, progress=None,
+                         per_chain: bool = False):
+        """Resume the sampling phase from chain-batched ``states`` (a fit's
+        final states) for ``iterations`` more draws: ``step_batched``, or
+        ``step`` for a per-chain fit, with ``run_chains_chunked``'s
+        chunking, progress and interrupt handling.  Returns ``(states,
+        draws, info)`` as ``run_chains_chunked`` does."""
+        phases = (("sample", int(iterations), True, None),)
+        return self._drive(states, phases, gen, per_chain, chunk_size,
+                           None, 0, None, progress)
+
+    def _drive(self, states, phases, gen, per_chain, chunk_size, callback,
+               verbose, refresh, progress):
+        """The chunked loop of ``run_chains_chunked`` and
+        ``continue_chunked``: each phase ``(name, total, keep, start)``
+        applies ``start`` (if any) to the states, then runs ``total``
+        iterations, keeping their draws (or the callback's outputs) when
+        ``keep``."""
+        step = self.step if per_chain else self.step_batched
         pieces, draws, keep = [], [], False
 
         def flush():
@@ -598,18 +662,17 @@ class GibbsProgram:
                     lambda *x: torch.stack(x, 1).cpu().numpy(), *draws))
             draws.clear()
 
-        info = {"warmup_s": 0.0, "sample_s": 0.0, "interrupted": False,
-                "warmup_done": 0, "sample_done": 0}
+        info = {"interrupted": False}
+        for phase, _, _, _ in phases:
+            info.update({f"{phase}_s": 0.0, f"{phase}_done": 0})
         try:
-            for phase, total in (("warmup", self.warmup),
-                                 ("sample", self.iterations)):
-                if phase == "sample":
-                    states = self._disengage(states)
+            for phase, total, keep, start in phases:
+                if start is not None:
+                    states = start(states)
                 if verbose > 0 and total > 0:
                     print(f"starting {phase}, {total} draws", flush=True)
                 next_print = refresh if refresh else None
                 chunk = max(int(chunk_size or total), 1)
-                keep = phase == "sample" or keep_warmup
                 it0 = 0
                 while it0 < total:
                     n = min(chunk, total - it0)
@@ -636,10 +699,11 @@ class GibbsProgram:
             if not pieces:
                 raise
             info["interrupted"] = True
+            done = " + ".join(f"{info[f'{p}_done']} {p}"
+                              for p, _, _, _ in phases)
             warnings.warn(
-                "sampling interrupted: returning the "
-                f"{info['warmup_done']} warmup + {info['sample_done']} "
-                "sampling draws completed so far as a partial fit")
+                f"sampling interrupted: returning the {done} draws "
+                "completed so far as a partial fit")
         info.update(self.phase_s)
         merged = tree_map(lambda *x: np.concatenate(x, axis=1), *pieces)
         return states, merged, info

@@ -71,7 +71,7 @@ class StanArgs:
 _UNPORTED = (
     ("qr", False), ("centered_ranef", False), ("sigma_gibbs", False),
     ("leaf_gibbs", 0), ("leaf_block", 0),
-    ("obs_shards", 0), ("keep_trees", False),
+    ("obs_shards", 0),
 )
 
 

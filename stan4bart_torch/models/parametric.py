@@ -399,10 +399,16 @@ class ParametricModel:
             eta = eta + (lhs[None] * per_obs).sum(-1)
         return eta
 
-    def parametric_mean(self, c, tp):
-        """eta_param = X beta + Z b per chain: (C, N)."""
-        eta = self.eta_fixed(tp["beta"])
-        if self.cfg.q > 0:
+    def parametric_mean(self, c, tp, include_fixed=True,
+                        include_random=True):
+        """eta_param = X beta + Z b per chain, (C, N); the flags leave a
+        component out.  The model has no intercept (BART carries the
+        level), so there is no gamma term."""
+        assert "gamma" not in c, "the parametric block has no intercept"
+        beta = tp["beta"]
+        eta = (self.eta_fixed(beta) if include_fixed
+               else beta.new_zeros((beta.shape[0], self.X.shape[0])))
+        if include_random and self.cfg.q > 0:
             eta = eta + self.eta_random(tp["b"])
         return eta
 

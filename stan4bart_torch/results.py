@@ -1,4 +1,6 @@
-"""Fit object and posterior consumption: extract / fitted / summary.
+"""Fit object and posterior consumption: extract / fitted / summary,
+log_lik / loo / waic, predict / trees / print_trees from stored forests,
+and save / load / continue_sampling.
 
 Counterpart of ``stan4bart_tpu/results.py`` in numpy: draw types
 
@@ -7,7 +9,9 @@ Counterpart of ``stan4bart_tpu/results.py`` in numpy: draw types
 
 for train or test samples, with warmup inclusion, chain combining, probit
 ``Phi`` transforms, ppd noise injection (incl. weights), and new-group
-posterior sampling from the per-draw covariance Cholesky.
+posterior sampling from the per-draw covariance Cholesky.  ``predict``
+and ``trees`` walk the stored forests on the fit's device, one
+iteration's forests at a time.
 
 Array convention: draws are returned with observation/parameter axes first
 and the draw axis LAST; ``combine_chains=True`` (default) flattens
@@ -18,14 +22,26 @@ pair.
 from __future__ import annotations
 
 import math
+import pickle
 import warnings
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields, replace
 from typing import Any
 
 import numpy as np
-from scipy.stats import norm
+import torch
+from scipy.special import ndtr  # Phi: scipy.stats.norm.cdf's values, faster
 
-from stan4bart_torch.gibbs import tree_map
+from stan4bart_torch.gibbs import GibbsProgram, tree_map
+from stan4bart_torch.models.assemble import build_parametric_model
+from stan4bart_torch.ops.bart import compute_ranks, predict_trees, walk_tree
+from stan4bart_torch.utils.device import resolve_device
+
+# observations per block of the r_eff computation in loo(): bounds the
+# host memory of the batched FFT
+R_EFF_BLOCK = 1024
+# entries of the largest dense random-effects design (q x n) that Z b is
+# computed with; past it (many levels) each row gathers its levels' draws
+DENSE_Z_MAX = 2 ** 24
 
 EXTRACT_TYPES = (
     "ev", "ppd", "fixef", "indiv.fixef", "ranef", "indiv.ranef",
@@ -59,6 +75,16 @@ class Stan4bartFit:
     # iteration phases 'nuts_gibbs', 'sweep', 'post'; 'interrupted': True
     # on partial fits
     timings: dict | None = None
+    # whether the chains ran the per-chain GibbsProgram.step (a callback
+    # or keep_fits=False); continue_sampling resumes on the same driver
+    per_chain: bool = False
+    # the torch.Generator's state after the last iteration (a CPU byte
+    # tensor); None after loading on another device type
+    rng_state: Any = None
+    # the resolved StanArgs and GibbsProgram's arguments besides the
+    # model and the device: what load() rebuilds the program from
+    stan_args: Any = None
+    program_args: dict | None = None
     _name_idx: dict = field(default_factory=dict, init=False)
     _rng_calls: int = field(default=0, init=False)
 
@@ -198,50 +224,61 @@ class Stan4bartFit:
         b = self._b_draws(include_warmup)  # (C, I, q)
         fr = frame or self._frame_for(sample)
         re_terms = fr.re_terms
-        C, I = b.shape[:2]
+        C, I, q = b.shape
         n = re_terms[0].lhs.shape[0] if re_terms else np.asarray(fr.X).shape[0]
-        eta = np.zeros((C, I, n))
         if not re_terms:
-            return eta
+            return np.zeros((C, I, n))
         rng = self._rng()
         Sigmas = (self._Sigma_draws(include_warmup)
                   if sample_new_levels else None)
+        dense = q * n <= DENSE_Z_MAX
+        if dense:
+            # the design of the seen rows as a dense (q, n) matrix: Z b of
+            # every draw is one BLAS product into one new array, 4-5x
+            # faster than gathering each row's level over 10^8 entries
+            Z = np.zeros((q, n))
+        else:
+            eta = np.zeros((C, I, n))
         off = 0
-        for t_train, t, key in zip(self.mf.re_terms, re_terms,
-                                   self._term_keys()):
+        for t_train, t in zip(self.mf.re_terms, re_terms):
             p, l = t_train.p, t_train.l
-            b_term = b[..., off : off + p * l].reshape(C, I, l, p)
             gidx = np.asarray(t.group_idx)
             seen = gidx >= 0
-            safe = np.clip(gidx, 0, None)
-            contrib = np.einsum("np,cinp->cin", t.lhs,
-                                b_term[:, :, safe, :])
-            if (~seen).any():
-                if sample_new_levels:
-                    Sig = Sigmas[key]  # (C, I, p, p)
-                    chol = np.linalg.cholesky(
-                        Sig + 1e-12 * np.eye(p)
-                    )
-                    # one b draw per (chain, iter, distinct NEW LEVEL),
-                    # shared across that level's rows (levelfun semantics,
-                    # generics.R:553-612) — preserves within-draw
-                    # correlation of observations in the same new group
-                    if t.new_level_ids is not None:
-                        lev_of_row = t.new_level_ids[~seen]
-                    else:
-                        lev_of_row = np.arange((~seen).sum())
-                    n_lev = int(lev_of_row.max()) + 1
-                    z = rng.standard_normal((C, I, n_lev, p))
-                    b_lev = np.einsum("cipq,cilq->cilp", chol, z)
-                    b_new = b_lev[:, :, lev_of_row, :]
-                    contrib_new = np.einsum(
-                        "np,cinp->cin", t.lhs[~seen], b_new
-                    )
-                    contrib[:, :, ~seen] = contrib_new
-                else:
-                    contrib[:, :, ~seen] = 0.0
-            eta += contrib
+            lhs = np.asarray(t.lhs)
+            if dense:
+                rows = off + gidx[seen, None] * p + np.arange(p)
+                Z[rows.ravel(), np.repeat(np.flatnonzero(seen), p)] = \
+                    lhs[seen].ravel()
+            else:
+                b_term = b[..., off : off + p * l].reshape(C, I, l, p)
+                contrib = np.einsum("np,cinp->cin", lhs[seen],
+                                    b_term[:, :, gidx[seen], :])
+                eta[:, :, seen] += contrib
             off += p * l
+        if dense:
+            eta = (b.reshape(C * I, q) @ Z).reshape(C, I, n)
+        if not sample_new_levels:
+            return eta
+        for t_train, t, key in zip(self.mf.re_terms, re_terms,
+                                   self._term_keys()):
+            p = t_train.p
+            unseen = np.asarray(t.group_idx) < 0
+            if unseen.any():
+                chol = np.linalg.cholesky(Sigmas[key] + 1e-12 * np.eye(p))
+                # one b draw per (chain, iter, distinct NEW LEVEL), shared
+                # across that level's rows (levelfun semantics,
+                # generics.R:553-612) — preserves within-draw correlation
+                # of observations in the same new group
+                if t.new_level_ids is not None:
+                    lev_of_row = t.new_level_ids[unseen]
+                else:
+                    lev_of_row = np.arange(unseen.sum())
+                n_lev = int(lev_of_row.max()) + 1
+                z = rng.standard_normal((C, I, n_lev, p))
+                b_lev = np.einsum("cipq,cilq->cilp", chol, z)
+                eta[:, :, unseen] += np.einsum(
+                    "np,cinp->cin", np.asarray(t.lhs)[unseen],
+                    b_lev[:, :, lev_of_row, :])
         return eta
 
     def _indiv_bart(self, include_warmup, sample="train"):
@@ -269,7 +306,7 @@ class Stan4bartFit:
         if off is not None:
             ev = ev + np.asarray(off)
         if self.is_binary:
-            ev = norm.cdf(ev)
+            ev = ndtr(ev)
         return ev
 
     # -- public API ----------------------------------------------------------
@@ -383,6 +420,311 @@ class Stan4bartFit:
             return {k: v.mean(axis=-1) for k, v in draws.items()}
         return draws.mean(axis=-1)
 
+    # -- information criteria ------------------------------------------------
+
+    def _log_lik_raw(self, include_warmup=False):
+        """Pointwise log p(y_i | draw) on the training data, internal
+        (chains, iter, n) layout.  Gaussian: Normal(ev, sigma/sqrt(w_i));
+        probit: Bernoulli(Phi(lin)), the weights scaling the log-density
+        as in the weighted Stan target."""
+        if not self.keep_fits:
+            raise ValueError("log_lik requires keep_fits=True")
+        ev = self._ev(include_warmup, "train")       # probit: P(y = 1)
+        y = np.asarray(self.mf.y, dtype=np.float64)
+        w = (None if self.mf.weights is None
+             else np.asarray(self.mf.weights, dtype=np.float64))
+        if self.is_binary:
+            p = np.clip(ev, 1e-12, 1.0 - 1e-12)
+            ll = np.where(y > 0, np.log(p), np.log1p(-p))
+            if w is not None:
+                ll = ll * w
+        else:
+            sigma = self._sigma_draws(include_warmup)[..., None]
+            var = sigma ** 2 if w is None else sigma ** 2 / w
+            ll = -0.5 * (np.log(2.0 * np.pi * var) + (y - ev) ** 2 / var)
+        return ll
+
+    def log_lik(self, combine_chains: bool = True,
+                include_warmup: bool = False):
+        """Pointwise log-likelihood, (n_obs, draws) with the draws axis
+        last (same layout as extract); na_action='exclude' re-inserts
+        NaN rows.  Feeds fit.loo() / fit.waic()."""
+        return self._na_expand(
+            self._flatten(self._log_lik_raw(include_warmup),
+                          combine_chains), "train")
+
+    def loo(self, include_warmup: bool = False,
+            use_r_eff: bool = True) -> dict:
+        """PSIS-LOO expected log predictive density (loo.py): elpd_loo,
+        p_loo, looic with standard errors, plus per-observation
+        pareto_k diagnostics (k > 0.7 flags unreliable points).
+
+        use_r_eff: correct the PSIS tail length for MCMC
+        autocorrelation with the per-observation relative efficiency
+        ESS/S of the chain-structured draws (the loo package's r_eff);
+        False assumes independent draws."""
+        from stan4bart_torch.loo import psis_loo
+        from stan4bart_torch.parallel.diagnostics import ess
+
+        raw = self._log_lik_raw(include_warmup)     # (chains, iter, n)
+        ll = self._flatten(raw, True)
+        r_eff = None
+        if use_r_eff and raw.shape[0] * raw.shape[1] >= 8:
+            S = raw.shape[0] * raw.shape[1]
+            by_obs = np.moveaxis(raw, -1, 0)         # (n, chains, iter)
+            r_eff = np.concatenate([
+                np.atleast_1d(ess(by_obs[j: j + R_EFF_BLOCK]))
+                for j in range(0, by_obs.shape[0], R_EFF_BLOCK)]) / S
+        out = psis_loo(ll, r_eff=r_eff)
+        if out["n_high_k"]:
+            warnings.warn(
+                f"{out['n_high_k']} of {out['n_obs']} observations have "
+                "pareto_k > 0.7: their PSIS-LOO contributions are "
+                "unreliable (consider exact refits for those points)")
+        return out
+
+    def waic(self, include_warmup: bool = False) -> dict:
+        """WAIC (pWAIC2 penalty) from the pointwise log-likelihood."""
+        from stan4bart_torch.loo import waic as _waic
+
+        return _waic(self._flatten(self._log_lik_raw(include_warmup),
+                                   True))
+
+    # -- out-of-sample prediction from the stored forests (keep_trees) -------
+
+    def _tree_draws(self, include_warmup):
+        self._require_raw()
+        if getattr(self.draws, "tree_feature", None) is None:
+            raise ValueError(
+                "predict/trees require keep_trees=True at fit time "
+                "(bart_args keep_trees or keepTrees, or stan_args "
+                "keep_trees)")
+        return (
+            self._slice(self.draws.tree_feature, include_warmup),
+            self._slice(self.draws.tree_cut, include_warmup),
+            self._slice(self.draws.tree_leaf_value, include_warmup),
+        )
+
+    def _iteration_forests(self, *arrays):
+        """Each stored iteration's (C, T, M) tree arrays on the fit's
+        device, one iteration at a time: the tree walk of every chain's
+        trees over all rows is the largest allocation (int64 node
+        indices, 1.5 GB at 256 chains x 75 trees x 10 000 rows), so the
+        device holds one iteration's, and an iteration that does not fit
+        raises."""
+        dev = self.prog.device
+        for i in range(arrays[0].shape[1]):
+            yield i, tuple(
+                torch.as_tensor(np.ascontiguousarray(a[:, i]), device=dev)
+                for a in arrays)
+
+    @torch.no_grad()
+    def _predict_bart(self, bart_X_new):
+        """Walk every stored post-warmup forest over new data: (C, I,
+        n_new)."""
+        feature, cut, leaf_value = self._tree_draws(False)
+        prog = self.prog
+        ranks_new = torch.as_tensor(
+            compute_ranks(np.asarray(bart_X_new), prog.cuts),
+            device=prog.device)
+        out = np.empty(feature.shape[:2] + (ranks_new.shape[0],),
+                       dtype=leaf_value.dtype)
+        for i, (f, c, lv) in self._iteration_forests(feature, cut,
+                                                     leaf_value):
+            out[:, i] = predict_trees(prog.bart_cfg, f, c, lv,
+                                      ranks_new).cpu().numpy()
+        return out
+
+    def predict(self, newdata, type: str = "ev", combine_chains: bool = True,
+                sample_new_levels: bool = True, offset=None):
+        """Posterior draws on new data from the stored tree ensembles
+        (generics.R:614-723).  types: ev, ppd, indiv.bart, indiv.fixef,
+        indiv.ranef."""
+        ok = ("ev", "ppd", "indiv.bart", "indiv.fixef", "indiv.ranef")
+        if type not in ok:
+            raise ValueError(f"predict type must be one of {ok}")
+        tf = self.mf.build_test_frame(newdata)
+
+        if type == "indiv.fixef":
+            out = self._indiv_fixef(False, frame=tf)
+        elif type == "indiv.ranef":
+            out = self._indiv_ranef(False, sample_new_levels=sample_new_levels,
+                                    frame=tf)
+        elif type == "indiv.bart":
+            out = self._predict_bart(tf.bart_X)
+        else:
+            out = self._predict_bart(tf.bart_X)
+            out = out + self._indiv_fixef(False, frame=tf)
+            if self.mf.q > 0:
+                out = out + self._indiv_ranef(
+                    False, sample_new_levels=sample_new_levels, frame=tf
+                )
+            if tf.offset is not None:
+                out = out + np.asarray(tf.offset)
+            if offset is not None:
+                out = out + np.asarray(offset)
+            if self.is_binary:
+                out = ndtr(out)
+            if type == "ppd":
+                rng = self._rng()
+                if self.is_binary:
+                    out = rng.binomial(1, out).astype(np.float64)
+                else:
+                    sigma = self._sigma_draws(False)[..., None]
+                    out = out + rng.standard_normal(out.shape) * sigma
+        return self._flatten(out, combine_chains)
+
+    # -- flattened-tree export -------------------------------------------------
+
+    @torch.no_grad()
+    def _node_counts(self, feature, cut):
+        """Training observations in every node of every stored tree,
+        (C, I, T, M): leaf counts of the walk over the training ranks,
+        summed up the heap one depth at a time."""
+        cfg = self.prog.bart_cfg
+        C, I, T, M = feature.shape
+        counts = np.empty(feature.shape, dtype=np.int32)
+        for i, (f, c) in self._iteration_forests(feature, cut):
+            f, c = f.reshape(-1, M), c.reshape(-1, M)
+            node = walk_tree(f, c, self.prog.ranks, cfg.max_depth)
+            cnt = torch.zeros(f.shape, dtype=torch.long, device=f.device)
+            cnt.scatter_add_(1, node, torch.ones_like(node))
+            for d in range(cfg.max_depth - 1, -1, -1):
+                idx = torch.arange(2 ** d - 1, 2 ** (d + 1) - 1,
+                                   device=f.device)
+                below = cnt[:, 2 * idx + 1] + cnt[:, 2 * idx + 2]
+                cnt[:, idx] += torch.where(f[:, idx] >= 0, below, 0)
+            counts[:, i] = cnt.reshape(C, T, M).cpu().numpy()
+        return counts
+
+    def trees(self, include_warmup: bool = False) -> dict:
+        """Flattened tree ensemble draws as columns chain/sample/tree/n/var/
+        value (the reference's extract(fit, "trees") via dbarts
+        FlattenedTrees; init.cpp:577-671).  Nodes appear in depth-first
+        preorder with the left (condition-true) child first; indices are
+        0-based with -1 for leaves.  ``var`` is the split variable of an
+        internal node and -1 for a leaf; ``value`` is the split cut value
+        or the leaf value; ``n`` is the training-observation count in the
+        node.  One row per node: keep it to small fits."""
+        feature, cut, leaf_value = self._tree_draws(include_warmup)
+        C, I, T, M = feature.shape
+        counts = self._node_counts(feature, cut)
+
+        # static preorder permutation of the full heap
+        preorder = []
+
+        def visit(i):
+            if i >= M:
+                return
+            preorder.append(i)
+            visit(2 * i + 1)
+            visit(2 * i + 2)
+
+        visit(0)
+        preorder = np.asarray(preorder)
+
+        f = np.asarray(feature)[..., preorder]
+        cu = np.asarray(cut)[..., preorder]
+        lv = np.asarray(leaf_value)[..., preorder]
+        cn = counts[..., preorder]
+        active = f >= -1
+
+        chain_col = np.broadcast_to(
+            np.arange(C)[:, None, None, None], f.shape
+        )[active]
+        sample_col = np.broadcast_to(
+            np.arange(I)[None, :, None, None], f.shape
+        )[active]
+        tree_col = np.broadcast_to(
+            np.arange(T)[None, None, :, None], f.shape
+        )[active]
+        var_col = f[active]
+        is_internal = var_col >= 0
+        cut_vals = self.prog.cuts[
+            np.clip(var_col, 0, None), cu[active]
+        ]
+        value_col = np.where(is_internal, cut_vals, lv[active])
+        out = dict(
+            sample=sample_col, tree=tree_col, n=cn[active],
+            var=np.where(is_internal, var_col, -1),
+            value=value_col,
+        )
+        if C > 1:
+            out = {"chain": chain_col, **out}
+        return out
+
+    def print_trees(self, chains=None, samples=None, trees=None,
+                    include_warmup: bool = False, max_print: int = 50):
+        """Human-readable tree dump (the reference's printTrees,
+        init.cpp:505-576): indented internal nodes as 'X[var] <= cut' and
+        leaves with their values, restricted to the requested chain/sample/
+        tree indices (all when None)."""
+        feature, cut, leaf_value = self._tree_draws(include_warmup)
+        feature = np.asarray(feature)
+        cut_arr = np.asarray(cut)
+        lv = np.asarray(leaf_value)
+        C, I, T, M = feature.shape
+        chains = range(C) if chains is None else np.atleast_1d(chains)
+        samples = range(I) if samples is None else np.atleast_1d(samples)
+        trees = range(T) if trees is None else np.atleast_1d(trees)
+        names = self.mf.bart_names
+        printed = 0
+
+        def emit(c, s, t, node, depth):
+            nonlocal printed
+            if node >= M or printed >= max_print * 100:
+                return
+            f = feature[c, s, t, node]
+            pad = "  " * (depth + 1)
+            if f >= 0:
+                cutv = self.prog.cuts[f, cut_arr[c, s, t, node]]
+                print(f"{pad}{names[f]} <= {cutv:.6g}")
+                emit(c, s, t, 2 * node + 1, depth + 1)
+                emit(c, s, t, 2 * node + 2, depth + 1)
+            elif f == -1:
+                print(f"{pad}leaf {lv[c, s, t, node]:.6g}")
+
+        for c in chains:
+            for s in samples:
+                for t in trees:
+                    if printed >= max_print:
+                        print(f"... (stopped after {max_print} trees)")
+                        return
+                    print(f"[chain {c + 1}] sample {s + 1} tree {t + 1}:")
+                    emit(c, s, t, 0, 0)
+                    printed += 1
+
+    def prior_summary(self):
+        """Print the resolved priors — the reference's prior summary
+        (rstanarm_functions.R:270-365): family, location/scale, and the
+        autoscale-adjusted scales actually used."""
+        if not self.prior_info:
+            print("prior information was not recorded")
+            return
+
+        def show_block(title, ps):
+            dist = ps.get("prior_dist_name")
+            if dist is None:
+                print(f"{title}: flat (improper uniform)")
+                return
+            scale = np.atleast_1d(ps.get("prior_scale", np.nan))
+            mean = np.atleast_1d(ps.get("prior_mean", 0.0))
+            desc = f"{dist}(location = {np.round(mean, 3).tolist()}, " \
+                   f"scale = {np.round(scale, 3).tolist()})"
+            if ps.get("prior_autoscale"):
+                desc += "  [autoscaled]"
+            print(f"{title}: {desc}")
+
+        print("Priors:")
+        show_block("  coefficients", self.prior_info.get("coef", {}))
+        if not self.is_binary:
+            show_block("  aux (sigma)", self.prior_info.get("aux", {}))
+        cov = self.prior_info.get("covariance")
+        if cov and self.mf.q > 0:
+            args = ", ".join(f"{k} = {v}" for k, v in cov.items()
+                             if k != "dist")
+            print(f"  covariance: {cov.get('dist')}({args})")
+
     # -- pretty-named draw matrix ----------------------------------------------
 
     def parameter_names(self) -> list:
@@ -437,6 +779,75 @@ class Stan4bartFit:
         reference's as.matrix.stan4bartFit (chains flattened)."""
         arr, names = self.as_array(include_warmup)
         return arr.reshape(-1, arr.shape[-1]), names
+
+    # -- checkpoint / resume ---------------------------------------------------
+
+    def save(self, path: str):
+        """Checkpoint the fit: its host draws and design, the final
+        sampler state as CPU tensors, the generator state, and the
+        arguments that rebuild the model and the program (no live device
+        object is written, so the file loads on any device)."""
+        skip = ("pm", "prog", "final_states")
+        payload = {f.name: getattr(self, f.name) for f in fields(self)
+                   if f.init and f.name not in skip}
+        payload["final_states"] = tree_map(lambda t: t.cpu(),
+                                           self.final_states)
+        payload["rng_device"] = self.prog.device.type
+        with open(path, "wb") as fh:
+            pickle.dump(payload, fh)
+
+    @staticmethod
+    def load(path: str, device=None) -> "Stan4bartFit":
+        """Read a fit written by ``save`` and rebuild its model and program
+        on ``device`` (None = the card, like every entry point; pass
+        ``device="cpu"`` for the CPU).  The generator state carries over
+        between devices of one type; loaded on another type the fit
+        serves every accessor but ``continue_sampling``."""
+        dev = resolve_device("cuda" if device is None else device)
+        with open(path, "rb") as fh:
+            payload = pickle.load(fh)
+        final = payload.pop("final_states")
+        if payload.pop("rng_device") != dev.type:
+            payload["rng_state"] = None
+        pa = payload["program_args"]
+        if dev.type == "cuda" and pa["dtype"] != torch.float32:
+            raise ValueError("the CUDA path runs in float32")
+        mf = payload["mf"]
+        pm, _, _ = build_parametric_model(
+            mf, payload["family"], payload["stan_args"], dtype=pa["dtype"],
+            device=dev)
+        prog = GibbsProgram(pm, y=np.asarray(mf.y), bart_X=mf.bart_X,
+                            device=dev, **pa)
+        return Stan4bartFit(
+            pm=pm, prog=prog,
+            final_states=tree_map(lambda t: t.to(dev), final), **payload)
+
+    def continue_sampling(self, iterations: int,
+                          chunk_size: int | None = None) -> "Stan4bartFit":
+        """Resume the chains from their final state for ``iterations`` more
+        post-warmup draws, in chunks of at most ``chunk_size``; returns a
+        new fit with the draws (trees included) appended.  The generator
+        restarts from a copy of the stored state, so this fit is left as
+        it was and a second call draws the same.  The callback's outputs
+        of a fit with a callback are not extended."""
+        self._require_raw()
+        if self.final_states is None:
+            raise ValueError("no final sampler state was stored")
+        if self.rng_state is None:
+            raise ValueError(
+                "the generator state was saved on another device type; "
+                "load the fit on that device type to resume it")
+        if int(iterations) < 1:
+            raise ValueError("'iterations' must be a positive integer")
+        gen = torch.Generator(device=self.prog.device)
+        gen.set_state(self.rng_state.clone())
+        states, new_draws, _ = self.prog.continue_chunked(
+            self.final_states, iterations, chunk_size, gen,
+            per_chain=self.per_chain)
+        merged = tree_map(lambda a, b: np.concatenate([a, b], axis=1),
+                          self.draws, new_draws)
+        return replace(self, draws=merged, final_states=states,
+                       rng_state=gen.get_state())
 
     # -- diagnostics ----------------------------------------------------------
 

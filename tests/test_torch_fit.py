@@ -140,7 +140,7 @@ def test_entry_points_need_cuda_or_explicit_cpu():
             build()
     for kw in ({"algorithm": "vi"}, {"stan_args": {"qr": True}},
                {"bart_args": {"regrow_per_sweep": 2}},
-               {"offset_type": "bart"}):
+               {"stan_args": {"centered_ranef": True}}):
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             stan4bart_torch.stan4bart("y ~ bart(X1 + X2) + X4", df, iter=4,
                                       device="cpu", **kw)

@@ -40,6 +40,8 @@ def _tree_equal(a, b, path=""):
     if isinstance(a, tuple):
         for name, x, y in zip(a._fields, a, b):
             _tree_equal(x, y, f"{path}.{name}")
+    elif a is None:            # a stored forest of a fit without keep_trees
+        assert b is None, path
     else:
         assert torch.equal(a, b), path
 
@@ -126,7 +128,7 @@ def test_keep_fits_false_no_callback_stores_nothing(df):
 def test_chi_k_hyperprior_through_the_fit(df):
     """bart_args k = chi(df, scale) samples k; the tuple spec resolves as
     the dict one; a fixed numeric k stays fixed."""
-    cfg, _ = _resolve_bart_args({"k": s4b.chi(3.0, 2.0)}, False)
+    cfg, _, _ = _resolve_bart_args({"k": s4b.chi(3.0, 2.0)}, False)
     assert (cfg.k_init, cfg.k_df, cfg.k_scale) == (2.0, 3.0, 2.0)
     assert _resolve_bart_args({"k": ("chi", 3.0, 2.0)}, False)[0] == cfg
     assert _resolve_bart_args({"k": 3}, False)[0].k_df == 0.0

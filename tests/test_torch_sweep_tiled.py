@@ -143,6 +143,9 @@ def test_gibbs_routes_large_n_through_the_tiled_wrapper(monkeypatch):
     for a, b in zip(ref, out):
         for name in a._fields:
             x, y = getattr(a, name), getattr(b, name)
+            if x is None:      # no stored forests without keep_trees
+                assert y is None, name
+                continue
             assert torch.isfinite(y.float()).all(), name
             assert torch.equal(x, y), name
 
