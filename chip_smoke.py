@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --kernels  # build + kernel phases 1, 2 and 4 only
+    python3 chip_smoke.py --phases 1,2,4  # build + the kernel phases only
 
 Builds the port's four CUDA kernel sources from ``stan4bart_torch/csrc``
 with nvcc (one process per source, started together), then:
@@ -58,14 +58,34 @@ with nvcc (one process per source, started together), then:
    ``keep_trees``, every sweep through the single-pass kernel; the
    reference's binary gates; ``predict`` over the stored forests against
    the in-loop test and train fits (1e-5), with its seconds and the peak
-   device memory; ``loo`` / ``waic`` of the probit fit and ``loo`` of the
-   phase 3 gaussian fit; ``continue_sampling(25)`` whole and in chunks of
-   10, each with 25 launches of the single-pass kernel, the gates on the
-   merged draws and the largest whole-vs-chunked difference.
+   device memory; ``loo`` / ``waic`` of the probit fit;
+   ``continue_sampling(25)`` whole and in chunks of 10, each with 25
+   launches of the single-pass kernel, the gates on the merged draws and
+   the largest whole-vs-chunked difference;
+8. runs the model and sampler options at full width: the phase 3 fit
+   with ``qr``, centered random effects, ``prior_covariance=lkj()``,
+   ``sigma_gibbs``, ``leaf_gibbs = 1``, ``leaf_block = 25`` and one
+   subtree regrow per sweep, every sweep through the single-pass kernel;
+   the reference's gaussian gates, SATE within 1 of the truth, every
+   posterior-mean Sigma positive definite, its per-phase seconds beside
+   phase 3's and its peak device memory; then short fits at n = 2000
+   with 16 chains (20 iterations, 10 warmup): one per coefficient prior
+   (hs, hs_plus, laplace, lasso, product_normal, and R2 with ``qr``;
+   max_treedepth 4), finite; a probit fit with ``leaf_gibbs = 2``,
+   ``leaf_block = 5`` and two regrows per sweep; a per-chain fit
+   (callback, ``keep_trees``, ``sigma_gibbs``, centered random effects,
+   ``leaf_block = 5``, one regrow per sweep) whose ``predict`` gives its
+   stored fits and whose ``continue_sampling(10)`` whole equals one in
+   chunks of 5 to the bit;
+   and a ``qr`` fit saved, loaded on the card and resumed, its last
+   stored betas R_inv times the final state's rotated ones before and
+   after (un-rotated once).
 
-Prints the card (``nvidia-smi``), a ``{"kernels": [...]}`` line, and as
-its last line ``{"ok": true, "device": {...}}``.  Any failure raises and
-exits non-zero.  Needs no network; imports nothing of JAX.
+``--phases 3,8`` runs the listed phases only (``--phases 1,2,4`` the
+kernel phases; the kernels line needs those three).  Prints the card
+(``nvidia-smi``), a ``{"kernels": [...]}`` line, and as its last line
+``{"ok": true, "device": {...}}``.  Any failure raises and exits
+non-zero.  Needs no network; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -808,12 +828,12 @@ def binary_gates(label, fit, d):
         raise AssertionError(f"{label}: binary gates failed")
 
 
-def phase_probit(device, gauss_fit, label="phase 7", n=10_000, chains=256,
+def phase_probit(device, label="phase 7", n=10_000, chains=256,
                  iters=150, warmup=75, trees=75):
     """The stored-forest surfaces at full width: a probit fit with
     keep_trees through the single-pass kernel, its gates, predict against
-    the in-loop fits, loo / waic (and loo of the phase 3 gaussian fit),
-    and two resumes.  Returns the single-pass kernel's launches."""
+    the in-loop fits, loo / waic, and two resumes.  Returns the
+    single-pass kernel's launches."""
     from stan4bart_torch.utils.friedman import friedman_dataframe
 
     d, fit, launches = run_fit(
@@ -850,8 +870,7 @@ def phase_probit(device, gauss_fit, label="phase 7", n=10_000, chains=256,
         raise AssertionError(f"{label}: predict differs from the stored fits")
 
     ic = {}
-    for name, f in (("probit loo", fit.loo), ("probit waic", fit.waic),
-                    ("gaussian (phase 3) loo", gauss_fit.loo)):
+    for name, f in (("probit loo", fit.loo), ("probit waic", fit.waic)):
         t0 = time.perf_counter()
         ic[name] = f()
         ic[name]["seconds"] = time.perf_counter() - t0
@@ -906,11 +925,269 @@ def phase_probit(device, gauss_fit, label="phase 7", n=10_000, chains=256,
     return launches
 
 
+def finite_draws(label, fit, names=("stan", "bart_train", "bart_test", "k")):
+    for name in names:
+        if not np.all(np.isfinite(getattr(fit.draws, name))):
+            raise AssertionError(f"{label}: non-finite {name} draws")
+
+
+def option_flags(fit):
+    """The model and sampler options as the fit resolved them."""
+    prog, cfg = fit.prog, fit.pm.cfg
+    return (f"qr {fit.R_inv is not None}, centered_ranef {cfg.centered}, "
+            f"prior_covariance {('decov', 'lkj')[cfg.cov_prior]}, "
+            f"prior_dist {cfg.prior_dist}, sigma_gibbs {prog.sigma_gibbs}, "
+            f"leaf_gibbs {prog.leaf_gibbs}, leaf_block {prog.leaf_block} "
+            f"(dim {prog.leaf_block_dim}), regrow_per_sweep "
+            f"{prog.bart_cfg.regrow_per_sweep}; linear_gibbs "
+            f"{prog.linear_gibbs}, level_gibbs {prog.level_gibbs}")
+
+
+def all_options_stan_args(**extra):
+    import stan4bart_torch
+
+    return {"max_treedepth": 6, "qr": True, "centered_ranef": True,
+            "prior_covariance": stan4bart_torch.lkj(), "sigma_gibbs": True,
+            **extra}
+
+
+def option_costs(fit, reps=3):
+    """Milliseconds of one call of each optional update of ``fit``'s
+    program on its final state (median of ``reps``): what each adds to an
+    iteration (sigma_gibbs to nuts_gibbs, the regrows to sweep, the leaf
+    draws to post)."""
+    prog, st = fit.prog, fit.final_states
+    gen = torch.Generator(device=prog.device)
+    gen.manual_seed(0)
+    c, _ = prog.pm.layout.constrain(st.nuts.q)
+    sigma = prog.pm.transformed(c)["aux"]
+    calls = {
+        "sigma_gibbs": lambda: prog._sigma_gibbs_update(
+            st.nuts.q, st.stan_offset, prog.y, gen),
+        "regrow (1 per sweep)": lambda: prog._regrow(
+            st.bart, prog.y - st.bart_offset, sigma, gen),
+        "leaf_gibbs": lambda: prog._leaf_gibbs_update(
+            st.bart, st.bart_offset, st.latents, sigma, gen),
+        "leaf_block": lambda: prog._leaf_block_update(
+            st.bart, st.bart_offset, st.latents, sigma, gen),
+    }
+    out = {}
+    for name, fn in calls.items():
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = float(np.median(times[1:]))
+    return out
+
+
+def phase_all_options(device, t3, label="phase 8", n=10_000, chains=256,
+                iters=150, warmup=75, trees=75):
+    """Every option at full width: the phase 3 data and seed with
+    every model and sampler option of the single-device fit on (qr,
+    centered ranef, lkj, sigma_gibbs, leaf_gibbs, leaf_block, subtree
+    regrows), every sweep through the single-pass kernel; the
+    reference's gaussian gates, SATE within 1 of the truth, Sigma
+    positive definite, and the per-phase seconds beside phase 3's
+    (``t3``, its timings, when phase 3 ran).  Returns the single-pass
+    kernel's launches."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    d, fit, launches = run_fit(
+        label, device, n, chains, "bart_sweep_batch", iters, warmup, trees,
+        stan_args=all_options_stan_args(leaf_gibbs=1, leaf_block=25),
+        bart_args={"n_trees": trees, "regrow_per_sweep": 1})
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: options: {option_flags(fit)}; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB; {card()}", flush=True)
+    if not (fit.prog.linear_gibbs and fit.prog.level_gibbs
+            and fit.prog.sigma_gibbs and fit.R_inv is not None):
+        raise AssertionError(f"{label}: an option is off")
+    finite_draws(label, fit)
+    tm = fit.timings
+    if t3 is not None:
+        print(f"{label}: per-phase s with the options (phase 3 without, same "
+              "call): " + ", ".join(
+                  f"{k} {tm[k]:.2f} ({t3[k]:.2f})"
+                  for k in ("nuts_gibbs", "sweep", "post", "total")),
+              flush=True)
+    stan = fit.extract("stan")
+    td = float(stan[fit.stan_names.index("treedepth__")].mean())
+    nlf = float(stan[fit.stan_names.index("n_leapfrog__")].mean())
+    del stan
+    print(f"{label}: mean treedepth {td:.2f}, mean leapfrogs {nlf:.1f}; "
+          "one call of each option's update on the final state, median of "
+          "3 (host clock, synchronized): " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in option_costs(fit).items()),
+          flush=True)
+    cor = centered_cor(fit.fitted("indiv.bart"), d["mu_bart"])
+    sigma = float(fit.fitted("sigma"))
+    z = d["z"]
+    sate = float(np.mean((fit.fitted("ev") - fit.fitted("ev", sample="test"))
+                         * (2 * z - 1)))
+    eig = {k: float(np.linalg.eigvalsh(S.mean(-1)).min())
+           for k, S in fit.extract("Sigma").items()}
+    print(f"{label}: SATE {sate:.4f} (truth {d['tau']}, within 1); smallest "
+          "eigenvalue of the posterior-mean Sigma by term: " + ", ".join(
+              f"{k} {v:.4g}" for k, v in eig.items()), flush=True)
+    check_gates(label, cor, sigma, "bart_sweep_batch", launches, iters)
+    if abs(sate - d["tau"]) >= 1.0 or min(eig.values()) <= 0:
+        raise AssertionError(f"{label}: SATE or Sigma gate failed")
+    return launches
+
+
+def resume_equal(a, b, names):
+    """The largest difference between two fits' draws over ``names``, and
+    whether they are equal to the bit."""
+    diff = max(float(np.abs(getattr(a.draws, k).astype(np.float64)
+                            - getattr(b.draws, k)).max()) for k in names)
+    return diff, all(np.array_equal(getattr(a.draws, k), getattr(b.draws, k))
+                     for k in names)
+
+
+def beta_unrotated(fit):
+    """The final state's rotated coefficients in the original coordinates,
+    R_inv beta_qr, per chain."""
+    c, _ = fit.pm.layout.constrain(fit.final_states.nuts.q)
+    beta = fit.pm.transformed(c)["beta"].double().cpu().numpy()
+    return beta @ fit.R_inv.T
+
+
+def phase_option_fits(device, label="phase 8 options", n=2000, chains=16,
+                        trees=20, iters=20, warmup=10):
+    """Short fits of the options at the offset-type size: one per
+    coefficient prior (R2 with qr), a probit fit with the leaf draws and
+    regrows, a per-chain fit with a callback, stored forests and every
+    option the per-chain kernel serves (predict equal to the stored fits,
+    a resume whole equal to one in chunks to the bit), and a qr fit
+    saved, loaded on the card and resumed (its stored betas un-rotated
+    once).  Returns the launches by kernel."""
+    import os
+    import tempfile
+
+    import stan4bart_torch as s4b
+    from stan4bart_torch.utils.friedman import (
+        friedman_dataframe, generate_friedman_data)
+
+    launches = {"bart_sweep_batch": 0, "bart_sweep_chain": 0}
+    d = generate_friedman_data(n, ranef=True, causal=True)
+    priors = (("hs", {"prior": s4b.hs()}),
+              ("hs_plus", {"prior": s4b.hs_plus()}),
+              ("laplace", {"prior": s4b.laplace()}),
+              ("lasso", {"prior": s4b.lasso()}),
+              ("product_normal", {"prior": s4b.product_normal()}),
+              ("R2", {"prior": s4b.R2(0.5, "mean"), "qr": True}))
+    for name, sa in priors:
+        # these fits are held to finite draws only, so their trajectories
+        # are cut to 2^4 leapfrogs to keep the script's time
+        sub = f"{label} prior={name}"
+        _, fit, got = run_fit(sub, device, n, chains, "bart_sweep_batch",
+                              iters, warmup, trees, data=d,
+                              stan_args={"max_treedepth": 4, **sa})
+        launches["bart_sweep_batch"] += got
+        finite_draws(sub, fit)
+        fixef = np.round(fit.fitted("fixef").astype(float), 3).tolist()
+        print(f"{sub}: finite draws; posterior-mean fixef {fixef}, sigma "
+              f"{float(fit.fitted('sigma')):.4f}; {option_flags(fit)}",
+              flush=True)
+
+    sub = f"{label} probit"
+    db = generate_friedman_data(n, ranef=True, causal=True, binary=True)
+    _, fit, got = run_fit(
+        sub, device, n, chains, "bart_sweep_batch", iters, warmup, trees,
+        data=db, stan_args={"max_treedepth": 6, "leaf_gibbs": 2,
+                            "leaf_block": 5},
+        bart_args={"n_trees": trees, "regrow_per_sweep": 2})
+    launches["bart_sweep_batch"] += got
+    finite_draws(sub, fit)
+    print(f"{sub}: finite draws; {option_flags(fit)}", flush=True)
+    if fit.prog.sigma_gibbs or fit.prog.leaf_gibbs != 2:
+        raise AssertionError(f"{sub}: options")
+
+    sub = f"{label} per-chain"
+    _, fit, got = run_fit(
+        sub, device, n, chains, "bart_sweep_chain", iters, warmup, trees,
+        data=d, callback=lambda draw: {"sigma": draw["aux.1"]},
+        stan_args={"max_treedepth": 6, "sigma_gibbs": True,
+                   "centered_ranef": True, "leaf_block": 5},
+        bart_args={"n_trees": trees, "keep_trees": True,
+                   "regrow_per_sweep": 1})
+    launches["bart_sweep_chain"] += got
+    finite_draws(sub, fit, ("stan", "bart_train", "bart_test",
+                            "tree_leaf_value"))
+    df = friedman_dataframe(d)
+    train_err = float(np.abs(fit.predict(df, type="indiv.bart")
+                             - fit.extract("indiv.bart")).max())
+    resumed = {}
+    for which, kw in (("whole", {}), ("chunked", {"chunk_size": 5})):
+        counts = reset_counts()
+        resumed[which] = fit.continue_sampling(10, **kw)
+        launches["bart_sweep_chain"] += check_launches(
+            f"{sub} resume {which}", counts, "bart_sweep_chain", 10)
+    names = ("stan", "bart_train", "bart_test", "tree_feature", "tree_cut",
+             "tree_leaf_value")
+    diff, same = resume_equal(resumed["whole"], resumed["chunked"], names)
+    print(f"{sub}: {option_flags(fit)}; max |predict(train) - "
+          f"extract('indiv.bart')| {train_err:.3g} (<= 1e-5); "
+          f"continue_sampling(10) whole vs chunk_size=5: max difference "
+          f"over stan draws, fits and forests {diff:.3g}, equal to the bit "
+          f"{same}", flush=True)
+    if not (train_err <= 1e-5 and same and fit.prog.sigma_gibbs
+            and fit.pm.cfg.centered):
+        raise AssertionError(f"{sub} failed")
+
+    sub = f"{label} qr resume"
+    _, fit, got = run_fit(sub, device, n, chains, "bart_sweep_batch", iters,
+                          warmup, trees, data=d,
+                          stan_args={"max_treedepth": 6, "qr": True})
+    launches["bart_sweep_batch"] += got
+    bi = [fit._name_idx[f"beta.{j + 1}"] for j in range(fit.mf.K)]
+
+    def last_row_err(f):
+        return float(np.abs(f.draws.stan[:, -1, bi]
+                            - beta_unrotated(f)).max())
+
+    errs = {"fit": last_row_err(fit)}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fit.pkl")
+        fit.save(path)
+        back = s4b.Stan4bartFit.load(path, device=device)
+    more = {}
+    for which, f in (("original", fit), ("loaded", back)):
+        counts = reset_counts()
+        more[which] = f.continue_sampling(10)
+        launches["bart_sweep_batch"] += check_launches(
+            f"{sub} resume of the {which} fit", counts, "bart_sweep_batch",
+            10)
+        errs[which] = last_row_err(more[which])
+    kept = all(np.array_equal(m.draws.stan[:, :iters], fit.draws.stan)
+               for m in more.values())
+    diff, same = resume_equal(more["original"], more["loaded"],
+                              ("stan", "bart_train"))
+    scale = float(np.abs(fit.draws.stan[..., bi]).max())
+    print(f"{sub}: max |last stored beta - R_inv beta_qr(final state)| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (|beta| up to {scale:.3g}); stored draws kept by the resumes "
+          f"{kept}; loaded vs original resume equal to the bit {same} "
+          f"(max difference {diff:.3g})", flush=True)
+    if not (kept and same and all(e <= 1e-6 * max(scale, 1.0)
+                                  for e in errs.values())
+            and more["loaded"].qr_unrotated):
+        raise AssertionError(f"{sub} failed")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels", action="store_true",
-                    help="build and run kernel phases 1, 2 and 4 only")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+                    help="comma-separated phases to run (default all); "
+                    "1, 2 and 4 are the kernel phases, which the kernels "
+                    "line needs")
     args = ap.parse_args()
+    run = set(args.phases.split(","))
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -935,42 +1212,60 @@ def main():
           + f" ({walls['build']:.1f} s in all)", flush=True)
 
     err = [0.0, 0.0, 0.0]     # batch, tiled, chain vs plain
-    for n in (2000, 9191):
-        err = [max(a, b) for a, b in zip(err, phase_small(device, n))]
-    lap("phase 1")
-    full = phase_full(device)
-    ablate = {c: phase_ablate(device, c) for c in (256, 64)}
-    lap("phase 2")
+    if "1" in run:
+        for n in (2000, 9191):
+            err = [max(a, b) for a, b in zip(err, phase_small(device, n))]
+        lap("phase 1")
+    if "2" in run:
+        full = phase_full(device)
+        ablate = {c: phase_ablate(device, c) for c in (256, 64)}
+        lap("phase 2")
     # launches of each kernel on each main path that ran it
     paths = {k: {} for k in KERNELS}
-    if not args.kernels:
+    t3 = None     # phase 3's per-phase seconds, printed beside phase 8's
+    if "3" in run:
         # run_fit holds every main path to 0 launches of the stubs
-        paths["bart_sweep_batch"]["phase 3"], gauss_fit = phase_main(
+        paths["bart_sweep_batch"]["phase 3"], fit3 = phase_main(
             device, "phase 3", 10_000, 256, "bart_sweep_batch")
+        t3 = fit3.timings
+        del fit3
         lap("phase 3")
-    large = {n: phase_large(device, n, c)
-             for n, c in ((50_000, 64), (51_840, 64), (200_000, 16))}
-    lap("phase 4")
-    if not args.kernels:
+    if "4" in run:
+        large = {n: phase_large(device, n, c)
+                 for n, c in ((50_000, 64), (51_840, 64), (200_000, 16))}
+        lap("phase 4")
+    if "5" in run:
         paths["bart_sweep_tiled"]["phase 5"], _ = phase_main(
             device, "phase 5", 50_000, 64, "bart_sweep_tiled", iters=225,
             warmup=150)
         lap("phase 5")
+    if "6" in run:
         paths["bart_sweep_chain"]["phase 6"] = phase_chain(device)
         lap("phase 6")
         paths["bart_sweep_chain"]["phase 6 options"] = phase_options(device)
         paths["bart_sweep_batch"]["phase 6 offset types"] = \
             phase_offset_types(device)
         lap("phase 6 options")
-        paths["bart_sweep_batch"]["phase 7"] = phase_probit(device,
-                                                            gauss_fit)
-        del gauss_fit
+    if "7" in run:
+        paths["bart_sweep_batch"]["phase 7"] = phase_probit(device)
         lap("phase 7")
+    if "8" in run:
+        paths["bart_sweep_batch"]["phase 8"] = phase_all_options(device, t3)
+        lap("phase 8")
+        for k, v in phase_option_fits(device).items():
+            paths[k]["phase 8 options"] = v
+        lap("phase 8 options")
     print("wall seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; {sum(walls.values()):.1f} in all", flush=True)
-    launches = {k: (sum(v.values()) if not args.kernels else None)
+    launches = {k: (sum(v.values()) if run - {"1", "2", "4"} else None)
                 for k, v in paths.items()}
+    if not {"1", "2", "4"} <= run:
+        print(card(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     big = large[50_000]
     chain_errs = [err[2], full["chain_max_abs_err"]] + [

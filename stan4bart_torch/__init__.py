@@ -16,10 +16,18 @@ from stan4bart_torch.fit import chi, stan4bart  # noqa: F401
 from stan4bart_torch.loo import loo_compare  # noqa: F401
 from stan4bart_torch.models import priors  # noqa: F401
 from stan4bart_torch.models.priors import (  # noqa: F401
+    R2,
     cauchy,
     decov,
+    dirichlet,
     exponential,
+    hs,
+    hs_plus,
+    laplace,
+    lasso,
+    lkj,
     normal,
+    product_normal,
     student_t,
 )
 from stan4bart_torch.parallel.diagnostics import ess, split_rhat  # noqa: F401

@@ -24,10 +24,10 @@ from stan4bart_torch.ops.nuts import NutsConfig
 from stan4bart_torch.utils.device import resolve_device
 
 
-def _unported(what: str):
+def _unported(what: str, item: int):
     raise NotImplementedError(
         f"{what} is not ported to stan4bart_torch yet "
-        "(ROADMAP queue 1 item 8)")
+        f"(ROADMAP queue 1 item {item})")
 
 
 def _detect_family(y: np.ndarray) -> str:
@@ -109,9 +109,14 @@ def _resolve_bart_args(bart_args: dict | None, is_binary: bool):
     if sigma_mu_fixed is not None:
         sigma_mu_fixed = float(sigma_mu_fixed)
     keep_trees = bool(pop("keepTrees", "keep_trees", default=False))
-    for name in ("p_regrow", "regrow_per_sweep"):
-        if pop(name):
-            _unported(f"bart_args {name}")
+    # random subtree regrows after each sweep (GibbsProgram._regrow)
+    regrow_per_sweep = int(pop("regrow_per_sweep", default=0))
+    if regrow_per_sweep < 0:
+        raise ValueError("bart_args regrow_per_sweep must be >= 0")
+    # the per-tree regrow move runs inside the sweep, which the port's
+    # sweep kernels do not implement
+    if float(pop("p_regrow", default=0.0)) > 0:
+        _unported("bart_args p_regrow", 13)
     pop("sweep_kernel")   # the port always runs its sweep kernel
 
     # k: numeric -> fixed; chi spec (dict or ("chi", df, scale)) ->
@@ -134,7 +139,7 @@ def _resolve_bart_args(bart_args: dict | None, is_binary: bool):
         num_trees=n_trees, max_depth=max_depth, n_cuts=n_cuts,
         power=power, base=base, node_scale=3.0 if is_binary else 0.5,
         k_init=k_init, k_df=k_df, k_scale=k_scale,
-        sigma_mu_fixed=sigma_mu_fixed,
+        sigma_mu_fixed=sigma_mu_fixed, regrow_per_sweep=regrow_per_sweep,
     )
     return cfg, split_probs, keep_trees
 
@@ -261,7 +266,7 @@ def stan4bart(
     if offset_type not in OFFSET_TYPES:
         raise ValueError(f"offset_type must be one of {OFFSET_TYPES}")
     if algorithm != "nuts":
-        _unported(f"algorithm={algorithm!r}")
+        _unported(f"algorithm={algorithm!r}", 10)
     if not isinstance(iter, (int, np.integer)) or iter <= 0:
         raise ValueError("'iter' must be a positive integer")
     if warmup is not None and (warmup < 0 or int(warmup) != warmup):
@@ -377,8 +382,12 @@ def stan4bart(
         adapt_term_buffer=resolved_stan_args.adapt_term_buffer,
         adapt_base_window=resolved_stan_args.adapt_base_window,
         stepsize_init=resolved_stan_args.stepsize,
+        sigma_gibbs=resolved_stan_args.sigma_gibbs,
         linear_gibbs=resolved_stan_args.linear_gibbs,
         level_gibbs=resolved_stan_args.level_gibbs,
+        leaf_gibbs=resolved_stan_args.leaf_gibbs,
+        leaf_block=resolved_stan_args.leaf_block,
+        leaf_block_dim=resolved_stan_args.leaf_block_dim,
         gram_lik=resolved_stan_args.gram_lik,
         keep_trees=keep_trees,
         dtype=dtype,
@@ -444,6 +453,7 @@ def stan4bart(
         stan_names=prog.stan_names(),
         test_frame=test_frame, treatment=treatment,
         final_states=final_states,
+        R_inv=assemble_info.get("R_inv"),
         keep_fits=keep_fits,
         sigma_init=sigma_init,
         seed=int(seed),

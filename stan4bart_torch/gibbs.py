@@ -9,16 +9,22 @@ its leading dimension; one iteration advances all chains:
 1. ``skip_stan`` NUTS transitions over the parametric posterior given the
    current BART fit as offset (Gram-anchored likelihood), with Stan's
    windowed adaptation during warmup;
-2. the exact conjugate refresh of the linear block (``linear_gibbs``);
-3. parametric mean -> BART offset, sigma handoff, and the warmup leaf-scale
+2. optionally an exact slice-sampling draw of sigma from its full
+   conditional (``sigma_gibbs``, gaussian only);
+3. the exact conjugate refresh of the linear block (``linear_gibbs``);
+4. parametric mean -> BART offset, sigma handoff, and the warmup leaf-scale
    rescale schedule ``1 << (8 it / warmup)``;
-4. ``skip_bart`` BART sweeps over all chains in one call of the sweep
+5. ``skip_bart`` BART sweeps over all chains in one call of the sweep
    kernel (probit: truncated-normal latents first): for ``step_batched``
    the single-pass kernel, the obs-tiled one past n = 10368; for ``step``
-   the per-chain kernel, the obs-tiled one past n = 51840;
-5. the additive-level interweave between the trees and the random-effect
+   the per-chain kernel, the obs-tiled one past n = 51840; each sweep
+   optionally followed by random subtree regrows (``regrow_per_sweep``);
+6. optionally ``leaf_gibbs`` conjugate draws of the leaf values along
+   random Walsh directions, and every ``leaf_block`` iterations the joint
+   draw of every leaf value of every tree;
+7. the additive-level interweave between the trees and the random-effect
    intercepts (``level_gibbs``);
-6. BART fit -> Stan offset, and the draw row: 7 NUTS diagnostics then the
+8. BART fit -> Stan offset, and the draw row: 7 NUTS diagnostics then the
    constrained parameters, the train/test BART fits, varcount and k, and
    with ``keep_trees`` the swept forest.
 
@@ -126,8 +132,12 @@ class GibbsProgram:
         adapt_term_buffer: int = 50,
         adapt_base_window: int = 25,
         stepsize_init: float = 1.0,
+        sigma_gibbs: bool = False,
         linear_gibbs: bool | None = None,
         level_gibbs: bool | None = None,
+        leaf_gibbs: int = 0,
+        leaf_block: int = 0,
+        leaf_block_dim: int = 0,
         gram_lik: bool | None = None,
         keep_trees: bool = False,
         dtype=torch.float32,
@@ -220,6 +230,17 @@ class GibbsProgram:
         self.linear_gibbs = lg_on
         self.level_gibbs = lvl_on
         self._level_terms = terms
+        # the optional exact Gibbs steps; sigma is fixed at 1 for probit
+        self.sigma_gibbs = bool(sigma_gibbs) and not self.is_binary
+        self.leaf_gibbs = int(leaf_gibbs)
+        self.leaf_block = int(leaf_block)
+        T_, M_ = bart_cfg.num_trees, bart_cfg.max_nodes
+        if leaf_block_dim:
+            self.leaf_block_dim = min(int(leaf_block_dim), T_ * M_)
+        else:
+            # about 8 active leaves per tree of headroom (about 2-3 at
+            # the CGM prior's equilibrium), in whole 128s
+            self.leaf_block_dim = min(-(-8 * T_ // 128) * 128, T_ * M_)
 
         sched = make_adapt_schedule(
             self.warmup * self.skip_stan,
@@ -307,6 +328,17 @@ class GibbsProgram:
         return sweep(self.bart_cfg, bart_state, y_target, self.sweep_consts,
                      sigma, gen, weights=self.weights)
 
+    def _regrow(self, bart_state, y_target, sigma, gen):
+        """``regrow_per_sweep`` subtree regrows of every chain after the
+        sweep kernel (the JAX package's ``_maybe_regrow``: with a sampled
+        k, the kernel's k draw lands before them), and the new
+        varcount."""
+        bart_state = bart_ops.regrow_refresh(
+            self.bart_cfg, bart_state, y_target, self.ranks,
+            self.split_probs, sigma, gen, weights=self.weights)
+        return bart_state, bart_ops.count_variable_use(
+            bart_state.feature, self.ranks.shape[1])
+
     def _logp(self, q_anchor, stan_offset, y_stan):
         """The per-chain log-density NUTS runs on this iteration."""
         pm = self.pm
@@ -320,10 +352,10 @@ class GibbsProgram:
     @torch.no_grad()
     def init_state(self, gen, n_chains: int, bart_offset_init=None,
                    sigma_init=1.0, per_chain: bool = False) -> GibbsState:
-        """Prior-drawn tree structures, one BART sweep to seed the Stan
-        offset (through ``step``'s sweep when ``per_chain``), probit
-        latents from that forest, uniform(-init_r, init_r) parametric
-        starts and Stan's initial stepsize search."""
+        """Prior-drawn tree structures, one BART sweep (and its regrows)
+        to seed the Stan offset (through ``step``'s sweep when
+        ``per_chain``), probit latents from that forest, uniform(-init_r,
+        init_r) parametric starts and Stan's initial stepsize search."""
         pm, cfg = self.pm, self.bart_cfg
         C, N, dev, dt = n_chains, self.N, self.device, self.dtype
         q0 = (torch.rand((C, pm.num_upars), generator=gen, dtype=dt,
@@ -346,6 +378,9 @@ class GibbsProgram:
             sigma = torch.full((C,), float(sigma_init), dtype=dt, device=dev)
         bart_state, _ = self._sweep(bart_state, y_target, sigma, gen,
                                     per_chain)
+        if cfg.regrow_per_sweep > 0:
+            # the JAX package's init sweep runs its regrows in-line
+            bart_state, _ = self._regrow(bart_state, y_target, sigma, gen)
         stan_offset = self._stan_offset_from_fit(bart_state.allfit)
 
         nuts = nuts_init(q0, stepsize=self.stepsize_init)
@@ -364,6 +399,208 @@ class GibbsProgram:
                           latents=latents)
 
     # ------------------------------------------------------------------
+
+    def _sigma_gibbs_update(self, q, stan_offset, y_stan, gen,
+                            variates=None):
+        """An exact draw of the unconstrained aux (sigma) coordinate of
+        every chain from its full conditional, by Neal's slice sampler
+        (step-out of width 0.5, at most 16 steps out and 32 shrinks),
+        through the full ``log_prob``: under decov sigma scales theta_L,
+        so b moves with it in the non-centered model.  The chains step
+        together under masks, with one host check per step.
+
+        variates: optional ``(u_h (C,), u_w (C,), u_shrink (C, 32))``
+        uniforms (slice height, interval placement, shrink proposals)
+        replacing the draw from ``gen``.  Returns the updated q."""
+        pm = self.pm
+        off = pm.layout.slices["aux_unscaled"][0]
+        C = q.shape[0]
+        if variates is None:
+            u = torch.rand((C, 34), generator=gen, dtype=q.dtype,
+                           device=q.device)
+            variates = (u[:, 0], u[:, 1], u[:, 2:])
+        u_h, u_w, u_shrink = variates
+
+        def logpost(x):
+            """log_prob at aux coordinates x (reps C,), chain-major in
+            blocks of C; it carries the positivity Jacobian, so slicing in
+            the unconstrained coordinate is exact."""
+            reps = x.shape[0] // C
+            qx = q.repeat(reps, 1)
+            qx[:, off] = x
+            return pm.log_prob(qx, stan_offset if reps == 1
+                               else stan_offset.repeat(reps, 1), y_stan)
+
+        x0 = q[:, off]
+        log_y = logpost(x0) + torch.log(u_h)
+        w = 0.5
+        L, R = x0 - w * u_w, x0 + w * (1.0 - u_w)
+        for _ in range(16):
+            above = logpost(torch.cat([L, R])) > log_y.repeat(2)
+            up_L, up_R = above[:C], above[C:]
+            if not bool((up_L | up_R).any()):
+                break
+            L = torch.where(up_L, L - w, L)
+            R = torch.where(up_R, R + w, R)
+        x = x0
+        done = torch.zeros_like(x0, dtype=torch.bool)
+        for j in range(32):
+            x_prop = L + u_shrink[:, j] * (R - L)
+            ok = ~done & (logpost(x_prop) > log_y)
+            miss = ~done & ~ok
+            x = torch.where(ok, x_prop, x)
+            L = torch.where(miss & (x_prop < x0), x_prop, L)
+            R = torch.where(miss & (x_prop >= x0), x_prop, R)
+            done = done | ok
+            if bool(done.all()):
+                break
+        q = q.clone()
+        q[:, off] = x
+        return q
+
+    @staticmethod
+    def _walsh_signs(x, mask, dtype):
+        """d = +-1 from the parity of ``popcount(x & mask)``: the
+        Walsh-Hadamard sign pattern indexed by ``mask``, elementwise."""
+        v = x & mask
+        v = v ^ (v >> 16)
+        v = v ^ (v >> 8)
+        v = v ^ (v >> 4)
+        v = v ^ (v >> 2)
+        v = v ^ (v >> 1)
+        return (1 - 2 * (v & 1)).to(dtype)
+
+    def _leaf_gibbs_update(self, bart_state, bart_offset, latents, sigma,
+                           gen, masks=None, z=None):
+        """One exact conjugate draw per chain of per-tree leaf shifts
+        along random Walsh directions,
+
+            leaf_value[t, leaf] += c_t d_t[leaf],
+            d_t[node] = Walsh(node, m_t),  m_t ~ U{1 .. 2^bits(M) - 1}:
+
+        restricted to this rank-T subspace the conditional of c is
+        Gaussian, with likelihood precision V V' / sigma^2 (V[t] =
+        d_t[leaf_idx[t]], +-1, so the Gram matrix is exact) and leaf-prior
+        precision diag(L_t) / sigma_mu^2.  masks (C, T) and z (C, T)
+        optional, replacing the draws from ``gen``.  The new tree fits are
+        gathered from the new leaf values."""
+        cfg = self.bart_cfg
+        T, M = cfg.num_trees, cfg.max_nodes
+        C = bart_state.feature.shape[0]
+        dt, dev = self.dtype, self.device
+        y_stan = latents if self.is_binary else self.y
+        r = y_stan - bart_state.allfit - bart_offset
+        inv_s2 = 1.0 / (sigma * sigma)
+        inv_smu2 = 1.0 / (bart_state.sigma_mu * bart_state.sigma_mu)
+        if masks is None:
+            nbits = max(int(M).bit_length(), 1)
+            masks = torch.randint(1, 2 ** nbits, (C, T), generator=gen,
+                                  device=dev)
+        if z is None:
+            z = torch.randn((C, T), generator=gen, dtype=dt, device=dev)
+        node_ids = torch.arange(M, device=dev)
+        leaf_mask = bart_state.feature == bart_ops.LEAF
+        d_leaf = torch.where(
+            leaf_mask,
+            self._walsh_signs(node_ids, masks.long()[..., None], dt), 0.0)
+        # every observation lands in a leaf: V = d_leaf[leaf_idx]
+        lidx = bart_state.leaf_idx.long()
+        V = torch.gather(d_leaf, 2, lidx)                      # (C, T, N)
+        if self.weights is not None:
+            G = torch.bmm(V * self.weights, V.transpose(1, 2))
+            h_lik = torch.bmm(V, (self.weights * r)[..., None])[..., 0]
+        else:
+            G = torch.bmm(V, V.transpose(1, 2))
+            h_lik = torch.bmm(V, r[..., None])[..., 0]
+        del V
+        h_lik = h_lik * inv_s2[:, None]
+        L_t = leaf_mask.sum(-1).to(dt)
+        h = h_lik - (d_leaf * bart_state.leaf_value).sum(-1) \
+            * inv_smu2[:, None]
+        Pm = G * inv_s2[:, None, None] + torch.diag_embed(
+            L_t * inv_smu2[:, None])
+        Lm, info = torch.linalg.cholesky_ex(Pm)
+        mean = torch.cholesky_solve(h[..., None], Lm)[..., 0]
+        c = mean + torch.linalg.solve_triangular(
+            Lm.transpose(-1, -2), z.to(dt)[..., None], upper=True)[..., 0]
+        # a chain whose precision does not factor keeps its leaves (the
+        # factorization depends on the structures and sigma alone)
+        c = torch.where((info == 0)[:, None], c, 0.0)
+        leaf_value = bart_state.leaf_value + c[..., None] * d_leaf
+        tree_fit = torch.gather(leaf_value, 2, lidx)
+        return bart_state._replace(leaf_value=leaf_value, tree_fit=tree_fit,
+                                   allfit=tree_fit.sum(1))
+
+    def _leaf_block_update(self, bart_state, bart_offset, latents, sigma,
+                           gen, z=None):
+        """The joint draw of every leaf value of every tree per chain from
+        its Gaussian conditional given the structures,
+
+            mu ~ N(P^-1 h, P^-1),  P = W' diag(w) W / sigma^2
+            + I / sigma_mu^2,  h = W' (w r) / sigma^2,  r = y - offset,
+
+        W the (N, D) membership matrix of the active leaves, ranked into
+        [0, D) tree by tree (D = ``leaf_block_dim``).  W is written tree
+        by tree as exact ones and every sum is a matrix product, so the
+        draw sums in a fixed order.  A chain whose active leaves exceed D,
+        or whose precision does not factor, keeps its leaves (a choice by
+        the structures and sigma, which the draw leaves alone, among
+        invariant kernels).  z (C, D) optional normals replacing the draw from
+        ``gen``."""
+        cfg = self.bart_cfg
+        T, D = cfg.num_trees, self.leaf_block_dim
+        C = bart_state.feature.shape[0]
+        dt, dev = self.dtype, self.device
+        y_stan = latents if self.is_binary else self.y
+        r = y_stan - bart_offset
+        inv_s2 = 1.0 / (sigma * sigma)
+        inv_smu2 = 1.0 / (bart_state.sigma_mu * bart_state.sigma_mu)
+        if z is None:
+            z = torch.randn((C, D), generator=gen, dtype=dt, device=dev)
+
+        leaf_mask = bart_state.feature == bart_ops.LEAF          # (C, T, M)
+        L_t = leaf_mask.sum(-1)
+        base_t = torch.cumsum(L_t, -1) - L_t
+        within = torch.cumsum(leaf_mask.long(), -1) - 1
+        # ranks past the cap (a chain that overflows) land in column D
+        compact = torch.where(leaf_mask, base_t[..., None] + within,
+                              D).clamp(max=D)
+        ok = L_t.sum(-1) <= D                                   # (C,)
+
+        lidx = bart_state.leaf_idx.long()
+        W = torch.zeros((C, self.N, D + 1), dtype=dt, device=dev)
+        for t in range(T):
+            comp_t = torch.gather(compact[:, t], 1, lidx[:, t])  # (C, N)
+            W.scatter_(2, comp_t[..., None], 1.0)
+        W = W[..., :D]
+        Wt = W.transpose(1, 2)
+        if self.weights is not None:
+            G = torch.bmm(Wt * self.weights, W)
+            h = torch.bmm(Wt, (self.weights * r)[..., None])[..., 0]
+        else:
+            G = torch.bmm(Wt, W)
+            h = torch.bmm(Wt, r[..., None])[..., 0]
+        del W, Wt
+        h = h * inv_s2[:, None]
+        eye = torch.eye(D, dtype=dt, device=dev)
+        Pm = G * inv_s2[:, None, None] + inv_smu2[:, None, None] * eye
+        Lm, info = torch.linalg.cholesky_ex(Pm)
+        ok = ok & (info == 0)
+        mean = torch.cholesky_solve(h[..., None], Lm)[..., 0]
+        mu = mean + torch.linalg.solve_triangular(
+            Lm.transpose(-1, -2), z.to(dt)[..., None], upper=True)[..., 0]
+        mu_pad = torch.cat([mu, mu.new_zeros((C, 1))], -1)
+        new_lv = torch.gather(mu_pad, 1, compact.reshape(C, -1)
+                              ).reshape(compact.shape)
+        okc = ok[:, None, None]
+        leaf_value = torch.where(okc & leaf_mask, new_lv,
+                                 bart_state.leaf_value)
+        tree_fit = torch.where(okc, torch.gather(leaf_value, 2, lidx),
+                               bart_state.tree_fit)
+        allfit = torch.where(ok[:, None], tree_fit.sum(1),
+                             bart_state.allfit)
+        return bart_state._replace(leaf_value=leaf_value, tree_fit=tree_fit,
+                                   allfit=allfit)
 
     def _level_gibbs_update(self, nuts, bart_state, bart_offset, latents,
                             gen, z=None):
@@ -434,33 +671,41 @@ class GibbsProgram:
                 lin.append(-(b_mat * prec[:, j0][:, None, :])
                            .sum((1, 2))[:, None])
 
-        d = torch.cat(diag, -1)
-        h = torch.cat(lin, -1) + (swr * inv_s2)[:, None]
+        # the system in float64: a wide ranef prior's diagonal entry is
+        # below float32 rounding of the rank-one likelihood block
+        f64 = torch.float64
+        d = torch.cat(diag, -1).to(f64)
+        h = torch.cat(lin, -1).to(f64) + (swr * inv_s2).to(f64)[:, None]
         dim = d.shape[1]
-        Mat = (sw * inv_s2)[:, None, None] * torch.ones(
-            (dim, dim), dtype=self.dtype, device=self.device) \
-            + torch.diag_embed(d)
-        Lm = torch.linalg.cholesky(Mat)
+        Mat = (sw * inv_s2).to(f64)[:, None, None] * torch.ones(
+            (dim, dim), dtype=f64, device=self.device) + torch.diag_embed(d)
+        Lm, info = torch.linalg.cholesky_ex(Mat)
         mean = torch.cholesky_solve(h[:, :, None], Lm)[..., 0]
         if z is None:
             z = torch.randn((C, dim), generator=gen, dtype=self.dtype,
                             device=self.device)
-        s = mean + torch.linalg.solve_triangular(
-            Lm.transpose(-1, -2), z[:, :, None], upper=True)[..., 0]
+        s = (mean + torch.linalg.solve_triangular(
+            Lm.transpose(-1, -2), z.to(f64)[:, :, None],
+            upper=True)[..., 0]).to(self.dtype)
 
         T_trees = cfg.num_trees
         c_t = s[:, :T_trees]
-        bart_state = bart_state._replace(
+        new_bart = bart_state._replace(
             leaf_value=bart_state.leaf_value + c_t[..., None] * leaf_mask,
             tree_fit=bart_state.tree_fit + c_t[..., None],
             allfit=bart_state.allfit + c_t.sum(-1, keepdim=True))
         q = nuts.q.clone()
-        b_off0 = pm.layout.slices["z_b"][0] if pm.cfg.q > 0 else 0
+        b_off0 = (pm.layout.slices["b_raw" if pm.cfg.centered else "z_b"][0]
+                  if pm.cfg.q > 0 else 0)
         pos = T_trees
         for ti, j0 in self._level_terms:
             nc, li = pm.cfg.p[ti], pm.cfg.l[ti]
             start = b_off0 + pm.b_offsets[ti]
-            if nc == 1:
+            if pm.cfg.centered:
+                # b[level, j0] += a for every level
+                idx = start + torch.arange(li, device=self.device) * nc + j0
+                q[:, idx] += s[:, pos: pos + 1]
+            elif nc == 1:
                 q[:, start: start + li] += s[:, pos: pos + 1] \
                     * term_tinv[ti][:, None]
             else:
@@ -468,6 +713,17 @@ class GibbsProgram:
                 q[:, start: start + li * nc] += w.repeat(1, li) \
                     * s[:, pos: pos + 1]
             pos += 1
+        # a chain whose precision does not factor keeps its state: the
+        # choice depends on what this draw leaves alone (sigma, sigma_mu,
+        # theta_L and the structures), so both branches keep the posterior
+        ok = info == 0
+        q = torch.where(ok[:, None], q, nuts.q)
+        bart_state = bart_state._replace(**{
+            k: torch.where(ok.view((C,) + (1,) * (v.dim() - 1)),
+                           getattr(new_bart, k), v)
+            for k, v in (("leaf_value", bart_state.leaf_value),
+                         ("tree_fit", bart_state.tree_fit),
+                         ("allfit", bart_state.allfit))})
         return nuts._replace(q=q), bart_state
 
     def _pre_sweep(self, state: GibbsState, it, is_warmup: bool, gen):
@@ -485,6 +741,9 @@ class GibbsProgram:
                 flags = (False, False, False)
             nuts, info = nuts_transition(logp, nuts, gen, self.nuts_cfg,
                                          *flags)
+        if self.sigma_gibbs:
+            nuts = nuts._replace(q=self._sigma_gibbs_update(
+                nuts.q, state.stan_offset, y_stan, gen))
         if self.linear_gibbs:
             q_lg = pm.linear_gibbs_refresh(nuts.q, state.stan_offset,
                                            y_stan, gen)
@@ -504,8 +763,9 @@ class GibbsProgram:
         return nuts, info, bart_state, bart_offset, sigma
 
     def _post_sweep(self, nuts, info, bart_state, bart_offset, latents,
-                    varcount, gen):
-        """Level interweave, BART fit -> Stan offset, draw packaging.
+                    varcount, gen, it):
+        """The leaf draws, the level interweave, BART fit -> Stan offset,
+        draw packaging.
 
         The sweep carries a running residual, so its ``allfit`` (the
         response minus the residual) drifts from the sum of the trees by
@@ -514,13 +774,26 @@ class GibbsProgram:
         tree fits again, so the stored BART fit equals the stored forests
         walked over the training rows (``Stan4bartFit.predict``)."""
         pm, cfg = self.pm, self.bart_cfg
+        if self.leaf_gibbs > 0 or self.leaf_block > 0:
+            if self.is_binary:
+                sigma = torch.ones_like(bart_state.k)
+            else:
+                c, _ = pm.layout.constrain(nuts.q)
+                sigma = pm.transformed(c)["aux"]
+            for _ in range(self.leaf_gibbs):
+                bart_state = self._leaf_gibbs_update(
+                    bart_state, bart_offset, latents, sigma, gen)
+            if self.leaf_block > 0 and \
+                    it % self.leaf_block == self.leaf_block - 1:
+                bart_state = self._leaf_block_update(
+                    bart_state, bart_offset, latents, sigma, gen)
         if self.level_gibbs:
             nuts, bart_state = self._level_gibbs_update(
                 nuts, bart_state, bart_offset, latents, gen)
         bart_state = bart_state._replace(allfit=bart_state.tree_fit.sum(1))
         bart_fit = bart_state.allfit
         stan_offset = self._stan_offset_from_fit(bart_fit)
-        if self.level_gibbs:
+        if self.level_gibbs or self.leaf_gibbs > 0 or self.leaf_block > 0:
             y_stan = latents if self.is_binary else self.y
             info = info._replace(
                 lp=self._logp(nuts.q, stan_offset, y_stan)(nuts.q))
@@ -581,9 +854,12 @@ class GibbsProgram:
                 y_target = self.y - bart_offset
             bart_state, varcount = self._sweep(bart_state, y_target, sigma,
                                                gen, per_chain)
+            if self.bart_cfg.regrow_per_sweep > 0:
+                bart_state, varcount = self._regrow(bart_state, y_target,
+                                                    sigma, gen)
         t0 = self._mark("sweep", t0)
         out = self._post_sweep(nuts, info, bart_state, bart_offset, latents,
-                               varcount, gen)
+                               varcount, gen, it)
         self._mark("post", t0)
         return out
 

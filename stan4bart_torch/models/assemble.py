@@ -1,11 +1,10 @@
 """Assemble a ParametricModel from a ModelFrame + user prior specs.
 
 Counterpart of ``stan4bart_tpu/models/assemble.py``: default priors,
-autoscaling by sd(y) and per-column sd(x), decov hyperparameter
-broadcasting, and the control-argument defaults and validation.  The
-options outside this slice of the port (QR, centered random effects, the
-lkj covariance prior, coefficient priors beyond normal / Student-t /
-flat, and the optional Gibbs and VI kernels) raise NotImplementedError.
+autoscaling by sd(y) and per-column sd(x), the QR rotation of the fixed
+effects, decov / lkj hyperparameter broadcasting, the R2 prior's eta,
+and the control-argument defaults and validation.  Observation sharding
+(``obs_shards``) is not ported and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -67,12 +66,8 @@ class StanArgs:
     keep_trees: bool = False
 
 
-# (field, default) pairs this slice of the port does not implement
-_UNPORTED = (
-    ("qr", False), ("centered_ranef", False), ("sigma_gibbs", False),
-    ("leaf_gibbs", 0), ("leaf_block", 0),
-    ("obs_shards", 0),
-)
+# (field, default) pairs the port does not implement
+_UNPORTED = (("obs_shards", 0),)
 
 
 def _sd(x):
@@ -102,6 +97,10 @@ def _validate_stan_args(sa: StanArgs):
     check("max_treedepth", sa.max_treedepth, lo=1)
     check("stepsize", sa.stepsize, lo=0.0, lo_open=True)
     check("stepsize_jitter", sa.stepsize_jitter, lo=0.0, hi=1.0)
+    check("leaf_gibbs", sa.leaf_gibbs, lo=0)
+    check("obs_shards", sa.obs_shards, lo=0)
+    check("leaf_block", sa.leaf_block, lo=0)
+    check("leaf_block_dim", sa.leaf_block_dim, lo=0)
     if sa.freeze_rule not in ("bar", "mid", "last"):
         raise ValueError("stan_args freeze_rule must be bar, mid, or last")
     if sa.pooled_parts not in ("metric", "stepsize", "both"):
@@ -111,7 +110,7 @@ def _validate_stan_args(sa: StanArgs):
         if getattr(sa, name) != default:
             raise NotImplementedError(
                 f"stan_args {name} is not ported to stan4bart_torch yet "
-                "(ROADMAP queue 1 item 8)")
+                "(ROADMAP queue 1 item 11)")
 
 
 def build_parametric_model(
@@ -156,10 +155,22 @@ def build_parametric_model(
 
     ps = priors_mod.handle_glm_prior(prior, K, default_scale=2.5)
     pa = priors_mod.handle_glm_prior(prior_aux, 1, default_scale=1.0)
-    if decov.get("dist") != "decov":
-        raise NotImplementedError(
-            f"prior_covariance {decov.get('dist')!r} is not ported to "
-            "stan4bart_torch yet (ROADMAP queue 1 item 8)")
+
+    if ps["prior_dist"] == 8:
+        # the R2 prior is joint over the QR-rotated, unit-variance
+        # coefficients (stan_lm always uses QR)
+        if is_binary:
+            raise ValueError("the R2 prior requires a gaussian response")
+        if not stan_args.qr:
+            raise ValueError("the R2 prior requires stan_args qr=True "
+                             "(stan_lm semantics)")
+        if K < 2:
+            raise ValueError("the R2 prior requires multiple predictors")
+
+    if decov.get("dist") not in ("decov", "lkj"):
+        raise ValueError("prior_covariance must be decov() or lkj() "
+                         f"(got {decov.get('dist')!r})")
+    cov_prior = 1 if decov["dist"] == "lkj" else 0
 
     if not is_binary:
         ss = _sd(y)
@@ -168,13 +179,29 @@ def build_parametric_model(
         if pa["prior_dist"] > 0 and pa["prior_autoscale"]:
             pa["prior_scale"] = ss * pa["prior_scale"]
 
-    if ps["prior_dist"] > 0 and ps["prior_autoscale"]:
+    R_inv = None
+    if not stan_args.qr and ps["prior_dist"] > 0 and ps["prior_autoscale"]:
         col_scale = np.ones(K)
         for j in range(K):
             if len(np.unique(xtemp[:, j])) > 1:
                 col_scale[j] = _sd(xtemp[:, j])
         ps["prior_scale"] = np.maximum(1e-12,
                                        ps["prior_scale"] / col_scale)
+    elif stan_args.qr and K > 0:
+        if K <= 1:
+            raise ValueError("'qr' requires multiple predictors")
+        Q, R = np.linalg.qr(xtemp)
+        if ps["prior_autoscale"] or ps["prior_dist"] == 8:
+            # R2 needs X = Q sqrt(N - 1), so that var(X beta) = |beta|^2
+            scale_factor = np.sqrt(xtemp.shape[0] - 1.0)
+        else:
+            scale_factor = np.diag(R)[-1]
+        R_inv = np.linalg.solve(R, np.eye(K)) * scale_factor
+        xtemp = Q * scale_factor
+
+    num_normals = ()
+    if ps["prior_dist"] == 7:
+        num_normals = tuple(int(v) for v in ps["prior_df"])
 
     cfg = ParametricConfig(
         N=mf.N,
@@ -186,6 +213,9 @@ def build_parametric_model(
         t=len(mf.re_terms),
         p=tuple(mf.p),
         l=tuple(mf.l),
+        num_normals=num_normals,
+        centered=bool(stan_args.centered_ranef),
+        cov_prior=cov_prior,
     )
 
     t = cfg.t
@@ -201,6 +231,10 @@ def build_parametric_model(
         prior_mean=ps["prior_mean"],
         prior_scale=np.asarray(ps["prior_scale"], dtype=np.float64),
         prior_df=ps["prior_df"],
+        global_prior_df=ps["global_prior_df"],
+        global_prior_scale=ps["global_prior_scale"],
+        slab_df=ps["slab_df"],
+        slab_scale=ps["slab_scale"],
         prior_mean_for_aux=float(np.atleast_1d(pa["prior_mean"])[0]),
         prior_scale_for_aux=(
             0.0 if is_binary
@@ -214,10 +248,23 @@ def build_parametric_model(
         regularization=regularization,
     )
     hyper["delta"] = decov_delta(cfg, concentration)
+    if cov_prior == 1:
+        lkj_scale = np.broadcast_to(
+            np.atleast_1d(decov.get("scale", 10.0)), (t,)
+        ).astype(np.float64).copy()
+        if decov.get("autoscale", True) and not is_binary:
+            lkj_scale = lkj_scale * _sd(y)
+        hyper["lkj_scale"] = lkj_scale
+        hyper["lkj_df"] = np.broadcast_to(
+            np.atleast_1d(decov.get("df", 1.0)), (t,)).astype(np.float64)
+    if ps["prior_dist"] == 8:
+        hyper["R2_eta"] = priors_mod.make_eta(ps["R2_location"],
+                                              ps["R2_what"], K)
+        hyper["R2_s"] = _sd(y)
 
     z_structs = [(rt.lhs, rt.group_idx) for rt in mf.re_terms]
     model = ParametricModel(cfg, xtemp, z_structs, hyper,
                             weights=mf.weights, dtype=dtype, device=device)
-    info = dict(R_inv=None, x=xtemp,
+    info = dict(R_inv=R_inv, x=xtemp,
                 prior_summary=dict(coef=ps, aux=pa, covariance=decov))
     return model, stan_args, info

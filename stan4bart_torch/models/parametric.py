@@ -1,15 +1,17 @@
 """The parametric multilevel log-posterior ("continuous" model) in torch,
 batched over chains.
 
-Counterpart of ``stan4bart_tpu/models/parametric.py`` for the model the
-default ``stan4bart()`` fit builds: normal / Student-t (Cornish-Fisher
-``cft``) / flat coefficient priors, normal / Student-t / exponential aux
-priors, non-centered random effects under the decov covariance prior
-(onion-method Cholesky ``make_theta_L``, ``make_b``), the gaussian
-(optionally weighted) likelihood with the mutable offset, constraint
-transforms with log-Jacobians, the Gram-compressed likelihood
-(``gram_anchor`` + ``log_prob_gram``) and the conjugate refresh of the
-linear block (``linear_gibbs_refresh``).
+Counterpart of ``stan4bart_tpu/models/parametric.py``: every rstanarm
+coefficient prior the JAX package takes (flat, normal, Student-t through
+the Cornish-Fisher ``cft``, hs, hs_plus, laplace, lasso, product_normal
+and R2), normal / Student-t / exponential aux priors, random effects
+non-centered (``b = T z_b``) or centered (``b`` sampled directly under
+MVN(0, T T')) with the decov (onion-method Cholesky ``make_theta_L``) or
+lkj (``make_theta_L_lkj``) covariance prior, the gaussian (optionally
+weighted) likelihood with the mutable offset, constraint transforms with
+log-Jacobians, the Gram-compressed likelihood (``gram_anchor`` +
+``log_prob_gram``) and the conjugate refresh of the linear block
+(``linear_gibbs_refresh``).
 
 Every function takes the unconstrained vectors of C chains as a (C, D)
 tensor and returns per-chain values; gradients come from autograd of the
@@ -29,13 +31,7 @@ from stan4bart_torch.models import dists
 from stan4bart_torch.utils.device import resolve_device
 
 _LOG_HALF = -0.6931471805599452862
-
-
-def _unsupported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to stan4bart_torch yet "
-        "(ROADMAP queue 1 item 8)"
-    )
+_LOG_2 = 0.6931471805599453
 
 
 @dataclass(frozen=True)
@@ -46,16 +42,23 @@ class ParametricConfig:
     K: int
     is_binary: bool
     has_weights: bool
-    prior_dist: int                 # 0 flat, 1 normal, 2 student_t
+    # 0 flat, 1 normal, 2 student_t, 3 hs, 4 hs_plus, 5 laplace, 6 lasso,
+    # 7 product_normal, 8 R2
+    prior_dist: int
     prior_dist_for_aux: int         # 0 flat, 1 normal, 2 t, 3 exponential
-    t: int                          # random-effect terms (decov prior)
+    t: int                          # random-effect terms
     p: tuple = ()
     l: tuple = ()
+    num_normals: tuple = ()         # only for prior_dist == 7
+    # centered random effects: b sampled directly under MVN(0, T T')
+    # instead of b = T z_b, z_b ~ N(0, 1) (the same posterior)
+    centered: bool = False
+    # covariance prior: 0 decov, 1 lkj (half-t sds, LKJ correlation)
+    cov_prior: int = 0
 
     def __post_init__(self):
-        if self.prior_dist not in (0, 1, 2):
-            _unsupported(f"coefficient prior code {self.prior_dist} "
-                         "(hs, hs_plus, laplace, lasso, product_normal, R2)")
+        if self.prior_dist not in range(9):
+            raise ValueError(f"unknown prior_dist {self.prior_dist}")
 
     @property
     def q(self) -> int:
@@ -82,7 +85,13 @@ class ParametricConfig:
         return int(sum(max(0, pi - 2) * (pi - 1) for pi in self.p))
 
     @property
+    def hs(self) -> int:
+        return {3: 2, 4: 4}.get(self.prior_dist, 0)
+
+    @property
     def z_beta_dim(self) -> int:
+        if self.prior_dist == 7:
+            return int(sum(self.num_normals))
         return self.K
 
 
@@ -98,11 +107,21 @@ def make_layout(cfg: ParametricConfig):
             blocks.append((name, int(size), kind))
 
     add("z_beta", cfg.z_beta_dim, _ID)
-    add("z_b", cfg.q, _ID)
+    add("global", cfg.hs, _POS)
+    add("local", cfg.hs * cfg.K, _POS)
+    add("caux", 1 if cfg.hs > 0 else 0, _POS)
+    add("mix", cfg.K if cfg.prior_dist in (5, 6) else 0, _POS)
+    add("one_over_lambda", 1 if cfg.prior_dist == 6 else 0, _POS)
+    add("R2", 1 if cfg.prior_dist == 8 else 0, _UNIT)
+    add("b_raw" if cfg.centered else "z_b", cfg.q, _ID)
     add("z_T", cfg.len_z_T, _ID)
     add("rho", cfg.len_rho, _UNIT)
-    add("zeta", cfg.len_concentration, _POS)
-    add("tau", cfg.t, _POS)
+    if cfg.cov_prior == 1:
+        # lkj: per-coefficient sds replace decov's zeta and tau
+        add("sds", sum(cfg.p), _POS)
+    else:
+        add("zeta", cfg.len_concentration, _POS)
+        add("tau", cfg.t, _POS)
     add("aux_unscaled", 0 if cfg.is_binary else 1, _POS)
     return blocks
 
@@ -157,15 +176,57 @@ def cft(z, df):
     )
 
 
-def compute_beta(cfg: ParametricConfig, c, hyper):
-    """beta (C, K) from z_beta per prior family."""
+def _hs_lambda_tilde(lam, tau, c2):
+    lam2 = lam * lam
+    return torch.sqrt(c2 * lam2 / (c2 + tau * tau * lam2))
+
+
+def compute_beta(cfg: ParametricConfig, c, hyper, aux):
+    """beta (C, K) from z_beta per prior family; aux (C,) is the residual
+    sd, which scales the horseshoe's global scale."""
+    pd = cfg.prior_dist
     z_beta = c["z_beta"]
-    if cfg.prior_dist == 0:
+    if pd == 0:
         return z_beta
-    if cfg.prior_dist == 1:
+    if pd == 1:
         return z_beta * hyper["prior_scale"] + hyper["prior_mean"]
-    return (cft(z_beta, hyper["prior_df"]) * hyper["prior_scale"]
-            + hyper["prior_mean"])
+    if pd == 2:
+        return (cft(z_beta, hyper["prior_df"]) * hyper["prior_scale"]
+                + hyper["prior_mean"])
+    if pd in (3, 4):
+        C = z_beta.shape[0]
+        loc = c["local"].reshape(C, cfg.hs, cfg.K)
+        glob = c["global"]
+        c2 = hyper["slab_scale"] ** 2 * c["caux"][:, 0]
+        error_scale = 1.0 if cfg.is_binary else aux
+        tau_g = (glob[:, 0] * torch.sqrt(glob[:, 1])
+                 * hyper["global_prior_scale"] * error_scale)
+        lam = loc[:, 0] * torch.sqrt(loc[:, 1])
+        if pd == 4:
+            lam = lam * loc[:, 2] * torch.sqrt(loc[:, 3])
+        return (z_beta * _hs_lambda_tilde(lam, tau_g[:, None], c2[:, None])
+                * tau_g[:, None])
+    if pd == 5:
+        return (hyper["prior_mean"]
+                + hyper["prior_scale"] * torch.sqrt(2.0 * c["mix"]) * z_beta)
+    if pd == 6:
+        return (hyper["prior_mean"]
+                + c["one_over_lambda"] * hyper["prior_scale"]
+                * torch.sqrt(2.0 * c["mix"]) * z_beta)
+    if pd == 7:
+        segs = []
+        z_pos = 0
+        for k, nn in enumerate(cfg.num_normals):
+            prod = torch.prod(z_beta[:, z_pos: z_pos + nn], -1)
+            z_pos += nn
+            segs.append(prod * hyper["prior_scale"][k] ** nn
+                        + hyper["prior_mean"][k])
+        return torch.stack(segs, -1)
+    # pd == 8, R2 (stan_lm): a unit direction z / |z| scaled by
+    # sqrt(R2) sd(y) over the QR-rotated, unit-variance columns
+    r2 = c["R2"]
+    norm = torch.sqrt((z_beta * z_beta).sum(-1, keepdim=True) + 1e-30)
+    return z_beta / norm * torch.sqrt(r2) * hyper["R2_s"]
 
 
 def _vech_to_tri(vals, nc):
@@ -222,6 +283,47 @@ def make_theta_L(cfg: ParametricConfig, dispersion, tau, scale, zeta, rho,
                 theta_L.append(T[ri][ci])
     if not theta_L:
         return dispersion.new_zeros((dispersion.shape[0], 0))
+    return torch.stack(theta_L, -1)
+
+
+def make_theta_L_lkj(cfg: ParametricConfig, sds, rho, z_T):
+    """Cholesky blocks (C, len_theta_L) under the lkj covariance prior:
+    diag(sds_i) times the correlation Cholesky of the same onion
+    recursion (the rho beta ladder with shape ``regularization`` is the
+    LKJ onion sampler).  The dispersion is not folded in: sds are in
+    response units.  sds (C, sum p), rho (C, len_rho), z_T (C,
+    len_z_T)."""
+    theta_L = []
+    sd_mark = rho_mark = z_T_mark = 0
+    for nc in cfg.p:
+        if nc == 1:
+            theta_L.append(sds[:, sd_mark])
+            sd_mark += 1
+            continue
+        sd_seg = sds[:, sd_mark: sd_mark + nc]
+        sd_mark += nc
+        T = [[None] * nc for _ in range(nc)]
+        T[0][0] = sd_seg[:, 0]
+        T21 = 2.0 * rho[:, rho_mark] - 1.0
+        rho_mark += 1
+        T[1][1] = sd_seg[:, 1] * torch.sqrt(1.0 - T21 * T21)
+        T[1][0] = sd_seg[:, 1] * T21
+        for r in range(1, nc - 1):
+            T_row = z_T[:, z_T_mark: z_T_mark + r + 1]
+            z_T_mark += r + 1
+            scale_factor = (torch.sqrt(rho[:, rho_mark]
+                                       / (T_row * T_row).sum(-1))
+                            * sd_seg[:, r + 1])
+            for ci in range(r + 1):
+                T[r + 1][ci] = T_row[:, ci] * scale_factor
+            T[r + 1][r + 1] = (torch.sqrt(1.0 - rho[:, rho_mark])
+                               * sd_seg[:, r + 1])
+            rho_mark += 1
+        for ci in range(nc):
+            for ri in range(ci, nc):
+                theta_L.append(T[ri][ci])
+    if not theta_L:
+        return sds.new_zeros((sds.shape[0], 0))
     return torch.stack(theta_L, -1)
 
 
@@ -322,15 +424,20 @@ class ParametricModel:
                     nu_run = nu_run - 0.5
                     rho_a.append(0.5 * j)
                     rho_b.append(nu_run)
-        # the prior's normalizing constants, summed once on the host; the
-        # per-call terms below keep only what depends on the parameters
+        # the default prior terms' normalizing constants, summed once on
+        # the host; the per-call terms below keep only what depends on
+        # the parameters.  The other families' terms carry their own.
         lg = math.lgamma
-        const = -(cfg.K * (cfg.prior_dist in (1, 2)) + cfg.q + cfg.len_z_T) \
-            * dists._LOG_SQRT_2PI
+        n_std_normal = cfg.len_z_T
+        if cfg.z_beta_dim > 0 and cfg.prior_dist > 0:
+            n_std_normal += cfg.z_beta_dim
+        if cfg.q > 0 and not cfg.centered:
+            n_std_normal += cfg.q
+        const = -n_std_normal * dists._LOG_SQRT_2PI
         const += sum(lg(a + b) - lg(a) - lg(b) for a, b in zip(rho_a, rho_b))
         delta = np.asarray(hyper.get("delta", []), np.float64)
         shape = np.asarray(hyper.get("shape_decov", []), np.float64)
-        if cfg.q > 0:
+        if cfg.q > 0 and cfg.cov_prior == 0:
             const -= sum(lg(a) for a in delta) + sum(lg(a) for a in shape)
         if self._aux_prior() == 1:
             const -= dists._LOG_SQRT_2PI + _LOG_HALF
@@ -373,12 +480,17 @@ class ParametricModel:
         C = next(iter(c.values())).shape[0]
         aux = (torch.ones(C, dtype=self.dtype, device=self.device)
                if cfg.is_binary else self._aux(c))
-        beta = (compute_beta(cfg, c, h) if cfg.K > 0
+        beta = (compute_beta(cfg, c, h, aux) if cfg.K > 0
                 else self._empty(c))
         get = lambda n: c.get(n, self._empty(c))  # noqa: E731
-        theta_L = make_theta_L(cfg, aux, get("tau"), self.scale_decov,
-                               get("zeta"), get("rho"), get("z_T"))
-        b = make_b(cfg, get("z_b"), theta_L)
+        if cfg.cov_prior == 1:
+            theta_L = make_theta_L_lkj(cfg, get("sds"), get("rho"),
+                                       get("z_T"))
+        else:
+            theta_L = make_theta_L(cfg, aux, get("tau"), self.scale_decov,
+                                   get("zeta"), get("rho"), get("z_T"))
+        b = (get("b_raw") if cfg.centered
+             else make_b(cfg, get("z_b"), theta_L))
         return dict(aux=aux, beta=beta, theta_L=theta_L, b=b)
 
     # -- linear predictor pieces --------------------------------------------
@@ -432,10 +544,12 @@ class ParametricModel:
 
     def _prior_lp(self, c, tp):
         """Every prior term of the model block (N-independent): the
-        standard-normal z blocks, the onion beta ladder on rho, the decov
-        gammas on zeta and tau, and the aux prior, each with its
-        normalizing constant (summed once in ``_prior_const``)."""
-        cfg = self.cfg
+        coefficient prior of its family, the standard-normal z blocks (or
+        the centered MVN prior on b), the onion beta ladder on rho, the
+        decov gammas on zeta and tau or the lkj half-t sds, and the aux
+        prior.  The default terms' normalizing constants are summed once
+        in ``_prior_const``."""
+        cfg, h, hn = self.cfg, self.hyper, self.hyper_np
         rho_a1, rho_b1, delta1, shape1 = self._prior_shapes_m1
         lp = self._prior_const
 
@@ -447,7 +561,7 @@ class ParametricModel:
             elif aux_prior == 2:
                 lp = lp + dists.student_t_lpdf(
                     c["aux_unscaled"],
-                    float(self.hyper_np["prior_df_for_aux"])) - _LOG_HALF
+                    float(hn["prior_df_for_aux"])) - _LOG_HALF
             else:
                 lp = lp - au
 
@@ -455,22 +569,89 @@ class ParametricModel:
             x = c[name]
             return 0.5 * (x * x).sum(-1)
 
-        if cfg.K > 0 and cfg.prior_dist in (1, 2):
+        # coefficient priors; an empty z_beta leaves the block out
+        pd = cfg.prior_dist if cfg.z_beta_dim > 0 else 0
+        if pd > 0:
             lp = lp - sq("z_beta")
+        if pd in (3, 4):
+            C = c["local"].shape[0]
+            loc = c["local"].reshape(C, cfg.hs, cfg.K)
+            glob = c["global"]
+            half_df = 0.5 * h["prior_df"]
+            lp = lp + dists.normal_lpdf(loc[:, 0]) - cfg.K * _LOG_HALF
+            lp = lp + dists.inv_gamma_lpdf(loc[:, 1], half_df, half_df)
+            if pd == 4:
+                # hs_plus's second df rides in the prior_scale slot
+                half_df2 = 0.5 * h["prior_scale"]
+                lp = lp + dists.normal_lpdf(loc[:, 2]) - cfg.K * _LOG_HALF
+                lp = lp + dists.inv_gamma_lpdf(loc[:, 3], half_df2,
+                                               half_df2)
+            lp = lp + dists.normal_lpdf(glob[:, :1]) - _LOG_HALF
+            g_df = 0.5 * float(hn["global_prior_df"])
+            lp = lp + dists.inv_gamma_lpdf(glob[:, 1:2], g_df, g_df)
+            s_df = 0.5 * float(hn["slab_df"])
+            lp = lp + dists.inv_gamma_lpdf(c["caux"], s_df, s_df)
+        elif pd in (5, 6):
+            lp = lp + dists.exponential_lpdf(c["mix"])
+            if pd == 6:
+                lp = lp + dists.chi_square_lpdf(
+                    c["one_over_lambda"],
+                    float(np.asarray(hn["prior_df"]).reshape(-1)[0]))
+        elif pd == 8:
+            # R2 ~ Beta(K/2, eta); the unit-interval Jacobian is in log_jac
+            lp = lp + dists.beta_lpdf(c["R2"], 0.5 * cfg.K,
+                                      float(hn["R2_eta"]))
+
         if cfg.q > 0:
-            lp = lp - sq("z_b")
+            if cfg.centered:
+                lp = lp + self._centered_b_lpdf(c["b_raw"], tp["theta_L"])
+            else:
+                lp = lp - sq("z_b")
             if cfg.len_z_T > 0:
                 lp = lp - sq("z_T")
             if cfg.len_rho > 0:
                 rho = c["rho"]
                 lp = lp + (rho_a1 * torch.log(rho)
                            + rho_b1 * torch.log1p(-rho)).sum(-1)
-            if cfg.len_concentration > 0:
-                zeta = c["zeta"]
-                lp = lp + (delta1 * torch.log(zeta) - zeta).sum(-1)
-            tau = c["tau"]
-            lp = lp + (shape1 * torch.log(tau) - tau).sum(-1)
+            if cfg.cov_prior == 1:
+                # lkj: sds ~ half-Student-t(df, 0, scale) per term
+                sd_mark = 0
+                for i, nc in enumerate(cfg.p):
+                    seg = c["sds"][:, sd_mark: sd_mark + nc]
+                    sd_mark += nc
+                    lp = lp + dists.student_t_lpdf(
+                        seg, float(hn["lkj_df"][i]), 0.0,
+                        float(hn["lkj_scale"][i])) + nc * _LOG_2
+            else:
+                if cfg.len_concentration > 0:
+                    zeta = c["zeta"]
+                    lp = lp + (delta1 * torch.log(zeta) - zeta).sum(-1)
+                tau = c["tau"]
+                lp = lp + (shape1 * torch.log(tau) - tau).sum(-1)
         return lp + torch.zeros_like(tp["aux"])
+
+    def _centered_b_lpdf(self, b, theta_L):
+        """Sum over terms and levels of MVN(b_level | 0, T_i T_i'), T_i
+        the lower-triangular blocks of theta_L: (C,)."""
+        cfg = self.cfg
+        lp = b.new_zeros(b.shape[0])
+        b_mark = 0
+        for (nc, fac), li in zip(_term_factors(cfg, theta_L), cfg.l):
+            if nc == 1:
+                z = b[:, b_mark: b_mark + li] / fac[:, None]
+                lp = lp + (-0.5 * z * z).sum(-1) \
+                    - li * (torch.log(torch.abs(fac)) + dists._LOG_SQRT_2PI)
+                b_mark += li
+            else:
+                seg = b[:, b_mark: b_mark + nc * li].reshape(-1, li, nc)
+                w = torch.linalg.solve_triangular(
+                    fac, seg.transpose(-1, -2), upper=False)
+                logdet = torch.log(torch.abs(
+                    torch.diagonal(fac, dim1=-2, dim2=-1))).sum(-1)
+                lp = lp + (-0.5 * w * w).sum((-1, -2)) \
+                    - li * (logdet + nc * dists._LOG_SQRT_2PI)
+                b_mark += nc * li
+        return lp
 
     # -- Gram-compressed likelihood (NUTS hot loop, O(D^2) per leapfrog) --
 
@@ -593,6 +774,13 @@ class ParametricModel:
             d* = Q^{-1} (g / aux^2 - P (v_hat - mu))
             v  = v_hat + d* + L^{-T} z,   L = chol(Q),  z ~ N(0, I_D)
 
+        Q is formed and factored in float64.  A chain whose Q still does
+        not factor keeps its coefficients: the factorization depends only
+        on (aux, theta_L), which this draw leaves alone, so the skip is a
+        state-dependent choice between two kernels that both leave the
+        posterior invariant (the JAX package's Cholesky gives that chain
+        NaN).
+
         z: optional (C, D) standard normals replacing the draw."""
         cfg = self.cfg
         with torch.no_grad():
@@ -628,19 +816,27 @@ class ParametricModel:
                     P[:, col: col + li * nc, col: col + li * nc] += Pb
                     col += li * nc
 
-            inv_aux2 = (1.0 / (aux * aux))[:, None]
-            Q = self.gram_G * inv_aux2[:, :, None] + P
-            rhs = g * inv_aux2 - (P @ (vhat - self._lg_mu)[:, :, None])[..., 0]
-            L = torch.linalg.cholesky(Q)
+            # the system in float64: where the Gram matrix is singular (the
+            # intercept columns of crossed terms are collinear) only P
+            # holds Q's null directions, and a wide prior's P is below
+            # float32 rounding of G
+            f64 = torch.float64
+            inv_aux2 = (1.0 / (aux * aux)).to(f64)[:, None]
+            P = P.to(f64)
+            Q = self.gram_G.to(f64) * inv_aux2[:, :, None] + P
+            rhs = g.to(f64) * inv_aux2 - (P @ (vhat - self._lg_mu).to(f64)
+                                          [:, :, None])[..., 0]
+            L, info = torch.linalg.cholesky_ex(Q)
             d_mean = torch.cholesky_solve(rhs[:, :, None], L)[..., 0]
             if z is None:
                 z = torch.randn((C, D), generator=gen, dtype=self.dtype,
                                 device=self.device)
             d = d_mean + torch.linalg.solve_triangular(
-                L.transpose(-1, -2), z[:, :, None], upper=True)[..., 0]
-            v_new = vhat + d
+                L.transpose(-1, -2), z.to(f64)[:, :, None],
+                upper=True)[..., 0]
+            v_new = (vhat + d).to(self.dtype)
 
-            u = u.clone()
+            u_in, u = u, u.clone()
             if cfg.K > 0:
                 beta_new = v_new[:, : cfg.K]
                 if cfg.prior_dist == 1:
@@ -650,7 +846,10 @@ class ParametricModel:
                     zb = beta_new
                 off = self.layout.slices["z_beta"][0]
                 u[:, off: off + cfg.K] = zb
-            if cfg.q > 0:
+            if cfg.q > 0 and cfg.centered:
+                off = self.layout.slices["b_raw"][0]
+                u[:, off: off + cfg.q] = v_new[:, cfg.K:]
+            elif cfg.q > 0:
                 b_new = v_new[:, cfg.K:]
                 parts = []
                 b_mark = 0
@@ -667,7 +866,7 @@ class ParametricModel:
                         b_mark += nc * li
                 off = self.layout.slices["z_b"][0]
                 u[:, off: off + cfg.q] = torch.cat(parts, -1)
-        return u
+        return torch.where((info == 0)[:, None], u, u_in)
 
     def initial_inv_mass(self, scale_y: float, n_obs: int) -> np.ndarray:
         """Analytic initial diagonal inverse metric: early-chain UPPER
@@ -685,6 +884,10 @@ class ParametricModel:
                 out[off: off + size] = (beta_sd / prior_scale) ** 2
             elif name == "aux_unscaled" and not cfg.is_binary:
                 out[off] = safety ** 2 / (2.0 * n_obs)
+            elif name == "b_raw":
+                # centered b: the marginal prior sd is about tau scale
+                # sigma; over-wide is safe, adaptation shrinks it
+                out[off: off + size] = max(float(scale_y), 1.0) ** 2
         return out
 
     # -- output packaging -----------------------------------------------------
@@ -724,13 +927,23 @@ class ParametricModel:
                                  n_draws: int = 1):
         """Draws (n_draws, D) of the UNCONSTRAINED vector from the model's
         prior, block by block (the generative complement of ``_prior_lp``;
-        for simulation-based calibration).  Raises for the flat priors,
-        which are not generative.  ``rng`` is a numpy Generator."""
+        for simulation-based calibration).  Supports the normal /
+        Student-t / product-normal / R2 coefficient priors and
+        non-centered random effects under decov or lkj; raises for the
+        flat priors, which are not generative, for hs and laplace, and
+        for the centered parameterization.  ``rng`` is a numpy
+        Generator."""
         cfg, h = self.cfg, self.hyper_np
-        if cfg.K > 0 and cfg.prior_dist == 0:
-            raise NotImplementedError("prior_draw: flat coefficient prior")
+        if cfg.z_beta_dim > 0 and cfg.prior_dist not in (1, 2, 7, 8):
+            raise NotImplementedError(
+                f"prior_draw: coefficient prior_dist {cfg.prior_dist} "
+                "(flat/hs/laplace) is not supported")
         if not cfg.is_binary and cfg.prior_dist_for_aux == 0:
             raise NotImplementedError("prior_draw: flat aux prior")
+        if cfg.centered:
+            raise NotImplementedError(
+                "prior_draw: centered ranef (draw non-centered and "
+                "transform)")
 
         def logit(p):
             return np.log(p) - np.log1p(-p)
@@ -740,6 +953,9 @@ class ParametricModel:
             shape = (n_draws, size)
             if name in ("z_beta", "z_b", "z_T"):
                 v = rng.standard_normal(shape)
+            elif name == "R2":
+                v = logit(rng.beta(0.5 * cfg.K, float(h["R2_eta"]),
+                                   size=shape))
             elif name == "rho":
                 s1, s2 = [], []
                 reg_mark = 0
@@ -760,7 +976,14 @@ class ParametricModel:
             elif name == "tau":
                 v = np.log(rng.gamma(np.asarray(h["shape_decov"]),
                                      size=shape))
-            else:   # aux_unscaled
+            elif name == "sds":
+                # half-Student-t(df, 0, scale) per term coefficient
+                term = np.concatenate([[i] * nc for i, nc in
+                                       enumerate(cfg.p)]).astype(int)
+                dfs = np.asarray(h["lkj_df"], np.float64)[term]
+                scales = np.asarray(h["lkj_scale"], np.float64)[term]
+                v = np.log(scales * np.abs(rng.standard_t(dfs, size=shape)))
+            elif name == "aux_unscaled":
                 if cfg.prior_dist_for_aux == 1:
                     a = np.abs(rng.standard_normal(shape))
                 elif cfg.prior_dist_for_aux == 2:
@@ -769,6 +992,8 @@ class ParametricModel:
                 else:
                     a = rng.exponential(size=shape)
                 v = np.log(a)
+            else:
+                raise NotImplementedError(f"prior_draw: block {name}")
             parts.append(v)
         return torch.as_tensor(np.concatenate(parts, axis=1),
                                dtype=self.dtype, device=self.device)

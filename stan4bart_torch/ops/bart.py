@@ -14,9 +14,13 @@ Python loop.  Table lookups (child features, leaf values, cut ranks) are
 plain indexing — the one-hot matrix products of the JAX package exist
 only for the TPU's matrix unit.
 
+``regrow_refresh`` appends random single-tree subtree regrows to a sweep
+(the JAX package's ``regrow_per_sweep``); its per-node statistics are
+one-hot matrix products, so they sum in a fixed order on the card.
+
 Every random draw can be supplied by the caller (``variates=`` of
-``bart_sweep``, ``u=`` of ``sample_probit_latents`` and
-``sample_trees_from_prior``), so the port can be held against the JAX
+``bart_sweep`` and ``regrow_refresh``, ``u=`` of ``sample_probit_latents``
+and ``sample_trees_from_prior``), so the port can be held against the JAX
 package on identical randomness.
 """
 
@@ -46,6 +50,9 @@ class BartConfig(NamedTuple):
     k_scale: float = float("inf")
     # fixed leaf-prior sd replacing the data-driven range scaling
     sigma_mu_fixed: float | None = None
+    # random single-tree subtree regrows (with a leaf redraw) appended to
+    # every sweep (``regrow_refresh``); 0 = off
+    regrow_per_sweep: int = 0
 
     @property
     def max_nodes(self) -> int:
@@ -349,6 +356,178 @@ def tree_step(cfg: BartConfig, feature, cut, lidx, r, sigma2, tau2, u6, zn,
     return feature, cut, lidx, leaf_value, fit
 
 
+def node_stats(lidx, wr, max_nodes: int, w=None):
+    """Per-node (count, sum of w r) of C chains: lidx (C, N) int, wr (C,
+    N) the weighted residual, w (N,) optional weights (unit counts
+    otherwise) -> two (C, M).  A one-hot product, so every sum is taken
+    in one fixed order (a scatter-add of floats on the card is not)."""
+    onehot = (lidx.long()[..., None]
+              == torch.arange(max_nodes, device=lidx.device)).to(wr.dtype)
+    cw = torch.ones_like(wr) if w is None else w.expand_as(wr)
+    out = torch.bmm(torch.stack([cw, wr], 1), onehot)
+    return out[:, 0], out[:, 1]
+
+
+def _subtree_regrow(cfg: BartConfig, feature, cut, lidx, wr, ranks, spcum,
+                    depths, p_split, sigma2, tau2, g, u3, w=None):
+    """Subtree-regrow MH move of one tree of each of C chains: pick an
+    active node eta uniformly, propose the whole subtree at eta redrawn
+    from the CGM structure prior (at eta's absolute depth), and accept
+    with min(1, m(T') / m(T) * n_active(T) / n_active(T')), m the
+    integrated likelihood of the subtree's leaves (the prior terms
+    cancel against the proposal).  A proposal with an empty leaf is
+    rejected.
+
+    feature/cut (C, M) int64, lidx (C, N) int64, wr (C, N) the weighted
+    partial residual, ranks (N, P), sigma2/tau2 (C,), g (C, 3) uniforms
+    (gate, node pick, accept), u3 (C, 3, M) uniforms (split, variable,
+    cut per node), w (N,) optional weights.  Returns (feature, cut,
+    lidx, counts, sums), the last two the accepted partition's per-node
+    statistics."""
+    C, M = feature.shape
+    dev = feature.device
+    rows = torch.arange(C, device=dev)
+    node_ids = torch.arange(M, device=dev)
+    parent_ids = torch.div(node_ids - 1, 2,
+                           rounding_mode="floor").clamp(min=0)
+    u_gate, u_sel, u_acc = g.unbind(1)
+
+    active = feature != INACTIVE
+    n_act = active.sum(1)
+    eta = _pick_marked(active, n_act, u_sel)
+
+    # eta's subtree (eta included): each node's ancestor chain
+    anc = node_ids
+    in_sub = torch.zeros((C, M), dtype=torch.bool, device=dev)
+    for _ in range(cfg.max_depth + 1):
+        in_sub = in_sub | (anc[None, :] == eta[:, None])
+        anc = torch.div(anc - 1, 2, rounding_mode="floor").clamp(min=0)
+
+    # a prior draw over the subtree: splits at absolute depth, activity
+    # propagated down from eta (p_split is 0 at max_depth)
+    want_split = u3[:, 0] < p_split[depths]
+    v_prop = torch.searchsorted(spcum, u3[:, 1].contiguous(), right=True)
+    v_prop = v_prop.clamp(max=spcum.shape[0] - 1)
+    c_prop = torch.floor(u3[:, 2] * cfg.n_cuts).long().clamp(
+        max=cfg.n_cuts - 1)
+    act_new = torch.zeros((C, M), dtype=torch.bool, device=dev)
+    act_new[rows, eta] = True
+    for _ in range(cfg.max_depth):
+        act_new = act_new | (act_new[:, parent_ids]
+                             & want_split[:, parent_ids]
+                             & (node_ids != 0))
+    feat_prop = torch.where(act_new & want_split, v_prop,
+                            torch.where(act_new, LEAF, INACTIVE))
+    cut_prop = torch.where(feat_prop >= 0, c_prop, 0)
+    new_feature = torch.where(in_sub, feat_prop, feature)
+    new_cut = torch.where(in_sub, cut_prop, cut)
+    new_lidx = walk_tree(new_feature, new_cut, ranks, cfg.max_depth)
+
+    counts_old, sums_old = node_stats(lidx, wr, M, w)
+    counts_new, sums_new = node_stats(new_lidx, wr, M, w)
+    s2, t2 = sigma2[:, None], tau2[:, None]
+    leaf_old = (feature == LEAF) & in_sub
+    leaf_new = (new_feature == LEAF) & in_sub
+    m_old = torch.where(leaf_old, _leaf_marginal(counts_old, sums_old, s2,
+                                                 t2), 0.0).sum(1)
+    m_new = torch.where(leaf_new, _leaf_marginal(counts_new, sums_new, s2,
+                                                 t2), 0.0).sum(1)
+    n_act_new = (new_feature != INACTIVE).sum(1)
+    dtype = wr.dtype
+    log_accept = (m_new - m_old + torch.log(n_act.to(dtype))
+                  - torch.log(n_act_new.to(dtype)))
+    valid = ~(leaf_new & (counts_new <= 0)).any(1)
+    accept = (u_gate < 1.0) & valid & (torch.log(u_acc) < log_accept)
+
+    acc = accept[:, None]
+    return (torch.where(acc, new_feature, feature),
+            torch.where(acc, new_cut, cut),
+            torch.where(acc, new_lidx, lidx),
+            torch.where(acc, counts_new, counts_old),
+            torch.where(acc, sums_new, sums_old))
+
+
+def draw_regrow_variates(gen, n_chains: int, cfg: BartConfig, dtype,
+                         device):
+    """The draws of ``cfg.regrow_per_sweep`` regrows of C chains: the
+    tree (C, R) int64, the gate / node-pick / accept uniforms (C, R, 3),
+    the per-node split / variable / cut uniforms (C, R, 3, M) and the
+    leaf normals (C, R, M)."""
+    C, R, M = n_chains, cfg.regrow_per_sweep, cfg.max_nodes
+    tree = torch.randint(0, cfg.num_trees, (C, R), generator=gen,
+                         device=device)
+    g = torch.rand((C, R, 3), generator=gen, dtype=dtype, device=device)
+    u3 = torch.rand((C, R, 3, M), generator=gen, dtype=dtype,
+                    device=device)
+    zn = torch.randn((C, R, M), generator=gen, dtype=dtype, device=device)
+    return tree, g, u3, zn
+
+
+def regrow_refresh(cfg: BartConfig, state: BartState, y_target, ranks,
+                   split_probs, sigma, gen=None, weights=None,
+                   variates=None) -> BartState:
+    """``cfg.regrow_per_sweep`` random-scan subtree regrows of every
+    chain's forest: pick a tree uniformly, attempt one whole-subtree
+    regrow (``_subtree_regrow``, exact MH), then redraw its leaves from
+    the conjugate conditional.  A Metropolis-within-Gibbs step after the
+    sweep; k and sigma_mu are carried through.
+
+    y_target (C, N), ranks (N, P), sigma (C,), weights (N,) optional;
+    variates: optional ``(tree, g, u3, zn)`` as ``draw_regrow_variates``
+    makes them, replacing the draw from ``gen``.  The new tree's fit is
+    a gather of its new leaf values, so ``tree_fit`` equals
+    ``leaf_value[leaf_idx]`` to the bit."""
+    R = cfg.regrow_per_sweep
+    if R <= 0:
+        return state
+    dtype = state.allfit.dtype
+    dev = state.allfit.device
+    C, T, M = state.feature.shape
+    if variates is None:
+        variates = draw_regrow_variates(gen, C, cfg, dtype, dev)
+    tree, g, u3, zn = variates
+    if tree.shape != (C, R):
+        raise ValueError(f"regrow variates for {tuple(tree.shape)} "
+                         f"(chains, regrows), expected {(C, R)}")
+    sigma2 = sigma * sigma
+    tau2 = state.sigma_mu * state.sigma_mu
+    spcum = torch.cumsum(torch.as_tensor(np.asarray(split_probs),
+                                         dtype=dtype, device=dev), 0)
+    depths = torch.as_tensor(node_depths(cfg), dtype=torch.long, device=dev)
+    p_split = torch.as_tensor(split_prob_by_depth(cfg), dtype=dtype,
+                              device=dev)
+    w = None if weights is None else torch.as_tensor(weights, dtype=dtype,
+                                                     device=dev)
+    rows = torch.arange(C, device=dev)
+    feature, cut = state.feature.clone(), state.cut.clone()
+    leaf_value, leaf_idx = state.leaf_value.clone(), state.leaf_idx.clone()
+    tree_fit, allfit = state.tree_fit.clone(), state.allfit
+    s2, t2 = sigma2[:, None], tau2[:, None]
+    for r in range(R):
+        j = tree[:, r].long()
+        fit_j = tree_fit[rows, j]
+        resid = y_target - allfit + fit_j
+        wr = resid if w is None else w * resid
+        f2, c2, li2, counts, sums = _subtree_regrow(
+            cfg, feature[rows, j].long(), cut[rows, j].long(),
+            leaf_idx[rows, j].long(), wr, ranks, spcum, depths, p_split,
+            sigma2, tau2, g[:, r].to(dtype), u3[:, r].to(dtype), w)
+        post_var = 1.0 / (counts / s2 + 1.0 / t2)
+        post_mean = post_var * sums / s2
+        mu = post_mean + torch.sqrt(post_var) * zn[:, r].to(dtype)
+        lv2 = torch.where(f2 == LEAF, mu, 0.0)
+        new_fit = torch.gather(lv2, 1, li2)
+        feature[rows, j] = f2.to(feature.dtype)
+        cut[rows, j] = c2.to(cut.dtype)
+        leaf_value[rows, j] = lv2
+        leaf_idx[rows, j] = li2.to(leaf_idx.dtype)
+        tree_fit[rows, j] = new_fit
+        allfit = allfit + new_fit - fit_j
+    return state._replace(feature=feature, cut=cut, leaf_value=leaf_value,
+                          leaf_idx=leaf_idx, tree_fit=tree_fit,
+                          allfit=allfit)
+
+
 def draw_variates(gen, n_chains: int, num_trees: int, dtype, device):
     """Per (chain, tree): 8 proposal uniforms (6 used) and 128 leaf
     normals — the variate layout the sweep kernels consume."""
@@ -395,7 +574,14 @@ def bart_sweep(cfg: BartConfig, state: BartState, y_target, ranks,
     residual sd (1 for probit).  weights (N,): optional likelihood
     weights, y_i ~ N(fit_i, sigma^2 / w_i).  variates: optional
     ``(u (C, T, >= 6), zn (C, T, >= M))`` replacing the draw from
-    ``gen``.  Returns (state, varcount (C, P))."""
+    ``gen``.  With ``cfg.regrow_per_sweep`` the regrows of
+    ``regrow_refresh`` follow the trees (before the k update), drawn from
+    ``gen``, as the JAX package's op-form sweep runs them; they take no
+    pre-drawn variates here.  Returns (state, varcount (C, P))."""
+    if cfg.regrow_per_sweep > 0 and variates is not None:
+        raise ValueError(
+            "the regrow refresh takes no pre-drawn sweep variates; pass "
+            "its own to regrow_refresh")
     dtype = state.allfit.dtype
     dev = state.allfit.device
     C, T = state.feature.shape[:2]
@@ -414,13 +600,18 @@ def bart_sweep(cfg: BartConfig, state: BartState, y_target, ranks,
         torch.as_tensor(node_depths(cfg), dtype=torch.long, device=dev),
         torch.as_tensor(split_prob_by_depth(cfg), dtype=dtype, device=dev),
         weights=w)
-    k, sigma_mu = state.k, state.sigma_mu
-    if cfg.k_df > 0:
-        k, sigma_mu = chi_k_update(cfg, feature, lv, k, sigma_mu, gen)
     new_state = state._replace(
         feature=feature, cut=cut, leaf_value=lv, leaf_idx=lidx,
-        allfit=y_target - resid, tree_fit=fit, k=k, sigma_mu=sigma_mu)
-    return new_state, count_variable_use(feature, spcum.shape[0])
+        allfit=y_target - resid, tree_fit=fit)
+    if cfg.regrow_per_sweep > 0:
+        new_state = regrow_refresh(cfg, new_state, y_target, ranks,
+                                   split_probs, sigma, gen, weights=w)
+    if cfg.k_df > 0:
+        k, sigma_mu = chi_k_update(cfg, new_state.feature,
+                                   new_state.leaf_value, state.k,
+                                   state.sigma_mu, gen)
+        new_state = new_state._replace(k=k, sigma_mu=sigma_mu)
+    return new_state, count_variable_use(new_state.feature, spcum.shape[0])
 
 
 def standard_gamma(shape, gen):

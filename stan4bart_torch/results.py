@@ -64,6 +64,9 @@ class Stan4bartFit:
     test_frame: Any = None
     treatment: str | None = None
     final_states: Any = None
+    # with qr=True: beta_orig = R_inv beta_qr, since X_qr = X R_inv (None
+    # without QR)
+    R_inv: np.ndarray | None = None
     keep_fits: bool = True
     sigma_init: float = 1.0
     seed: int = 0
@@ -85,11 +88,29 @@ class Stan4bartFit:
     # model and the device: what load() rebuilds the program from
     stan_args: Any = None
     program_args: dict | None = None
+    # True once the stored stan draws hold un-rotated betas: an init field,
+    # so that replace() and load() carry it and __post_init__ never
+    # applies R_inv to draws it has already un-rotated
+    qr_unrotated: bool = False
     _name_idx: dict = field(default_factory=dict, init=False)
     _rng_calls: int = field(default=0, init=False)
 
     def __post_init__(self):
         self._name_idx = {n: i for i, n in enumerate(self.stan_names)}
+        if (self.R_inv is not None and self.keep_fits
+                and not self.qr_unrotated):
+            self.draws = self.draws._replace(
+                stan=self._unrotate_stan(self.draws.stan))
+            self.qr_unrotated = True
+
+    def _unrotate_stan(self, stan):
+        """The beta columns of raw stan draws (..., S) in the original
+        coordinates: beta_orig = R_inv beta_qr, a row times R_inv^T."""
+        K = self.mf.K
+        bi = [self._name_idx[f"beta.{j + 1}"] for j in range(K)]
+        out = np.array(stan)
+        out[..., bi] = stan[..., bi] @ np.asarray(self.R_inv).T
+        return out
 
     # -- internals ----------------------------------------------------------
 
@@ -709,8 +730,25 @@ class Stan4bartFit:
                 return
             scale = np.atleast_1d(ps.get("prior_scale", np.nan))
             mean = np.atleast_1d(ps.get("prior_mean", 0.0))
-            desc = f"{dist}(location = {np.round(mean, 3).tolist()}, " \
-                   f"scale = {np.round(scale, 3).tolist()})"
+            df = np.round(np.atleast_1d(ps.get("prior_df", 1.0)), 3)
+            if dist in ("hs", "hs_plus"):
+                # hs_plus's second df rides in the prior_scale slot
+                desc = (f"{dist}(df = {df.tolist()}, "
+                        + (f"df2 = {np.round(scale, 3).tolist()}, "
+                           if dist == "hs_plus" else "")
+                        + f"global_df = {ps['global_prior_df']:.3g}, "
+                        f"global_scale = {ps['global_prior_scale']:.3g}, "
+                        f"slab_df = {ps['slab_df']:.3g}, "
+                        f"slab_scale = {ps['slab_scale']:.3g})")
+            elif dist == "R2":
+                desc = (f"R2(location = {ps['R2_location']:.3g}, "
+                        f"what = {ps['R2_what']!r})")
+            else:
+                desc = (f"{dist}(location = {np.round(mean, 3).tolist()}, "
+                        f"scale = {np.round(scale, 3).tolist()}"
+                        + (f", df = {df.tolist()}"
+                           if dist in ("t", "lasso", "product_normal")
+                           else "") + ")")
             if ps.get("prior_autoscale"):
                 desc += "  [autoscaled]"
             print(f"{title}: {desc}")
@@ -844,6 +882,11 @@ class Stan4bartFit:
         states, new_draws, _ = self.prog.continue_chunked(
             self.final_states, iterations, chunk_size, gen,
             per_chain=self.per_chain)
+        if self.qr_unrotated:
+            # the stored draws are un-rotated already: un-rotate only the
+            # fresh ones
+            new_draws = new_draws._replace(
+                stan=self._unrotate_stan(new_draws.stan))
         merged = tree_map(lambda a, b: np.concatenate([a, b], axis=1),
                           self.draws, new_draws)
         return replace(self, draws=merged, final_states=states,

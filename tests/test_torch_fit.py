@@ -138,10 +138,12 @@ def test_entry_points_need_cuda_or_explicit_cpu():
                   lambda: state_from_numpy(None)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
-    for kw in ({"algorithm": "vi"}, {"stan_args": {"qr": True}},
-               {"bart_args": {"regrow_per_sweep": 2}},
-               {"stan_args": {"centered_ranef": True}}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    # what stays unported names its ROADMAP queue item
+    for kw, item in (({"algorithm": "vi"}, "10"),
+                     ({"bart_args": {"p_regrow": 0.2}}, "13"),
+                     ({"stan_args": {"obs_shards": 2}}, "11")):
+        with pytest.raises(NotImplementedError,
+                           match=f"queue 1 item {item}"):
             stan4bart_torch.stan4bart("y ~ bart(X1 + X2) + X4", df, iter=4,
                                       device="cpu", **kw)
 

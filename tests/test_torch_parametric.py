@@ -194,10 +194,15 @@ def test_other_supported_priors_match(models, family):
 
 
 def test_unported_priors_raise(models):
+    """The options this test once saw raise now build; observation
+    sharding, the one stan_args option left unported, raises naming its
+    ROADMAP queue item."""
     d, df, rmf, pmf, rpm, ppm, U, off, y = models
     from stan4bart_torch.models import priors
 
     for args in ({"prior": priors.laplace()}, {"qr": True},
                  {"centered_ranef": True}, {"sigma_gibbs": True}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            port_pm(pmf, "gaussian", args, device="cpu")
+        pm, _, _ = port_pm(pmf, "gaussian", args, device="cpu")
+        assert pm.num_upars > 0
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        port_pm(pmf, "gaussian", {"obs_shards": 2}, device="cpu")
