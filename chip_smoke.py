@@ -58,10 +58,9 @@ with nvcc (one process per source, started together), then:
    ``keep_trees``, every sweep through the single-pass kernel; the
    reference's binary gates; ``predict`` over the stored forests against
    the in-loop test and train fits (1e-5), with its seconds and the peak
-   device memory; ``loo`` / ``waic`` of the probit fit;
-   ``continue_sampling(25)`` whole and in chunks of 10, each with 25
-   launches of the single-pass kernel, the gates on the merged draws and
-   the largest whole-vs-chunked difference;
+   device memory; ``loo`` / ``waic`` of the probit fit over its last 25
+   iterations; ``continue_sampling(10)`` whole and in chunks of 4, each
+   with 10 launches of the single-pass kernel and equal to the bit;
 8. runs the model and sampler options at full width: the phase 3 fit
    with ``qr``, centered random effects, ``prior_covariance=lkj()``,
    ``sigma_gibbs``, ``leaf_gibbs = 1``, ``leaf_block = 25`` and one
@@ -79,9 +78,24 @@ with nvcc (one process per source, started together), then:
    chunks of 5 to the bit;
    and a ``qr`` fit saved, loaded on the card and resumed, its last
    stored betas R_inv times the final state's rotated ones before and
-   after (un-rotated once).
+   after (un-rotated once);
+9. runs the other algorithms at full width, on phase 3's data and seed,
+   every sweep through the single-pass kernel: ``algorithm="vi"`` (its
+   "biased high" warning), ``"advi"`` meanfield and fullrank, each with
+   the reference's VI gates (cor(indiv.bart, mu_bart) >= 0.95, the
+   treatment's fixed effect within 1.5 of 5, sigma below 3), its
+   milliseconds per VI update beside phase 3's NUTS milliseconds per
+   iteration and its peak device memory; ``"vi"`` on phase 7's probit
+   data with the binary gates and, when phase 7 ran, the deviance ladder
+   (phase 7's fit at most the probit IRLS fit's deviance and 1.35 x the
+   VI fit's); and, when phase 3 ran, ``adjudicate_parametric_smc`` of
+   its fit at 1024 particles with the reference's gates; then short VI
+   fits at n = 2000 with 16 chains: one with a callback (the per-chain
+   kernel only), one whole against the first iterations of a longer one
+   in chunks and against its own ``save`` / ``load`` + resume (to the
+   bit), and one with ``sigma_gibbs``.
 
-``--phases 3,8`` runs the listed phases only (``--phases 1,2,4`` the
+``--phases 3,7,9`` runs the listed phases only (``--phases 1,2,4`` the
 kernel phases; the kernels line needs those three).  Prints the card
 (``nvidia-smi``), a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -92,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import json
+from dataclasses import replace
 import subprocess
 import sys
 import time
@@ -800,7 +815,7 @@ def binary_gates(label, fit, d):
     """The reference's probit gates (tests/test_e2e_binary.py:32-105):
     cor(posterior-mean P(y=1), true p) > 0.75, deviance < 0.8 x null,
     ppd in {0, 1} with mean |ppd - ev| < 0.05, and ev = Phi(indiv.bart +
-    indiv.fixef + indiv.ranef)."""
+    indiv.fixef + indiv.ranef).  Returns the posterior-mean P(y = 1)."""
     from scipy.special import ndtr      # the standard normal cdf
 
     ev_draws = fit.extract("ev")
@@ -826,6 +841,7 @@ def binary_gates(label, fit, d):
     if not (cor > 0.75 and dev < 0.8 * dev0 and zero_one and ppd_err < 0.05
             and latent_err <= 1e-6):
         raise AssertionError(f"{label}: binary gates failed")
+    return ev
 
 
 def phase_probit(device, label="phase 7", n=10_000, chains=256,
@@ -833,7 +849,9 @@ def phase_probit(device, label="phase 7", n=10_000, chains=256,
     """The stored-forest surfaces at full width: a probit fit with
     keep_trees through the single-pass kernel, its gates, predict against
     the in-loop fits, loo / waic, and two resumes.  Returns the
-    single-pass kernel's launches."""
+    single-pass kernel's launches and the fit's posterior-mean P(y = 1)
+    (phase 9's deviance ladder)."""
+    from stan4bart_torch.gibbs import tree_map
     from stan4bart_torch.utils.friedman import friedman_dataframe
 
     d, fit, launches = run_fit(
@@ -845,7 +863,7 @@ def phase_probit(device, label="phase 7", n=10_000, chains=256,
     if fit.draws.tree_feature.shape != (chains, iters, trees, 127):
         raise AssertionError(f"{label}: stored forests "
                              f"{fit.draws.tree_feature.shape}")
-    binary_gates(label, fit, d)
+    ev = binary_gates(label, fit, d)
 
     df = friedman_dataframe(d)
     cf = dict(df)
@@ -869,8 +887,13 @@ def phase_probit(device, label="phase 7", n=10_000, chains=256,
     if not (test_err <= 1e-5 and train_err <= 1e-5):
         raise AssertionError(f"{label}: predict differs from the stored fits")
 
+    # loo / waic over the last 25 iterations (6400 draws): the Pareto fits
+    # and the log-likelihood run on the host, 75 s of the script for all
+    # 75 post-warmup iterations
+    last = replace(fit, draws=tree_map(lambda a: a[:, -25:], fit.draws),
+                   warmup=0)
     ic = {}
-    for name, f in (("probit loo", fit.loo), ("probit waic", fit.waic)):
+    for name, f in (("probit loo", last.loo), ("probit waic", last.waic)):
         t0 = time.perf_counter()
         ic[name] = f()
         ic[name]["seconds"] = time.perf_counter() - t0
@@ -884,45 +907,41 @@ def phase_probit(device, label="phase 7", n=10_000, chains=256,
                    + (f", {r['n_high_k']} of {r['n_obs']} pareto_k > 0.7"
                       if "loo" in name else "")
                    + f", {r['seconds']:.2f} s")
-    print(f"{label}: " + "; ".join(msg), flush=True)
+    print(f"{label}: " + "; ".join(msg) + f" (over the last 25 iterations, "
+          f"{25 * chains} draws)", flush=True)
 
     resumed = {}
-    for which, kw in (("whole", {}), ("chunked", {"chunk_size": 10})):
+    for which, kw in (("whole", {}), ("chunked", {"chunk_size": 4})):
         counts = reset_counts()
         t0 = time.perf_counter()
-        resumed[which] = fit.continue_sampling(25, **kw)
+        resumed[which] = fit.continue_sampling(10, **kw)
         secs = time.perf_counter() - t0
-        launches += check_launches(f"{label} continue_sampling(25) {which}",
-                                   counts, "bart_sweep_batch", 25)
+        launches += check_launches(f"{label} continue_sampling(10) {which}",
+                                   counts, "bart_sweep_batch", 10)
         r = resumed[which]
-        grew = all(getattr(r.draws, name).shape[1] == iters + 25
+        grew = all(getattr(r.draws, name).shape[1] == iters + 10
                    for name in ("tree_feature", "tree_cut",
                                 "tree_leaf_value", "stan"))
         finite = all(np.all(np.isfinite(getattr(r.draws, name)))
                      for name in ("stan", "bart_train", "bart_test",
                                   "tree_leaf_value"))
-        print(f"{label}: continue_sampling(25{', chunk_size=10' if kw else ''}"
-              f") took {secs:.2f} s, 25 single-pass launches; "
+        print(f"{label}: continue_sampling(10{', chunk_size=4' if kw else ''}"
+              f") took {secs:.2f} s, 10 single-pass launches; "
               f"{r.iterations - r.warmup} post-warmup iterations, forests "
-              f"grew by 25 {grew}, finite {finite}", flush=True)
-        if not (r.iterations - r.warmup == iters - warmup + 25 and grew
+              f"grew by 10 {grew}, finite {finite}", flush=True)
+        if not (r.iterations - r.warmup == iters - warmup + 10 and grew
                 and finite):
             raise AssertionError(f"{label}: resume {which}")
-    a, b = resumed["whole"], resumed["chunked"]
-    diff = max(float(np.abs(getattr(a.draws, name).astype(np.float64)
-                            - getattr(b.draws, name)).max())
-               for name in ("stan", "bart_train", "tree_leaf_value"))
-    n_struct = int(sum((getattr(a.draws, name) != getattr(b.draws, name))
-                       .sum() for name in ("tree_feature", "tree_cut")))
-    print(f"{label}: whole vs chunked resume: max |whole - chunked| over "
-          f"stan, bart_train and leaf values {diff:.3g}; tree structure "
-          f"entries that differ {n_struct}", flush=True)
-    # the gates on the merged draws; the chunked resume's are the whole
-    # one's when the two drew the same
-    binary_gates(f"{label} resumed whole", a, d)
-    if diff or n_struct:
-        binary_gates(f"{label} resumed chunked", b, d)
-    return launches
+    diff, same = resume_equal(
+        resumed["whole"], resumed["chunked"],
+        ("stan", "bart_train", "bart_test", "tree_feature", "tree_cut",
+         "tree_leaf_value"))
+    print(f"{label}: whole vs chunked resume: max difference over stan "
+          f"draws, fits and forests {diff:.3g}, equal to the bit {same}",
+          flush=True)
+    if not same:
+        raise AssertionError(f"{label}: whole and chunked resumes differ")
+    return launches, ev
 
 
 def finite_draws(label, fit, names=("stan", "bart_train", "bart_test", "k")):
@@ -1180,9 +1199,253 @@ def phase_option_fits(device, label="phase 8 options", n=2000, chains=16,
     return launches
 
 
+def vi_update_ms(fit, reps=3):
+    """Milliseconds of one VI update of every chain on ``fit``'s final
+    state (host clock, synchronized; median of ``reps`` after one
+    warm-up call)."""
+    prog, st = fit.prog, fit.final_states
+    y_stan = st.latents if prog.is_binary else prog.y
+    gen = torch.Generator(device=prog.device)
+    gen.manual_seed(0)
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog._vi_update(st, y_stan, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def deviance(p, y):
+    """The binomial deviance of probabilities p (clipped to [1e-9,
+    1 - 1e-9], as the reference's ladder test does)."""
+    p = np.clip(p, 1e-9, 1 - 1e-9)
+    return float(-2 * np.sum(y * np.log(p) + (1 - y) * np.log1p(-p)))
+
+
+def vi_fit(label, device, t3, n, chains, iters, warmup, trees, binary=False,
+           **fit_kw):
+    """One VI-within-Gibbs fit at full width through the single-pass
+    kernel, with its per-phase seconds beside phase 3's NUTS fit (``t3``)
+    and its peak device memory; returns (data, fit, launches, the
+    warnings it raised)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        d, fit, launches = run_fit(label, device, n, chains,
+                                   "bart_sweep_batch", iters, warmup, trees,
+                                   binary=binary, **fit_kw)
+    peak = torch.cuda.max_memory_allocated()
+    finite_draws(label, fit)
+    tm, prog = fit.timings, fit.prog
+    ms = vi_update_ms(fit)
+    nuts_ms = ("" if t3 is None else
+               f"; phase 3's NUTS + linear/level Gibbs "
+               f"{t3['nuts_gibbs'] / t3['iters'] * 1e3:.2f} ms per "
+               "iteration")
+    print(f"{label}: {prog.vi_method} {prog.vi_family} q, {prog.vi_steps} "
+          f"steps x {prog.vi_mc} draws per iteration: one VI update of "
+          f"{chains} chains {ms:.2f} ms (median of 3, host clock, "
+          f"synchronized); VI + linear/level Gibbs "
+          f"{tm['nuts_gibbs'] / iters * 1e3:.2f} ms per iteration{nuts_ms}; "
+          f"peak device memory {peak / 2 ** 30:.2f} GiB; {card()}",
+          flush=True)
+    if t3 is not None:
+        print(f"{label}: per-phase s over {iters} iterations (phase 3's "
+              f"NUTS fit over {t3['iters']}, same call): " + ", ".join(
+                  f"{k} {tm[k]:.2f} ({t3[k]:.2f})"
+                  for k in ("nuts_gibbs", "sweep", "post", "total")),
+              flush=True)
+    return d, fit, launches, [str(w.message) for w in caught]
+
+
+def vi_gates(label, fit, d, sigma_lo, sate=False):
+    """The reference's VI / ADVI gates (tests/test_vi_gibbs.py:20-28,
+    tests/test_algorithms.py:38-50): cor(indiv.bart, mu_bart) >= 0.95
+    (the port's phase 3 gate; the reference's small fixture asks 0.9),
+    |fixef of z - 5| < 1.5 and sigma_lo < sigma < 3.0; with ``sate``
+    the SATE printed too."""
+    cor = centered_cor(fit.fitted("indiv.bart"), d["mu_bart"])
+    fx = fit.extract("fixef").mean(-1)
+    sigma = float(fit.fitted("sigma"))
+    msg = ""
+    if sate:
+        z = d["z"]
+        msg = "; SATE {:.4f} (truth {})".format(float(np.mean(
+            (fit.fitted("ev") - fit.fitted("ev", sample="test"))
+            * (2 * z - 1))), d["tau"])
+    print(f"{label} gates: cor(indiv.bart, mu_bart) {cor:.4f} (>= 0.95); "
+          f"fixef of z {fx[1]:.4f} (within 1.5 of 5); sigma {sigma:.4f} "
+          f"({sigma_lo} < sigma < 3.0){msg}", flush=True)
+    if not (cor >= 0.95 and abs(fx[1] - 5.0) < 1.5
+            and sigma_lo < sigma < 3.0):
+        raise AssertionError(f"{label}: gates failed")
+
+
+def phase_algorithms(device, t3, fit3, ev7, label="phase 9", n=10_000,
+                     chains=256, iters=100, warmup=50, trees=75):
+    """The other algorithms at full width, on phase 3's data and seed,
+    every sweep through the single-pass kernel: a. algorithm="vi"
+    (warns that sigma is biased high), b. "advi" meanfield, c. "advi"
+    fullrank, each with the reference's VI gates; d. "vi" on phase 7's
+    probit data with the binary gates and, when phase 7 ran (``ev7``),
+    the two rungs of the reference's deviance ladder that need no other
+    fit; e. SMC adjudication of phase 3's fit (``fit3``) with the
+    reference's gates.  100 iterations, 50 of them warmup (150 / 75 met
+    the same gates but took 183 s on an H100).
+    Returns the single-pass kernel's launches."""
+    from stan4bart_torch.fit import _init_parametric_fit
+    from scipy.special import ndtr      # the standard normal cdf
+
+    launches = 0
+    for sub, algorithm, sa, sigma_lo in (
+            ("a vi", "vi", {}, 0.8),
+            ("b advi meanfield", "advi", {}, 0.5),
+            ("c advi fullrank", "advi", {"vi_family": "fullrank"}, 0.5)):
+        sub = f"{label}{sub}"
+        d, fit, got, caught = vi_fit(
+            sub, device, t3, n, chains, iters, warmup, trees,
+            algorithm=algorithm, stan_args={"max_treedepth": 6, **sa})
+        launches += got
+        warned = any("biased high" in m for m in caught)
+        print(f"{sub}: 'biased high' warning {warned}", flush=True)
+        if warned != (algorithm == "vi") or fit.prog.vi_family != (
+                sa.get("vi_family", "meanfield")):
+            raise AssertionError(f"{sub}: warning or family")
+        vi_gates(sub, fit, d, sigma_lo, sate=algorithm == "vi")
+        del fit
+
+    sub = f"{label}d vi probit"
+    d, fit, got, _ = vi_fit(sub, device, t3, n, chains, iters, warmup, trees,
+                            binary=True, algorithm="vi")
+    launches += got
+    ev = binary_gates(sub, fit, d)
+    if ev7 is not None:
+        y = d["y"]
+        eta_glm, _ = _init_parametric_fit(fit.mf, "binomial")
+        dev7, dev_glm = deviance(ev7, y), deviance(ndtr(eta_glm), y)
+        dev_vi = deviance(ev, y)
+        print(f"{sub}: deviance ladder (tests/test_e2e_binary.py:54-93): "
+              f"phase 7's NUTS fit {dev7:.1f} <= probit IRLS {dev_glm:.1f}, "
+              f"and <= 1.35 x this VI fit's {dev_vi:.1f} "
+              f"({1.35 * dev_vi:.1f})", flush=True)
+        if not (dev7 <= dev_glm and dev7 <= 1.35 * dev_vi):
+            raise AssertionError(f"{sub}: deviance ladder")
+    del fit
+
+    if fit3 is not None:
+        sub = f"{label}e smc"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        adj = fit3.adjudicate_parametric_smc(n_particles=1024, n_mcmc=8)
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        names = adj["names"]
+        ib, isg = names.index("beta.1"), names.index("aux.1")
+        sm, mm = adj["smc_mean"], adj["mcmc_mean"]
+        print(f"{sub}: adjudicate_parametric_smc(1024 particles, 8 HMC "
+              f"steps) of phase 3's fit took {secs:.2f} s, peak device "
+              f"memory {peak / 2 ** 30:.2f} GiB; {card()}; final_temp "
+              f"{adj['final_temp']} (1.0), log_evidence "
+              f"{adj['log_evidence']:.2f} (finite); beta.1 SMC "
+              f"{sm[ib]:.4f} vs MCMC {mm[ib]:.4f} (within 1.0); sigma SMC "
+              f"{sm[isg]:.4f} vs MCMC {mm[isg]:.4f} (SMC < MCMC + 0.05, "
+              f"> 0.4 x MCMC)", flush=True)
+        if not (adj["final_temp"] == 1.0
+                and np.isfinite(adj["log_evidence"])
+                and abs(sm[ib] - mm[ib]) < 1.0
+                and 0.4 * mm[isg] < sm[isg] < mm[isg] + 0.05
+                and np.all(np.isfinite(adj["draws"]))):
+            raise AssertionError(f"{sub}: gates failed")
+    return launches
+
+
+def phase_algorithm_options(device, label="phase 9 options", n=2000,
+                            chains=16, trees=20, iters=20, warmup=10):
+    """Short VI fits at the options size: one with a callback (the
+    per-chain kernel only), a longer one in chunks whose first iterations
+    equal the whole fit's and whose whole run equals that fit saved,
+    loaded on the card and resumed, to the bit; and VI with sigma_gibbs.
+    Returns the launches by kernel."""
+    import os
+    import tempfile
+
+    import stan4bart_torch as s4b
+    from stan4bart_torch.utils.friedman import generate_friedman_data
+
+    launches = {"bart_sweep_batch": 0, "bart_sweep_chain": 0}
+    d = generate_friedman_data(n, ranef=True, causal=True)
+    vi = dict(algorithm="vi", stan_args={"max_treedepth": 6})
+
+    sub = f"{label} callback"
+    _, fit, got = run_fit(sub, device, n, chains, "bart_sweep_chain", iters,
+                          warmup, trees, data=d,
+                          callback=lambda draw: {"sigma": draw["aux.1"]},
+                          **vi)
+    launches["bart_sweep_chain"] += got
+    same = np.array_equal(fit.extract("callback")["sigma"],
+                          fit.extract("sigma"))
+    finite_draws(sub, fit)
+    print(f"{sub}: {got} per-chain launches; callback sigma equals "
+          f"extract('sigma') {same}", flush=True)
+    if not same:
+        raise AssertionError(f"{sub} failed")
+
+    sub = f"{label} resume"
+    _, whole, got = run_fit(sub, device, n, chains, "bart_sweep_batch",
+                            iters, warmup, trees, data=d, **vi)
+    launches["bart_sweep_batch"] += got
+    _, longer, got = run_fit(f"{sub} uninterrupted, chunk_size=5", device,
+                             n, chains, "bart_sweep_batch", iters + 10,
+                             warmup, trees, data=d, chunk_size=5, **vi)
+    launches["bart_sweep_batch"] += got
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fit.pkl")
+        whole.save(path)
+        back = s4b.Stan4bartFit.load(path, device=device)
+    counts = reset_counts()
+    resumed = back.continue_sampling(10)
+    launches["bart_sweep_batch"] += check_launches(
+        f"{sub} continue_sampling(10)", counts, "bart_sweep_batch", 10)
+    names = ("stan", "bart_train", "bart_test", "k")
+    head = max(float(np.abs(getattr(whole.draws, k).astype(np.float64)
+                            - getattr(longer.draws, k)[:, :iters]).max())
+               for k in names)
+    diff, same = resume_equal(resumed, longer, names)
+    same_vi = all(torch.equal(a, b) for a, b in zip(
+        resumed.final_states.vi, longer.final_states.vi))
+    print(f"{sub}: whole {iters} iterations vs the first {iters} of "
+          f"{iters + 10} in chunks of 5: max difference {head:.3g}; "
+          f"save / load on the card + continue_sampling(10) vs "
+          f"uninterrupted: max difference {diff:.3g}, equal to the bit "
+          f"{same}, final VI state equal {same_vi} (count "
+          f"{float(longer.final_states.vi.count[0]):.0f})", flush=True)
+    if head or not (same and same_vi):
+        raise AssertionError(f"{sub} failed")
+
+    sub = f"{label} sigma_gibbs"
+    _, fit, got = run_fit(sub, device, n, chains, "bart_sweep_batch", iters,
+                          warmup, trees, data=d, algorithm="vi",
+                          stan_args={"max_treedepth": 6,
+                                     "sigma_gibbs": True})
+    launches["bart_sweep_batch"] += got
+    finite_draws(sub, fit)
+    print(f"{sub}: sigma_gibbs {fit.prog.sigma_gibbs}; posterior-mean "
+          f"sigma {float(fit.fitted('sigma')):.4f}; finite draws",
+          flush=True)
+    if not fit.prog.sigma_gibbs:
+        raise AssertionError(f"{sub}: sigma_gibbs off")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (default all); "
                     "1, 2 and 4 are the kernel phases, which the kernels "
                     "line needs")
@@ -1223,12 +1486,14 @@ def main():
     # launches of each kernel on each main path that ran it
     paths = {k: {} for k in KERNELS}
     t3 = None     # phase 3's per-phase seconds, printed beside phase 8's
+    fit3 = ev7 = None     # phase 3's fit and phase 7's P(y = 1), for 9
     if "3" in run:
         # run_fit holds every main path to 0 launches of the stubs
         paths["bart_sweep_batch"]["phase 3"], fit3 = phase_main(
             device, "phase 3", 10_000, 256, "bart_sweep_batch")
-        t3 = fit3.timings
-        del fit3
+        t3 = dict(fit3.timings, iters=fit3.draws.stan.shape[1])
+        if "9" not in run:      # phase 9 adjudicates it by SMC
+            del fit3
         lap("phase 3")
     if "4" in run:
         large = {n: phase_large(device, n, c)
@@ -1247,7 +1512,7 @@ def main():
             phase_offset_types(device)
         lap("phase 6 options")
     if "7" in run:
-        paths["bart_sweep_batch"]["phase 7"] = phase_probit(device)
+        paths["bart_sweep_batch"]["phase 7"], ev7 = phase_probit(device)
         lap("phase 7")
     if "8" in run:
         paths["bart_sweep_batch"]["phase 8"] = phase_all_options(device, t3)
@@ -1255,6 +1520,14 @@ def main():
         for k, v in phase_option_fits(device).items():
             paths[k]["phase 8 options"] = v
         lap("phase 8 options")
+    if "9" in run:
+        paths["bart_sweep_batch"]["phase 9"] = phase_algorithms(
+            device, t3, fit3, ev7)
+        del fit3
+        lap("phase 9")
+        for k, v in phase_algorithm_options(device).items():
+            paths[k]["phase 9 options"] = v
+        lap("phase 9 options")
     print("wall seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; {sum(walls.values()):.1f} in all", flush=True)

@@ -6,7 +6,9 @@ Gibbs-alternated with NUTS over the rstanarm multilevel log-posterior,
     continuous:  y_i | b ~ N( f(X^b_i) + X^f_i beta + Z_i b, sigma^2 )
     binary:      P(y_i = 1 | b) = Phi( f(X^b_i) + X^f_i beta + Z_i b )
 
-with every chain of a fit advanced as one batch on one device.  The BART
+with every chain of a fit advanced as one batch on one device; the
+parametric block by NUTS or, with ``algorithm="vi"`` / ``"advi"``, by
+VI-within-Gibbs.  The BART
 sweep runs as a hand-written CUDA kernel on the GPU (``csrc/*.cu``) and
 as its plain PyTorch version on the CPU.  Entry points run on
 ``device="cuda"`` unless the caller passes ``device="cpu"``.

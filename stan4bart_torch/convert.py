@@ -19,7 +19,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from stan4bart_torch.gibbs import GibbsDraw, GibbsState
+from stan4bart_torch.gibbs import GibbsDraw, GibbsState, ViState
 from stan4bart_torch.ops.bart import BartState
 from stan4bart_torch.ops.nuts import DualAveragingState, NutsState, WelfordState
 from stan4bart_torch.utils.device import resolve_device
@@ -64,7 +64,9 @@ def nuts_state_from_numpy(d, dtype=torch.float64, device="cuda") -> NutsState:
 
 
 def state_from_numpy(d, dtype=torch.float64, device="cuda") -> GibbsState:
-    """A batched Gibbs state: NUTS state, forest, offsets and latents."""
+    """A batched Gibbs state: NUTS state, forest, offsets, latents and
+    the variational state (zero-width fields under NUTS, as in the JAX
+    package)."""
     device = resolve_device(device)
     def arr(name):
         return torch.as_tensor(np.array(_field(d, name), np.float64),
@@ -76,6 +78,7 @@ def state_from_numpy(d, dtype=torch.float64, device="cuda") -> GibbsState:
         bart_offset=arr("bart_offset"),
         stan_offset=arr("stan_offset"),
         latents=arr("latents"),
+        vi=_leaves(_field(d, "vi"), ViState, dtype, device),
     )
 
 

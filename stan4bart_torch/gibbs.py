@@ -8,7 +8,9 @@ its leading dimension; one iteration advances all chains:
 
 1. ``skip_stan`` NUTS transitions over the parametric posterior given the
    current BART fit as offset (Gram-anchored likelihood), with Stan's
-   windowed adaptation during warmup;
+   windowed adaptation during warmup; or, with ``parametric_method="vi"``,
+   a few stochastic-gradient steps of a variational approximation q of
+   that conditional (warm-started across iterations) and one draw from q;
 2. optionally an exact slice-sampling draw of sigma from its full
    conditional (``sigma_gibbs``, gaussian only);
 3. the exact conjugate refresh of the linear block (``linear_gibbs``);
@@ -60,6 +62,7 @@ from stan4bart_torch.ops.bart_sweep_kernel import (
 )
 from stan4bart_torch.ops.nuts import (
     NutsConfig,
+    NutsInfo,
     NutsState,
     init_stepsize,
     make_adapt_schedule,
@@ -73,12 +76,27 @@ GRAM_MAX_D = 1024
 LINEAR_GIBBS_MAX_D = 512
 
 
+class ViState(NamedTuple):
+    """The streaming variational state of VI-within-Gibbs, per chain: the
+    mean, the log-sds, the optimizer's second-moment accumulator, the
+    step count and, fullrank only, the strict lower triangle of the
+    factor L = diag(exp(omega)) + strict_tril(L_off).  Under NUTS every
+    field has zero width."""
+
+    mu: torch.Tensor       # (C, P), or (C, 0)
+    omega: torch.Tensor    # (C, P), or (C, 0)
+    acc: torch.Tensor      # (C, 2P [+ P*P fullrank]), or (C, 0)
+    count: torch.Tensor    # (C,)
+    L_off: torch.Tensor    # (C, P, P) fullrank, else (C, 0, 0)
+
+
 class GibbsState(NamedTuple):
     nuts: NutsState
     bart: BartState
     bart_offset: torch.Tensor   # (C, N) parametric mean fed to BART
     stan_offset: torch.Tensor   # (C, N) BART fit fed to Stan
     latents: torch.Tensor       # (C, N) probit latent response (0 o.w.)
+    vi: ViState
 
 
 class GibbsDraw(NamedTuple):
@@ -140,11 +158,33 @@ class GibbsProgram:
         leaf_block_dim: int = 0,
         gram_lik: bool | None = None,
         keep_trees: bool = False,
+        # "vi": the parametric block by VI-within-Gibbs in place of NUTS;
+        # vi_method "rmsprop" (slow-decay, tracks the moving conditional:
+        # algorithm="vi") or "adagrad" (stan::variational's rule:
+        # algorithm="advi"), on a "meanfield" or "fullrank" q
+        parametric_method: str = "nuts",
+        vi_method: str = "rmsprop",
+        vi_family: str = "meanfield",
+        vi_steps: int = 5,
+        vi_mc: int = 4,
+        vi_eta: float = 0.5,
         dtype=torch.float32,
         device="cuda",
     ):
         if offset_type not in OFFSET_TYPES:
             raise ValueError(f"offset_type must be one of {OFFSET_TYPES}")
+        if parametric_method not in ("nuts", "vi"):
+            raise ValueError("parametric_method must be 'nuts' or 'vi'")
+        if vi_method not in ("rmsprop", "adagrad"):
+            raise ValueError("vi_method must be 'rmsprop' or 'adagrad'")
+        if vi_family not in ("meanfield", "fullrank"):
+            raise ValueError("vi_family must be 'meanfield' or 'fullrank'")
+        self.parametric_method = parametric_method
+        self.vi_method = vi_method
+        self.vi_family = vi_family
+        self.vi_steps = int(vi_steps)
+        self.vi_mc = int(vi_mc)
+        self.vi_eta = float(vi_eta)
         self.offset_type = offset_type
         self.keep_trees = bool(keep_trees)
         self.pm = pm
@@ -339,12 +379,21 @@ class GibbsProgram:
         return bart_state, bart_ops.count_variable_use(
             bart_state.feature, self.ranks.shape[1])
 
-    def _logp(self, q_anchor, stan_offset, y_stan):
-        """The per-chain log-density NUTS runs on this iteration."""
+    def _logp(self, q_anchor, stan_offset, y_stan, reps: int = 1):
+        """The per-chain log-density NUTS runs on this iteration.  With
+        ``reps`` > 1 it takes ``reps`` points of each chain, chain-major
+        ((C * reps, D) rows, row c * reps + m of chain c), each against
+        its own chain's anchor or offset."""
         pm = self.pm
         if self.use_gram:
             anchor = pm.gram_anchor(q_anchor, stan_offset, y_stan)
+            if reps > 1:
+                anchor = tuple(a.repeat_interleave(reps, 0) for a in anchor)
             return lambda u: pm.log_prob_gram(u, anchor)
+        if reps > 1:
+            stan_offset = stan_offset.repeat_interleave(reps, 0)
+            if y_stan.dim() == 2:
+                y_stan = y_stan.repeat_interleave(reps, 0)
         return lambda u: pm.log_prob(u, stan_offset, y_stan)
 
     # ------------------------------------------------------------------
@@ -394,9 +443,21 @@ class GibbsProgram:
                             q0, nuts.inv_mass, self.stepsize_init, gen)
         nuts = nuts._replace(da=nuts.da._replace(
             log_eps=torch.log(eps), mu=torch.log(10.0 * eps)))
+        if self.parametric_method == "vi":
+            # q starts at the chain's start with the initial metric's sds
+            P, fullrank = pm.num_upars, self.vi_family == "fullrank"
+            vi = ViState(
+                mu=q0.clone(), omega=0.5 * torch.log(inv_mass0),
+                acc=q0.new_zeros((C, 2 * P + (P * P if fullrank else 0))),
+                count=q0.new_zeros(C),
+                L_off=q0.new_zeros((C,) + ((P, P) if fullrank else (0, 0))))
+        else:
+            vi = ViState(q0.new_zeros((C, 0)), q0.new_zeros((C, 0)),
+                         q0.new_zeros((C, 0)), q0.new_zeros(C),
+                         q0.new_zeros((C, 0, 0)))
         return GibbsState(nuts=nuts, bart=bart_state,
                           bart_offset=bart_offset, stan_offset=stan_offset,
-                          latents=latents)
+                          latents=latents, vi=vi)
 
     # ------------------------------------------------------------------
 
@@ -713,10 +774,13 @@ class GibbsProgram:
                 q[:, start: start + li * nc] += w.repeat(1, li) \
                     * s[:, pos: pos + 1]
             pos += 1
-        # a chain whose precision does not factor keeps its state: the
+        # a chain whose precision does not factor, or whose draw is not
+        # finite (a theta_L singular in float32, as linear_gibbs_refresh
+        # says), keeps its state: the
         # choice depends on what this draw leaves alone (sigma, sigma_mu,
         # theta_L and the structures), so both branches keep the posterior
-        ok = info == 0
+        ok = ((info == 0) & torch.isfinite(s).all(-1)
+              & torch.isfinite(q).all(-1))
         q = torch.where(ok[:, None], q, nuts.q)
         bart_state = bart_state._replace(**{
             k: torch.where(ok.view((C,) + (1,) * (v.dim() - 1)),
@@ -726,21 +790,113 @@ class GibbsProgram:
                          ("allfit", bart_state.allfit))})
         return nuts._replace(q=q), bart_state
 
+    def _vi_update(self, state: GibbsState, y_stan, gen, z=None,
+                   z_draw=None):
+        """VI-within-Gibbs on the current conditional posterior of every
+        chain: ``vi_steps`` reparameterized stochastic-gradient steps on
+        the negative ELBO of q, then one draw u from q, which becomes the
+        chain's parametric state (the JAX package's ``_vi_update``).
+
+        q is N(mu, diag(exp(2 omega))) (meanfield) or theta = mu + L z with
+        L = diag(exp(omega)) + strict_tril(L_off) (fullrank, entropy
+        sum(omega)).  Each step's ELBO averages ``vi_mc`` draws of each
+        chain, all chains' draws in one batched log-density call.  The
+        step is ``rate / (1 + sqrt(acc)) * g``, acc the running second
+        moment of g (g * g at count 0, then 0.9 acc + 0.1 g * g), rate
+        ``vi_eta (count + 1)^-1/2`` for adagrad or ``vi_eta (1 + 0.02
+        count)^-1/2`` for rmsprop, count carried across iterations; the
+        fullrank L_off steps are damped 5x, omega is kept in [-12, 4] and
+        L_off in [-30, 30].
+
+        z: optional (vi_steps, C, vi_mc, P) normals of the ELBO draws and
+        z_draw (C, P) of the draw from q, replacing the draws from
+        ``gen`` (drawn in that order).  Returns (nuts, info, vi): the
+        NUTS state with q = u, the draw row's sampler columns (lp__ =
+        logp(u), accept_stat__ 1, stepsize__ vi_eta, treedepth__ 0,
+        n_leapfrog__ vi_steps * vi_mc, divergent__ 0, energy__ -lp) and
+        the new ViState."""
+        pm, vi = self.pm, state.vi
+        P, M = pm.num_upars, self.vi_mc
+        C = state.nuts.q.shape[0]
+        dt, dev = self.dtype, self.device
+        fullrank = self.vi_family == "fullrank"
+        if z is None:
+            z = torch.randn((self.vi_steps, C, M, P), generator=gen,
+                            dtype=dt, device=dev)
+        if z_draw is None:
+            z_draw = torch.randn((C, P), generator=gen, dtype=dt, device=dev)
+        logp = self._logp(state.nuts.q, state.stan_offset, y_stan)
+        logp_mc = self._logp(state.nuts.q, state.stan_offset, y_stan,
+                             reps=M)
+
+        def q_sample(v, z):
+            """Draws mu + L z of every chain, z (C, m, P) -> (C, m, P)."""
+            th = v[:, None, :P] + z * torch.exp(v[:, None, P:2 * P])
+            if fullrank:
+                L = torch.tril(v[:, 2 * P:].reshape(C, P, P), -1)
+                th = th + z @ L.transpose(1, 2)
+            return th
+
+        v = torch.cat([vi.mu, vi.omega]
+                      + ([vi.L_off.reshape(C, P * P)] if fullrank else []),
+                      -1)
+        acc, cnt = vi.acc, vi.count
+        for j in range(self.vi_steps):
+            with torch.enable_grad():
+                vg = v.detach().requires_grad_(True)
+                lp = logp_mc(q_sample(vg, z[j]).reshape(C * M, P))
+                neg_elbo = -(lp.reshape(C, M).mean(1)
+                             + vg[:, P:2 * P].sum(1))
+                (g,) = torch.autograd.grad(neg_elbo.sum(), vg)
+            g = torch.where(torch.isfinite(g), g, 0.0)
+            acc = torch.where((cnt == 0.0)[:, None], g * g,
+                              0.9 * acc + 0.1 * g * g)
+            if self.vi_method == "adagrad":
+                rate = self.vi_eta * (cnt + 1.0) ** -0.5
+            else:
+                rate = self.vi_eta * (1.0 + 0.02 * cnt) ** -0.5
+            step = rate[:, None] / (1.0 + torch.sqrt(acc)) * g
+            if fullrank:
+                step[:, 2 * P:] *= 0.2
+            v = v - step
+            v[:, P:2 * P] = v[:, P:2 * P].clamp(-12.0, 4.0)
+            if fullrank:
+                v[:, 2 * P:] = v[:, 2 * P:].clamp(-30.0, 30.0)
+            cnt = cnt + 1.0
+        u = q_sample(v, z_draw[:, None])[:, 0]
+        lp_u = logp(u)
+        one = torch.ones_like(lp_u)
+        info = NutsInfo(lp=lp_u, accept_stat=one, stepsize=one * self.vi_eta,
+                        treedepth=torch.zeros_like(lp_u),
+                        n_leapfrog=one * float(self.vi_steps * M),
+                        divergent=torch.zeros_like(lp_u), energy=-lp_u)
+        L_off = (v[:, 2 * P:].reshape(C, P, P) if fullrank
+                 else vi.L_off)
+        return (state.nuts._replace(q=u), info,
+                ViState(mu=v[:, :P], omega=v[:, P:2 * P], acc=acc,
+                        count=cnt, L_off=L_off))
+
     def _pre_sweep(self, state: GibbsState, it, is_warmup: bool, gen):
-        """NUTS transition(s), the linear-block refresh, parametric mean
-        -> BART offset and the warmup leaf-scale rescale."""
+        """NUTS transition(s) or the VI update, the sigma slice draw, the
+        linear-block refresh, parametric mean -> BART offset and the
+        warmup leaf-scale rescale."""
         pm = self.pm
         y_stan = state.latents if self.is_binary else self.y
         logp = self._logp(state.nuts.q, state.stan_offset, y_stan)
-        nuts = state.nuts
-        for j in range(self.skip_stan):
-            if is_warmup:
-                tr = min(it * self.skip_stan + j, self.n_sched - 1)
-                flags = tuple(bool(s[tr]) for s in self.sched)
-            else:
-                flags = (False, False, False)
-            nuts, info = nuts_transition(logp, nuts, gen, self.nuts_cfg,
-                                         *flags)
+        nuts, vi = state.nuts, state.vi
+        if self.parametric_method == "vi":
+            # one update per iteration whatever skip_stan, as in the JAX
+            # package
+            nuts, info, vi = self._vi_update(state, y_stan, gen)
+        else:
+            for j in range(self.skip_stan):
+                if is_warmup:
+                    tr = min(it * self.skip_stan + j, self.n_sched - 1)
+                    flags = tuple(bool(s[tr]) for s in self.sched)
+                else:
+                    flags = (False, False, False)
+                nuts, info = nuts_transition(logp, nuts, gen,
+                                             self.nuts_cfg, *flags)
         if self.sigma_gibbs:
             nuts = nuts._replace(q=self._sigma_gibbs_update(
                 nuts.q, state.stan_offset, y_stan, gen))
@@ -760,9 +916,9 @@ class GibbsProgram:
                 self.rescale_sched[min(it, self.warmup - 1)]:
             bart_state = bart_state._replace(
                 sigma_mu=self._sigma_mu(bart_offset, bart_state.k))
-        return nuts, info, bart_state, bart_offset, sigma
+        return nuts, vi, info, bart_state, bart_offset, sigma
 
-    def _post_sweep(self, nuts, info, bart_state, bart_offset, latents,
+    def _post_sweep(self, nuts, vi, info, bart_state, bart_offset, latents,
                     varcount, gen, it):
         """The leaf draws, the level interweave, BART fit -> Stan offset,
         draw packaging.
@@ -812,7 +968,8 @@ class GibbsProgram:
             bart_test = bart_fit.new_zeros((C, self.n_test))
         new_state = GibbsState(nuts=nuts, bart=bart_state,
                                bart_offset=bart_offset,
-                               stan_offset=stan_offset, latents=latents)
+                               stan_offset=stan_offset, latents=latents,
+                               vi=vi)
         trees = ((bart_state.feature, bart_state.cut, bart_state.leaf_value)
                  if self.keep_trees else (None, None, None))
         draw = GibbsDraw(stan_row, bart_fit, bart_test, varcount,
@@ -840,7 +997,7 @@ class GibbsProgram:
     def _iterate(self, states: GibbsState, it: int, is_warmup: bool, gen,
                  per_chain: bool):
         t0 = time.perf_counter()
-        nuts, info, bart_state, bart_offset, sigma = self._pre_sweep(
+        nuts, vi, info, bart_state, bart_offset, sigma = self._pre_sweep(
             states, it, is_warmup, gen)
         t0 = self._mark("nuts_gibbs", t0)
         latents = states.latents
@@ -858,8 +1015,8 @@ class GibbsProgram:
                 bart_state, varcount = self._regrow(bart_state, y_target,
                                                     sigma, gen)
         t0 = self._mark("sweep", t0)
-        out = self._post_sweep(nuts, info, bart_state, bart_offset, latents,
-                               varcount, gen, it)
+        out = self._post_sweep(nuts, vi, info, bart_state, bart_offset,
+                               latents, varcount, gen, it)
         self._mark("post", t0)
         return out
 

@@ -55,6 +55,8 @@ class StanArgs:
     leaf_gibbs: int = 0
     leaf_block: int = 0
     leaf_block_dim: int = 0
+    # VI-within-Gibbs knobs (algorithm="vi" / "advi"); vi_family applies
+    # to algorithm="advi" only
     vi_family: str = "meanfield"
     vi_steps: int = 5
     vi_mc: int = 4
@@ -101,6 +103,12 @@ def _validate_stan_args(sa: StanArgs):
     check("obs_shards", sa.obs_shards, lo=0)
     check("leaf_block", sa.leaf_block, lo=0)
     check("leaf_block_dim", sa.leaf_block_dim, lo=0)
+    check("vi_steps", sa.vi_steps, lo=1)
+    check("vi_mc", sa.vi_mc, lo=1)
+    check("vi_eta", sa.vi_eta, lo=0.0, lo_open=True)
+    if sa.vi_family not in ("meanfield", "fullrank"):
+        raise ValueError("stan_args vi_family must be meanfield or "
+                         "fullrank")
     if sa.freeze_rule not in ("bar", "mid", "last"):
         raise ValueError("stan_args freeze_rule must be bar, mid, or last")
     if sa.pooled_parts not in ("metric", "stepsize", "both"):

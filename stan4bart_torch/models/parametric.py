@@ -139,7 +139,9 @@ class ParamLayout:
     def constrain(self, u):
         """(C, D) unconstrained -> dict of (C, size) constrained blocks and
         the (C,) log|Jacobian|: exp for positive blocks, logistic for unit
-        blocks."""
+        blocks, each unit block x with ``x_log`` = log x and ``x_log1m`` =
+        log(1 - x) taken from u, finite wherever u is (a float32 x rounds
+        to 0 or 1 past |u| of about 17)."""
         out = {}
         log_jac = u.new_zeros(u.shape[0])
         for name, (off, size, kind) in self.slices.items():
@@ -148,9 +150,10 @@ class ParamLayout:
                 log_jac = log_jac + x.sum(-1)
                 x = torch.exp(x)
             elif kind == _UNIT:
-                log_jac = log_jac + (torch.nn.functional.logsigmoid(x)
-                                     + torch.nn.functional.logsigmoid(-x)
-                                     ).sum(-1)
+                lo = torch.nn.functional.logsigmoid(x)
+                hi = torch.nn.functional.logsigmoid(-x)
+                log_jac = log_jac + (lo + hi).sum(-1)
+                out[name + "_log"], out[name + "_log1m"] = lo, hi
                 x = torch.sigmoid(x)
             out[name] = x
         return out, log_jac
@@ -244,12 +247,22 @@ def _vech_to_tri(vals, nc):
                         for ri in range(nc)], -2)
 
 
+def _sqrt_1m_sq(rho_log, j):
+    """sqrt(1 - (2 rho_j - 1)^2) = 2 sqrt(rho_j (1 - rho_j)), from the logs
+    of rho_j and 1 - rho_j."""
+    return 2.0 * torch.exp(0.5 * (rho_log[0][:, j] + rho_log[1][:, j]))
+
+
 def make_theta_L(cfg: ParametricConfig, dispersion, tau, scale, zeta, rho,
-                 z_T):
+                 rho_log, z_T):
     """Scaled onion-method Cholesky blocks (C, len_theta_L).
 
     dispersion (C,), tau (C, t), scale t floats, zeta (C, len_concentration),
-    rho (C, len_rho), z_T (C, len_z_T)."""
+    rho (C, len_rho) with rho_log = (log rho, log(1 - rho)), z_T (C,
+    len_z_T).  sqrt(1 - (2 rho - 1)^2) is taken as 2 exp((log rho +
+    log(1 - rho)) / 2) and sqrt(1 - rho) as exp(log(1 - rho) / 2): in
+    float32 a correlation rounded to -1 or 1 would otherwise make theta_L
+    singular."""
     theta_L = []
     zeta_mark = rho_mark = z_T_mark = 0
     for i, nc in enumerate(cfg.p):
@@ -265,8 +278,8 @@ def make_theta_L(cfg: ParametricConfig, dispersion, tau, scale, zeta, rho,
         T[0][0] = std_dev
         std_dev = torch.sqrt(pi_seg[:, 1] * trace_T_i)
         T21 = 2.0 * rho[:, rho_mark] - 1.0
+        T[1][1] = std_dev * _sqrt_1m_sq(rho_log, rho_mark)
         rho_mark += 1
-        T[1][1] = std_dev * torch.sqrt(1.0 - T21 * T21)
         T[1][0] = std_dev * T21
         for r in range(1, nc - 1):
             T_row = z_T[:, z_T_mark: z_T_mark + r + 1]
@@ -276,7 +289,8 @@ def make_theta_L(cfg: ParametricConfig, dispersion, tau, scale, zeta, rho,
             std_dev = torch.sqrt(pi_seg[:, r + 1] * trace_T_i)
             for ci in range(r + 1):
                 T[r + 1][ci] = T_row[:, ci] * scale_factor
-            T[r + 1][r + 1] = torch.sqrt(1.0 - rho[:, rho_mark]) * std_dev
+            T[r + 1][r + 1] = (torch.exp(0.5 * rho_log[1][:, rho_mark])
+                               * std_dev)
             rho_mark += 1
         for ci in range(nc):
             for ri in range(ci, nc):
@@ -286,13 +300,13 @@ def make_theta_L(cfg: ParametricConfig, dispersion, tau, scale, zeta, rho,
     return torch.stack(theta_L, -1)
 
 
-def make_theta_L_lkj(cfg: ParametricConfig, sds, rho, z_T):
+def make_theta_L_lkj(cfg: ParametricConfig, sds, rho, rho_log, z_T):
     """Cholesky blocks (C, len_theta_L) under the lkj covariance prior:
     diag(sds_i) times the correlation Cholesky of the same onion
     recursion (the rho beta ladder with shape ``regularization`` is the
     LKJ onion sampler).  The dispersion is not folded in: sds are in
-    response units.  sds (C, sum p), rho (C, len_rho), z_T (C,
-    len_z_T)."""
+    response units.  sds (C, sum p), rho (C, len_rho) and rho_log (as in
+    ``make_theta_L``), z_T (C, len_z_T)."""
     theta_L = []
     sd_mark = rho_mark = z_T_mark = 0
     for nc in cfg.p:
@@ -305,8 +319,8 @@ def make_theta_L_lkj(cfg: ParametricConfig, sds, rho, z_T):
         T = [[None] * nc for _ in range(nc)]
         T[0][0] = sd_seg[:, 0]
         T21 = 2.0 * rho[:, rho_mark] - 1.0
+        T[1][1] = sd_seg[:, 1] * _sqrt_1m_sq(rho_log, rho_mark)
         rho_mark += 1
-        T[1][1] = sd_seg[:, 1] * torch.sqrt(1.0 - T21 * T21)
         T[1][0] = sd_seg[:, 1] * T21
         for r in range(1, nc - 1):
             T_row = z_T[:, z_T_mark: z_T_mark + r + 1]
@@ -316,7 +330,7 @@ def make_theta_L_lkj(cfg: ParametricConfig, sds, rho, z_T):
                             * sd_seg[:, r + 1])
             for ci in range(r + 1):
                 T[r + 1][ci] = T_row[:, ci] * scale_factor
-            T[r + 1][r + 1] = (torch.sqrt(1.0 - rho[:, rho_mark])
+            T[r + 1][r + 1] = (torch.exp(0.5 * rho_log[1][:, rho_mark])
                                * sd_seg[:, r + 1])
             rho_mark += 1
         for ci in range(nc):
@@ -483,12 +497,14 @@ class ParametricModel:
         beta = (compute_beta(cfg, c, h, aux) if cfg.K > 0
                 else self._empty(c))
         get = lambda n: c.get(n, self._empty(c))  # noqa: E731
+        rho_log = (get("rho_log"), get("rho_log1m"))
         if cfg.cov_prior == 1:
-            theta_L = make_theta_L_lkj(cfg, get("sds"), get("rho"),
+            theta_L = make_theta_L_lkj(cfg, get("sds"), get("rho"), rho_log,
                                        get("z_T"))
         else:
             theta_L = make_theta_L(cfg, aux, get("tau"), self.scale_decov,
-                                   get("zeta"), get("rho"), get("z_T"))
+                                   get("zeta"), get("rho"), rho_log,
+                                   get("z_T"))
         b = (get("b_raw") if cfg.centered
              else make_b(cfg, get("z_b"), theta_L))
         return dict(aux=aux, beta=beta, theta_L=theta_L, b=b)
@@ -610,9 +626,8 @@ class ParametricModel:
             if cfg.len_z_T > 0:
                 lp = lp - sq("z_T")
             if cfg.len_rho > 0:
-                rho = c["rho"]
-                lp = lp + (rho_a1 * torch.log(rho)
-                           + rho_b1 * torch.log1p(-rho)).sum(-1)
+                lp = lp + (rho_a1 * c["rho_log"]
+                           + rho_b1 * c["rho_log1m"]).sum(-1)
             if cfg.cov_prior == 1:
                 # lkj: sds ~ half-Student-t(df, 0, scale) per term
                 sd_mark = 0
@@ -775,11 +790,12 @@ class ParametricModel:
             v  = v_hat + d* + L^{-T} z,   L = chol(Q),  z ~ N(0, I_D)
 
         Q is formed and factored in float64.  A chain whose Q still does
-        not factor keeps its coefficients: the factorization depends only
-        on (aux, theta_L), which this draw leaves alone, so the skip is a
-        state-dependent choice between two kernels that both leave the
-        posterior invariant (the JAX package's Cholesky gives that chain
-        NaN).
+        not factor, or whose draw is not finite (a theta_L singular in
+        float32, as an unconstrained correlation past |u| of about 200
+        makes it), keeps its coefficients: both depend only on (aux, theta_L), which this draw
+        leaves alone, so the skip is a state-dependent choice between two
+        kernels that both leave the posterior invariant (the JAX
+        package's Cholesky gives that chain NaN).
 
         z: optional (C, D) standard normals replacing the draw."""
         cfg = self.cfg
@@ -866,7 +882,8 @@ class ParametricModel:
                         b_mark += nc * li
                 off = self.layout.slices["z_b"][0]
                 u[:, off: off + cfg.q] = torch.cat(parts, -1)
-        return torch.where((info == 0)[:, None], u, u_in)
+        ok = (info == 0) & torch.isfinite(u).all(-1)
+        return torch.where(ok[:, None], u, u_in)
 
     def initial_inv_mass(self, scale_y: float, n_obs: int) -> np.ndarray:
         """Analytic initial diagonal inverse metric: early-chain UPPER

@@ -139,8 +139,7 @@ def test_entry_points_need_cuda_or_explicit_cpu():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
     # what stays unported names its ROADMAP queue item
-    for kw, item in (({"algorithm": "vi"}, "10"),
-                     ({"bart_args": {"p_regrow": 0.2}}, "13"),
+    for kw, item in (({"bart_args": {"p_regrow": 0.2}}, "13"),
                      ({"stan_args": {"obs_shards": 2}}, "11")):
         with pytest.raises(NotImplementedError,
                            match=f"queue 1 item {item}"):
@@ -160,6 +159,8 @@ def test_port_imports_without_jax():
         "sys.meta_path.insert(0, Block())\n"
         "import stan4bart_torch, stan4bart_torch.convert\n"
         "import stan4bart_torch.ops.cuda_build\n"
+        "import stan4bart_torch.ops.advi, stan4bart_torch.ops.smc\n"
+        "import stan4bart_torch.ops.nuts_driver\n"
         "assert not any(m.split('.')[0] in ('jax', 'stan4bart_tpu') "
         "for m in sys.modules)\n"
         "print('ok')\n")
