@@ -3,7 +3,7 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases 1,2,4  # build + the kernel phases only
 
-Builds the port's four CUDA kernel sources from ``stan4bart_torch/csrc``
+Builds the port's five CUDA kernel sources from ``stan4bart_torch/csrc``
 with nvcc (one process per source, started together), then:
 
 1. holds every sweep kernel against their plain PyTorch version at small
@@ -18,7 +18,9 @@ with nvcc (one process per source, started together), then:
    each kernel's K and shared memory per block and times the kernels and
    the plain version with CUDA events; then holds the ablation stubs of
    the single-pass kernel (copy, obs) against their plain versions and
-   times copy, obs and the full kernel at 256 and at 64 chains;
+   times copy, obs and the full kernel at 256 and at 64 chains; and
+   holds the single-pass and per-chain kernels at 128 chains, the shape
+   of phases 6-9's fits, at the K they pick there;
 3. runs the single-pass kernel's main path: ``stan4bart_torch.stan4bart``
    on the flagship Friedman model at n = 10000 with 256 chains on the card
    (150 iterations, 75 of them warmup), checks that every sweep went
@@ -32,15 +34,18 @@ with nvcc (one process per source, started together), then:
    its K, against the plain version and to the bit against the obs-tiled
    one at the same K, with its K and shared memory per block, and at
    n = 50000 its time at every K = 2..8 (K = 1 does not fit on chip);
+   and the obs-tiled kernel at n = 50000 with 32 chains, phase 5's shape,
+   at the K it picks there;
 5. runs the obs-tiled kernel's main path: the same fit at n = 50000 with
-   64 chains, every sweep through the obs-tiled kernel, with the same
+   32 chains, every sweep through the obs-tiled kernel, with the same
    checks.  It runs 225 iterations, 150 of them warmup, so the gates
    read the last 75 draws: at n = 50000 the chains' sigma needs about
    150-225 iterations to come down from its start (the 25-iteration
    blocks it prints show it), and at 150 / 75 the posterior-mean sigma
    misses the gate;
-6. runs the per-chain path: the phase 3 fit with ``keep_fits=False`` and
-   a callback returning each draw's sigma and BART fit, so every
+6. runs the per-chain path: the phase 3 fit (at 128 chains) with
+   ``keep_fits=False`` and a callback returning each draw's sigma and BART
+   fit, so every
    iteration is ``GibbsProgram.step`` and every sweep the per-chain
    kernel; no raw draws may be stored, and the quality gates are computed
    from the callback's outputs; then a short per-chain fit on the card
@@ -54,49 +59,72 @@ with nvcc (one process per source, started together), then:
    original's; then one short fit per non-default ``offset_type`` with a
    user offset, each finite and with the level interweave off;
 7. runs the stored-forest surfaces at full width: a probit fit of the
-   phase 3 shape (n = 10000, 256 chains, 150 iterations, 75 warmup) with
+   phase 3 shape (n = 10000, 128 chains, 150 iterations, 75 warmup) with
    ``keep_trees``, every sweep through the single-pass kernel; the
    reference's binary gates; ``predict`` over the stored forests against
    the in-loop test and train fits (1e-5), with its seconds and the peak
-   device memory; ``loo`` / ``waic`` of the probit fit over its last 25
+   device memory; ``loo`` / ``waic`` of the probit fit over its last 15
    iterations; ``continue_sampling(10)`` whole and in chunks of 4, each
    with 10 launches of the single-pass kernel and equal to the bit;
-8. runs the model and sampler options at full width: the phase 3 fit
-   with ``qr``, centered random effects, ``prior_covariance=lkj()``,
-   ``sigma_gibbs``, ``leaf_gibbs = 1``, ``leaf_block = 25`` and one
-   subtree regrow per sweep, every sweep through the single-pass kernel;
-   the reference's gaussian gates, SATE within 1 of the truth, every
-   posterior-mean Sigma positive definite, its per-phase seconds beside
-   phase 3's and its peak device memory; then short fits at n = 2000
-   with 16 chains (20 iterations, 10 warmup): one per coefficient prior
-   (hs, hs_plus, laplace, lasso, product_normal, and R2 with ``qr``;
-   max_treedepth 4), finite; a probit fit with ``leaf_gibbs = 2``,
-   ``leaf_block = 5`` and two regrows per sweep; a per-chain fit
+8. runs the model and sampler options at full width: the phase 3 fit (at
+   128 chains) with ``qr``, centered random effects,
+   ``prior_covariance=lkj()``, ``sigma_gibbs``, ``leaf_gibbs = 1``,
+   ``leaf_block = 25`` and one subtree regrow per sweep, every sweep
+   through the single-pass kernel; the reference's gaussian gates, SATE
+   within 1 of the truth, every posterior-mean Sigma positive definite, its
+   per-phase seconds beside phase 3's and its peak device memory; then
+   short fits at n = 2000 with 16 chains (12 iterations, 6 warmup): one
+   per coefficient prior (hs, hs_plus, laplace, lasso, product_normal, and
+   R2 with ``qr``; max_treedepth 4), finite; a probit fit with ``leaf_gibbs
+   = 2``, ``leaf_block = 5`` and two regrows per sweep; a per-chain fit
    (callback, ``keep_trees``, ``sigma_gibbs``, centered random effects,
    ``leaf_block = 5``, one regrow per sweep) whose ``predict`` gives its
    stored fits and whose ``continue_sampling(10)`` whole equals one in
-   chunks of 5 to the bit;
-   and a ``qr`` fit saved, loaded on the card and resumed, its last
-   stored betas R_inv times the final state's rotated ones before and
-   after (un-rotated once);
-9. runs the other algorithms at full width, on phase 3's data and seed,
-   every sweep through the single-pass kernel: ``algorithm="vi"`` (its
-   "biased high" warning), ``"advi"`` meanfield and fullrank, each with
-   the reference's VI gates (cor(indiv.bart, mu_bart) >= 0.95, the
+   chunks of 5 to the bit; and a ``qr`` fit saved, loaded on the card and
+   resumed, its last stored betas R_inv times the final state's rotated
+   ones before and after (un-rotated once);
+9. runs the other algorithms at full width, on phase 3's data and seed (128
+   chains), every sweep through the single-pass kernel: ``algorithm="vi"``
+   (its "biased high" warning), ``"advi"`` meanfield and fullrank, each
+   with the reference's VI gates (cor(indiv.bart, mu_bart) >= 0.95, the
    treatment's fixed effect within 1.5 of 5, sigma below 3), its
    milliseconds per VI update beside phase 3's NUTS milliseconds per
-   iteration and its peak device memory; ``"vi"`` on phase 7's probit
-   data with the binary gates and, when phase 7 ran, the deviance ladder
-   (phase 7's fit at most the probit IRLS fit's deviance and 1.35 x the
-   VI fit's); and, when phase 3 ran, ``adjudicate_parametric_smc`` of
-   its fit at 1024 particles with the reference's gates; then short VI
-   fits at n = 2000 with 16 chains: one with a callback (the per-chain
-   kernel only), one whole against the first iterations of a longer one
-   in chunks and against its own ``save`` / ``load`` + resume (to the
-   bit), and one with ``sigma_gibbs``.
+   iteration and its peak device memory; ``"vi"`` on phase 7's probit data
+   with the binary gates and, when phase 7 ran, the deviance ladder (phase
+   7's fit at most the probit IRLS fit's deviance and 1.35 x the VI fit's);
+   and, when phase 3 ran, ``adjudicate_parametric_smc`` of its fit at 1024
+   particles with the reference's gates; then short VI fits at n = 2000
+   with 16 chains: one with a callback (the per-chain kernel only), one
+   whole against the first iterations of a longer one in chunks and against
+   its own ``save`` / ``load`` + resume (to the bit), and one with
+   ``sigma_gibbs``.
+10. runs the multi-process paths with their ranks as processes on the
+   one card (``parallel.mesh.spawn``), joined by gloo over CUDA tensors
+   (NCCL refuses two ranks on one card; the backend is printed): a. the
+   observation-sharded sweep kernel ``csrc/bart_sweep_sharded.cu`` over 2
+   ranks at n = 50 000 (25 000 each) x 64 chains x 75 trees, one sweep
+   from a prior-drawn forest on shared variates, against the plain
+   sharded sweep (identical forests in every chain, leaf values within
+   ``LV_TOL``) and against the obs-tiled kernel over the whole n
+   (identical forests in at least 63 chains), the same at phase b's
+   shape (n = 10 000 over 2 ranks x 128 chains) at the K and apply blocks
+   the kernel picks there, and at world size 1 against the obs-tiled
+   kernel; its stats + apply kernels timed with
+   CUDA events (median of 7), the sweep with its all-reduces on the host
+   clock, the obs-tiled kernel in the same call, and the bound at the
+   local n; b. the phase 3 fit at full width on 4 ranks, 2 chain groups
+   of 128 chains x ``obs_shards = 2``: every sweep through the sharded
+   kernel (its count iterations x trees per rank, no other sweep
+   kernel), the gathered draws identical on every rank, the gaussian
+   gates and SATE, per-phase seconds and peak memory per rank; c. at
+   n = 2 000 x 16 chains x 20 iterations: a 2-rank chain-sharded fit
+   equal to the bit, rank by rank, to single-process fits of the same
+   chains with the ranks' seeds, and a 2-rank obs-sharded fit whose first
+   forests equal the unsharded fit's in all but at most one chain.
 
-``--phases 3,7,9`` runs the listed phases only (``--phases 1,2,4`` the
-kernel phases; the kernels line needs those three).  Prints the card
+``--phases 3,7,9`` runs the listed phases only (``--phases 1,2,4,10`` the
+kernel phases; the kernels line needs those; ``10a``, ``10b`` and
+``10c`` run one part of phase 10).  Prints the card
 (``nvidia-smi``), a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero.  Needs no network; imports nothing of JAX.
@@ -106,9 +134,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 from dataclasses import replace
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -126,7 +156,9 @@ STATS_TOL = dict(rtol=5e-4, atol=1e-2)
 HBM_BYTES_PER_S = 3.35e12
 P = 9
 KERNELS = ("bart_sweep_batch", "bart_sweep_tiled", "bart_sweep_chain",
-           "bart_sweep_ablate")
+           "bart_sweep_ablate", "bart_sweep_sharded")
+# phase 10's ranks share the card; NCCL refuses two ranks on one card
+RANK_BACKEND = "gloo"
 
 FLAGSHIP = ("y ~ bart(. - g.1 - g.2 - X4 - z) + X4 + z + (1 + X4 | g.1) "
             "+ (1 | g.2)")
@@ -355,6 +387,27 @@ def smem_note(name, N, T, K):
             f"{where}")
 
 
+def hold_at_path_shape(device, label, N, C, kernels, seed, T=75):
+    """Each kernel of ``kernels`` (its name in ``check_sweep``'s lines ->
+    (launcher, wrapper)) at a main path's cut shape, at the K its wrapper
+    picks there, against the plain version; the largest error per name."""
+    from stan4bart_torch.ops.bart_sweep_kernel import sweep_plain
+
+    _, state, yt, args = sweep_args(N, T, C, seed, device)
+    outs, ks = {}, {}
+    for name, (launch, wrapper) in kernels.items():
+        outs[name] = launch(*args)
+        ks[name] = wrapper.last_cluster
+    outs["plain"] = sweep_plain(*args)
+    torch.cuda.synchronize()
+    res = check_sweep(f"{label} n={N} chains={C}", outs, state, yt, C, N, T,
+                      C - 1)
+    print(f"{label} n={N} chains={C}: the K each kernel picks at a main "
+          "path's shape: " + ", ".join(f"{k} K={v}" for k, v in ks.items()),
+          flush=True)
+    return {k: v[1] for k, v in res.items()}
+
+
 def phase_full(device, reps=7, C=256, N=10_000, T=75):
     """The three kernels vs plain at the bench shape, and their times."""
     from stan4bart_torch.ops.bart_sweep_kernel import (
@@ -378,6 +431,11 @@ def phase_full(device, reps=7, C=256, N=10_000, T=75):
         if not same:
             raise AssertionError(f"phase 2: {label} differs from batch")
     del outs
+    # phases 6-9 run their fits at 128 chains, where the K differs
+    at128 = hold_at_path_shape(
+        device, "phase 2", N, 128,
+        {"batch": (sweep_cuda, bart_sweep_fused_batch),
+         "chain": (sweep_chain_cuda, bart_sweep_fused)}, seed=6, T=T)
 
     scan = []
     for k in range(1, 5):     # at least 2048 observations per block
@@ -407,9 +465,10 @@ def phase_full(device, reps=7, C=256, N=10_000, T=75):
           f"the measured copy rate {bw / 1e12:.3f} TB/s; {card()}",
           flush=True)
     return dict(ms=b_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                max_abs_err=res["batch"][1], cluster=kb,
+                max_abs_err=max(res["batch"][1], at128["batch"]), cluster=kb,
                 tiled_ms=t_ms, tiled_max_abs_err=res["tiled"][1],
-                chain_ms=c_ms, chain_max_abs_err=res["chain"][1],
+                chain_ms=c_ms,
+                chain_max_abs_err=max(res["chain"][1], at128["chain"]),
                 chain_cluster=kc)
 
 
@@ -562,12 +621,13 @@ def launch_counters():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from stan4bart_torch.ops.bart_sweep_kernel import (
         bart_sweep_ablate, bart_sweep_fused, bart_sweep_fused_batch,
-        bart_sweep_fused_batch_tiled)
+        bart_sweep_fused_batch_tiled, bart_sweep_fused_sharded)
 
     return {"bart_sweep_batch": bart_sweep_fused_batch,
             "bart_sweep_tiled": bart_sweep_fused_batch_tiled,
             "bart_sweep_chain": bart_sweep_fused,
-            "bart_sweep_ablate": bart_sweep_ablate}
+            "bart_sweep_ablate": bart_sweep_ablate,
+            "bart_sweep_sharded": bart_sweep_fused_sharded}
 
 
 def reset_counts():
@@ -663,7 +723,7 @@ def phase_main(device, label, n, chains, kernel, iters=150, warmup=75,
     return launches, fit
 
 
-def phase_chain(device, label="phase 6", n=10_000, chains=256, iters=150,
+def phase_chain(device, label="phase 6", n=10_000, chains=128, iters=150,
                 warmup=75, trees=75):
     """The per-chain path at full width: the phase 3 fit with
     ``keep_fits=False`` and a callback, so every iteration runs
@@ -782,8 +842,8 @@ def phase_options(device, label="phase 6 options", n=2000, chains=16,
     return launches
 
 
-def phase_offset_types(device, n=2000, chains=16, trees=20, iters=20,
-                       warmup=10):
+def phase_offset_types(device, n=2000, chains=16, trees=20, iters=12,
+                       warmup=6):
     """One short fit per non-default offset_type with a user offset taken
     from the generator's components, each through the single-pass
     kernel: finite draws and the level interweave off.  Returns the
@@ -844,7 +904,7 @@ def binary_gates(label, fit, d):
     return ev
 
 
-def phase_probit(device, label="phase 7", n=10_000, chains=256,
+def phase_probit(device, label="phase 7", n=10_000, chains=128,
                  iters=150, warmup=75, trees=75):
     """The stored-forest surfaces at full width: a probit fit with
     keep_trees through the single-pass kernel, its gates, predict against
@@ -887,10 +947,10 @@ def phase_probit(device, label="phase 7", n=10_000, chains=256,
     if not (test_err <= 1e-5 and train_err <= 1e-5):
         raise AssertionError(f"{label}: predict differs from the stored fits")
 
-    # loo / waic over the last 25 iterations (6400 draws): the Pareto fits
-    # and the log-likelihood run on the host, 75 s of the script for all
-    # 75 post-warmup iterations
-    last = replace(fit, draws=tree_map(lambda a: a[:, -25:], fit.draws),
+    # loo / waic over the last 15 iterations: the Pareto fits and the
+    # log-likelihood run on the host, 75 s of the script for all 75
+    # post-warmup iterations of 256 chains
+    last = replace(fit, draws=tree_map(lambda a: a[:, -15:], fit.draws),
                    warmup=0)
     ic = {}
     for name, f in (("probit loo", last.loo), ("probit waic", last.waic)):
@@ -907,8 +967,8 @@ def phase_probit(device, label="phase 7", n=10_000, chains=256,
                    + (f", {r['n_high_k']} of {r['n_obs']} pareto_k > 0.7"
                       if "loo" in name else "")
                    + f", {r['seconds']:.2f} s")
-    print(f"{label}: " + "; ".join(msg) + f" (over the last 25 iterations, "
-          f"{25 * chains} draws)", flush=True)
+    print(f"{label}: " + "; ".join(msg) + f" (over the last 15 iterations, "
+          f"{15 * chains} draws)", flush=True)
 
     resumed = {}
     for which, kw in (("whole", {}), ("chunked", {"chunk_size": 4})):
@@ -1003,7 +1063,7 @@ def option_costs(fit, reps=3):
     return out
 
 
-def phase_all_options(device, t3, label="phase 8", n=10_000, chains=256,
+def phase_all_options(device, t3, label="phase 8", n=10_000, chains=128,
                 iters=150, warmup=75, trees=75):
     """Every option at full width: the phase 3 data and seed with
     every model and sampler option of the single-device fit on (qr,
@@ -1076,7 +1136,7 @@ def beta_unrotated(fit):
 
 
 def phase_option_fits(device, label="phase 8 options", n=2000, chains=16,
-                        trees=20, iters=20, warmup=10):
+                        trees=20, iters=12, warmup=6):
     """Short fits of the options at the offset-type size: one per
     coefficient prior (R2 with qr), a probit fit with the leaf draws and
     regrows, a per-chain fit with a callback, stored forests and every
@@ -1287,7 +1347,7 @@ def vi_gates(label, fit, d, sigma_lo, sate=False):
 
 
 def phase_algorithms(device, t3, fit3, ev7, label="phase 9", n=10_000,
-                     chains=256, iters=100, warmup=50, trees=75):
+                     chains=128, iters=100, warmup=50, trees=75):
     """The other algorithms at full width, on phase 3's data and seed,
     every sweep through the single-pass kernel: a. algorithm="vi"
     (warns that sigma is biased high), b. "advi" meanfield, c. "advi"
@@ -1443,19 +1503,389 @@ def phase_algorithm_options(device, label="phase 9 options", n=2000,
     return launches
 
 
+def _local_args(args, rank, world):
+    """Rank ``rank``'s shard of one sweep's kernel operands (``sweep_args``)
+    out of ``world`` equal shards of the observations."""
+    from stan4bart_torch.ops.bart_sweep_kernel import SweepConsts
+
+    cfg, feature, cut, lidx, tfit, resid0, s2, t2, u, zn, consts = args
+    n = consts.n_obs // world
+    sl = slice(rank * n, (rank + 1) * n)
+    local = consts._replace(ranks_t=consts.ranks_t[:, sl].contiguous(),
+                            n_obs=n, npad=-(-max(n, 128) // 128) * 128)
+    assert isinstance(local, SweepConsts)
+    return (cfg, feature, cut, lidx[..., sl].contiguous(),
+            tfit[..., sl].contiguous(), resid0[:, sl].contiguous(), s2, t2,
+            u, zn, local), sl
+
+
+def _same_chains(a, b, sl_a=slice(None), sl_b=slice(None)):
+    """Per chain, whether two sweeps' raw outputs give the same forest and
+    leaf indices (over the given observation slices); and the largest
+    leaf-value and fit differences over those chains."""
+    same = ((a[0] == b[0]).flatten(1).all(1) & (a[1] == b[1]).flatten(1).all(1)
+            & (a[3][..., sl_a] == b[3][..., sl_b]).flatten(1).all(1))
+    ok = same.nonzero()[:, 0]
+    lv = fit = 0.0
+    if len(ok):
+        torch.testing.assert_close(a[2][ok], b[2][ok], **LV_TOL,
+                                   msg="leaf values")
+        torch.testing.assert_close(a[4][ok][..., sl_a], b[4][ok][..., sl_b],
+                                   **FIT_TOL, msg="tree fits")
+        lv = float((a[2][ok] - b[2][ok]).abs().max())
+        fit = float((a[4][ok][..., sl_a] - b[4][ok][..., sl_b]).abs().max())
+    return same.cpu().numpy(), max(lv, fit)
+
+
+def _sharded_rank(rank, world, device, N, C, T, reps, path_shape):
+    """Phase 10a in one rank: the sharded kernel on this rank's shard
+    against the plain sharded sweep (both all-reducing over the world)
+    and against the obs-tiled kernel over the whole n, at (N, C) and at
+    the composed path's ``path_shape`` (its n and chains per data group)
+    with the K and apply blocks the kernel picks there; rank 0 also times
+    them and checks world size 1."""
+    import torch.distributed as dist
+
+    from stan4bart_torch.ops.bart_sweep_kernel import (
+        apply_blocks, bart_sweep_fused_sharded, sweep_plain,
+        sweep_sharded_cuda, sweep_tiled_cuda)
+    from stan4bart_torch.parallel.mesh import DataAxis
+
+    # gloo's all_reduce and broadcast take CUDA tensors
+    x = torch.full((3,), float(rank + 1), device=device)
+    dist.all_reduce(x)
+    y = torch.full((3,), float(rank), device=device)
+    dist.broadcast(y, 0)
+    gloo_cuda = bool((x == world * (world + 1) / 2).all()
+                     and (y == 0).all() and x.is_cuda)
+    cfg, state, yt, args = sweep_args(N, T, C, 4, device)
+    largs, sl = _local_args(args, rank, world)
+    axis = DataAxis()
+    k = sweep_sharded_cuda(*largs, reduce=axis.sum)
+    reductions = axis.calls
+    p = sweep_plain(*largs, reduce=axis.sum)
+    t = sweep_tiled_cuda(*args)
+    torch.cuda.synchronize()
+    same_p, err_p = _same_chains(k, p)
+    same_t, err_t = _same_chains(k, t, slice(None), sl)
+    out = dict(gloo_cuda=gloo_cuda, backend=str(dist.get_backend()),
+               same_plain=same_p, err_plain=err_p, same_tiled=same_t,
+               err_tiled=err_t, reductions=reductions,
+               cluster=bart_sweep_fused_sharded.last_cluster)
+    # the composed path's shape (phase 10b's data group)
+    N2, C2 = path_shape
+    _, _, _, args2 = sweep_args(N2, T, C2, 6, device)
+    largs2, sl2 = _local_args(args2, rank, world)
+    k2 = sweep_sharded_cuda(*largs2, reduce=axis.sum)
+    out.update(path_cluster=bart_sweep_fused_sharded.last_cluster,
+               path_apply=apply_blocks(C2, largs2[-1].n_obs))
+    p2 = sweep_plain(*largs2, reduce=axis.sum)
+    t2 = sweep_tiled_cuda(*args2)
+    torch.cuda.synchronize()
+    out["path_same_plain"], out["path_err_plain"] = _same_chains(k2, p2)
+    out["path_same_tiled"], out["path_err_tiled"] = _same_chains(
+        k2, t2, slice(None), sl2)
+    del args2, largs2, k2, p2, t2
+    # the sweep with its all-reduces, every rank at once (host clock)
+    walls = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep_sharded_cuda(*largs, reduce=axis.sum)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["wall_ms"] = float(np.median(walls))
+    out["walls"] = walls
+    dist.barrier()
+    if rank == 0:
+        # one rank on the card at a time: the kernels alone, the plain
+        # version, the obs-tiled kernel over the whole n, world size 1
+        out["ms"], out["all_ms"] = _time(lambda: sweep_sharded_cuda(*largs),
+                                         reps)
+        out["plain_ms"] = _time(lambda: sweep_plain(*largs), 3)[0]
+        out["tiled_ms"] = _time(lambda: sweep_tiled_cuda(*args), reps)[0]
+        w1 = sweep_sharded_cuda(*args)
+        torch.cuda.synchronize()
+        out["same_w1"], out["err_w1"] = _same_chains(w1, t)
+        out["w1_ms"] = _time(lambda: sweep_sharded_cuda(*args), reps)[0]
+        out["bound_ms"] = (sweep_bytes(C, T, N // world, cfg.max_nodes)
+                           / HBM_BYTES_PER_S * 1e3)
+        out["bound_w1_ms"] = (sweep_bytes(C, T, N, cfg.max_nodes)
+                              / HBM_BYTES_PER_S * 1e3)
+    dist.barrier()
+    return out
+
+
+def phase_sharded_kernel(N=50_000, C=64, T=75, reps=7, label="phase 10a",
+                         path_shape=(10_000, 128)):
+    """The observation-sharded sweep kernel over 2 ranks on the card."""
+    from stan4bart_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    r0, r1 = mesh.spawn(_sharded_rank, ["cuda:0", "cuda:0"], RANK_BACKEND,
+                        args=(N, C, T, reps, path_shape), timeout_s=600)
+    same_p = r0["same_plain"] & r1["same_plain"]
+    same_t = r0["same_tiled"] & r1["same_tiled"]
+    print(f"{label}: backend {r0['backend']}, gloo all_reduce / broadcast "
+          f"on CUDA tensors: {r0['gloo_cuda'] and r1['gloo_cuda']}; n={N} "
+          f"over 2 ranks, chains={C}, trees={T}, stats K="
+          f"{r0['cluster']}: {int(same_p.sum())}/{C} chains identical to "
+          f"the plain sharded sweep (max |kernel - plain| "
+          f"{max(r0['err_plain'], r1['err_plain']):.3g}), "
+          f"{int(same_t.sum())}/{C} to the obs-tiled kernel over the whole "
+          f"n (max {max(r0['err_tiled'], r1['err_tiled']):.3g}); "
+          f"{r0['reductions']} all-reduces per rank for {T} trees; world "
+          f"size 1: {int(r0['same_w1'].sum())}/{C} chains identical to the "
+          f"obs-tiled kernel (max {r0['err_w1']:.3g})", flush=True)
+    if not (r0["gloo_cuda"] and r1["gloo_cuda"]):
+        raise AssertionError(f"{label}: gloo refused CUDA tensors")
+    N2, C2 = path_shape
+    path_p = r0["path_same_plain"] & r1["path_same_plain"]
+    path_t = r0["path_same_tiled"] & r1["path_same_tiled"]
+    print(f"{label}: at phase 10b's shape, n={N2} over 2 ranks, chains="
+          f"{C2}, trees={T}, stats K={r0['path_cluster']}, apply blocks "
+          f"{r0['path_apply']} per chain: {int(path_p.sum())}/{C2} chains "
+          "identical to the plain sharded sweep (max |kernel - plain| "
+          f"{max(r0['path_err_plain'], r1['path_err_plain']):.3g}), "
+          f"{int(path_t.sum())}/{C2} to the obs-tiled kernel over the whole "
+          f"n (max {max(r0['path_err_tiled'], r1['path_err_tiled']):.3g})",
+          flush=True)
+    if (same_p.sum() < C or same_t.sum() < C - 1
+            or r0["same_w1"].sum() < C - 1 or r0["reductions"] != T
+            or path_p.sum() < C2 or path_t.sum() < C2 - 1):
+        raise AssertionError(f"{label}: the sharded kernel disagrees")
+    share = 1.0 - r0["ms"] / r0["wall_ms"]
+    print(f"{label}: stats + apply kernels per sweep at n={N // 2} per rank "
+          f"median {r0['ms']:.4f} ms {[round(x, 4) for x in r0['all_ms']]}; "
+          f"the sweep with its {T} all-reduces, both ranks at once, median "
+          f"{r0['wall_ms']:.4f} ms (host clock; rank 1 "
+          f"{r1['wall_ms']:.4f}), the collectives' share "
+          f"{100 * share:.1f} %; obs-tiled kernel over n={N} in the same "
+          f"call {r0['tiled_ms']:.4f} ms; the sharded kernel at world size "
+          f"1 over n={N} {r0['w1_ms']:.4f} ms; plain sharded sweep "
+          f"{r0['plain_ms']:.4f} ms; memory bound {r0['bound_ms']:.4f} ms at "
+          f"the local n ({r0['bound_w1_ms']:.4f} ms at n={N}); "
+          f"{time.perf_counter() - t0:.1f} s; {card()}", flush=True)
+    return dict(r0, max_abs_err=max(
+        r0["err_w1"], *(r[k] for r in (r0, r1) for k in (
+            "err_plain", "err_tiled", "path_err_plain", "path_err_tiled"))),
+        share=share)
+
+
+def _digest(fit):
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in ("stan", "bart_train", "bart_test", "k", "varcount"):
+        h.update(np.ascontiguousarray(getattr(fit.draws, name)).tobytes())
+    return h.hexdigest()
+
+
+def _composed_rank(rank, world, device, n, chains, iters, warmup, trees,
+                   obs_shards):
+    """Phase 10b in one rank: the flagship fit in a world of ``world``
+    ranks with ``obs_shards`` data ranks per chain group."""
+    import stan4bart_torch
+    from stan4bart_torch.utils.friedman import (
+        friedman_dataframe, generate_friedman_data)
+
+    d = generate_friedman_data(n, ranef=True, causal=True)
+    counts = reset_counts()
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fit = stan4bart_torch.stan4bart(
+        FLAGSHIP, friedman_dataframe(d), treatment="z", chains=chains,
+        iter=iters, warmup=warmup, seed=11, verbose=-1, device=device,
+        stan_args={"max_treedepth": 6, "obs_shards": obs_shards},
+        bart_args={"n_trees": trees})
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counts.items()}
+    out = dict(digest=_digest(fit), launches=launches, wall=wall,
+               timings=fit.timings,
+               peak=torch.cuda.max_memory_allocated() if on_card else 0,
+               info={k: fit.run_info[k] for k in
+                     ("world_size", "chain_groups", "obs_shards", "backend",
+                      "all_reduces")},
+               finite=all(bool(np.all(np.isfinite(getattr(fit.draws, k))))
+                          for k in ("stan", "bart_train", "bart_test", "k")))
+    if rank == 0:
+        z = d["z"]
+        out.update(
+            cor=centered_cor(fit.fitted("indiv.bart"), d["mu_bart"]),
+            sigma=float(fit.fitted("sigma")),
+            sate=float(np.mean((fit.fitted("ev")
+                                - fit.fitted("ev", sample="test"))
+                               * (2 * z - 1))),
+            tau=float(d["tau"]))
+    return out
+
+
+def phase_composed(label="phase 10b", n=10_000, chains=256, iters=150,
+                   warmup=75, trees=75, device="cuda:0"):
+    """The phase 3 fit on 4 ranks: 2 chain groups x obs_shards = 2."""
+    from stan4bart_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    res = mesh.spawn(_composed_rank, [device] * 4, RANK_BACKEND,
+                     args=(n, chains, iters, warmup, trees, 2),
+                     timeout_s=900)
+    r0 = res[0]
+    want = (iters + 1) * trees
+    for r, x in enumerate(res):
+        for k, got in x["launches"].items():
+            if got != (want if k == "bart_sweep_sharded" else 0):
+                raise AssertionError(f"{label}: rank {r} {k} launched {got} "
+                                     f"times")
+        if x["digest"] != r0["digest"] or not x["finite"]:
+            raise AssertionError(f"{label}: rank {r}'s draws differ or are "
+                                 "not finite")
+    tm = [x["timings"] for x in res]
+    print(f"{label}: stan4bart n={n} chains={chains} trees={trees} "
+          f"iter={iters} warmup={warmup} on {r0['info']['world_size']} "
+          f"ranks ({r0['info']['chain_groups']} chain groups x obs_shards "
+          f"{r0['info']['obs_shards']}, backend {r0['info']['backend']}): "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start; "
+          "bart_sweep_sharded launches per rank "
+          f"{r0['launches']['bart_sweep_sharded']} = ({iters} iterations + 1 "
+          f"init) x {trees} trees, other sweep kernels 0; all-reduces per "
+          f"rank {r0['info']['all_reduces']}; the gathered draws identical "
+          "on every rank; per rank wall s "
+          + ", ".join(f"{x['wall']:.1f}" for x in res)
+          + "; per-phase s (rank 0..3): NUTS+linear/level Gibbs "
+          + "/".join(f"{t['nuts_gibbs']:.1f}" for t in tm) + ", sweep "
+          + "/".join(f"{t['sweep']:.1f}" for t in tm) + ", post "
+          + "/".join(f"{t['post']:.1f}" for t in tm) + ", gather "
+          + "/".join(f"{t['gather']:.1f}" for t in tm)
+          + "; peak device memory per rank "
+          + ", ".join(f"{x['peak'] / 2 ** 30:.2f}" for x in res)
+          + f" GiB; {card()}", flush=True)
+    check_gates(label, r0["cor"], r0["sigma"], "bart_sweep_sharded",
+                r0["launches"]["bart_sweep_sharded"] // trees, iters)
+    print(f"{label}: SATE {r0['sate']:.4f} (truth {r0['tau']}, within 1)",
+          flush=True)
+    if abs(r0["sate"] - r0["tau"]) >= 1.0:
+        raise AssertionError(f"{label}: SATE gate failed")
+    return r0["launches"]["bart_sweep_sharded"]
+
+
+def _contract_rank(rank, world, device, fits):
+    """Phase 10c in one rank: each small fit of ``fits`` in turn in the
+    world; their draws and launch counts."""
+    out = []
+    for kw in fits:
+        counts = reset_counts()
+        fit = _small_fit(device, **kw)
+        out.append(dict(
+            draws={k: getattr(fit.draws, k) for k in
+                   ("stan", "bart_train", "tree_feature", "tree_cut")},
+            launches={k: fn.launches for k, fn in counts.items()},
+            threads=torch.get_num_threads()))
+    return out
+
+
+def _small_fit(device, seed, n=2000, **kw):
+    import stan4bart_torch
+    from stan4bart_torch.utils.friedman import (
+        friedman_dataframe, generate_friedman_data)
+
+    d = generate_friedman_data(n, ranef=True, causal=True)
+    return stan4bart_torch.stan4bart(
+        FLAGSHIP, friedman_dataframe(d), treatment="z", iter=20, warmup=10,
+        seed=seed, verbose=-1, device=device,
+        bart_args={"n_trees": 20, "keep_trees": True}, **kw)
+
+
+def phase_contracts(device, label="phase 10c", chains=16, n=2000):
+    """The chain path's and the obs-sharded path's contracts at n = 2000."""
+    from stan4bart_torch.parallel import mesh, multihost
+
+    t0 = time.perf_counter()
+    fits = (dict(seed=5, chains=chains, n=n, stan_args={"max_treedepth": 6}),
+            dict(seed=6, chains=chains, n=n,
+                 stan_args={"max_treedepth": 6, "obs_shards": 2}))
+    # the ranks run while this process fits the single-process references
+    # (nothing here is timed); the ranks use fewer host threads than this
+    # process, which a fit on the card does not see
+    box = {}
+
+    def run_ranks():
+        try:
+            box["ranks"] = mesh.spawn(_contract_rank, [str(device)] * 2,
+                                      RANK_BACKEND, args=(fits,),
+                                      timeout_s=600)
+        except Exception as e:      # raised below, in this thread
+            box["error"] = e
+
+    ranks_thread = threading.Thread(target=run_ranks)
+    ranks_thread.start()
+    C = chains // 2
+    refs = [_small_fit(device, seed=multihost.rank_seed(5, r, 2), chains=C,
+                       n=n, stan_args={"max_treedepth": 6})
+            for r in range(2)]
+    ref = _small_fit(device, seed=multihost.rank_seed(6, 0, 1),
+                     chains=chains, n=n, stan_args={"max_treedepth": 6})
+    ranks_thread.join()
+    if "error" in box:
+        raise box["error"]
+    ranks = box["ranks"]
+    res = [r[0] for r in ranks]
+    draws = res[0]["draws"]
+    for r in range(2):
+        for k, v in draws.items():
+            if not np.array_equal(v[r * C:(r + 1) * C],
+                                  getattr(refs[r].draws, k)):
+                raise AssertionError(f"{label}: rank {r}'s {k} differs from "
+                                     "the single-process fit")
+        if not all(np.array_equal(v, res[1]["draws"][k])
+                   for k, v in draws.items()):
+            raise AssertionError(f"{label}: the ranks' draws differ")
+    chain_batch = res[0]["launches"]["bart_sweep_batch"]
+    if chain_batch != 21 or res[0]["launches"]["bart_sweep_sharded"]:
+        raise AssertionError(f"{label}: the chain path's launches "
+                             f"{res[0]['launches']}")
+    print(f"{label}: a 2-rank chain-sharded fit (n={n}, {chains} chains, 20 "
+          "iterations, bart_sweep_batch launches per rank "
+          f"{chain_batch}) equals, to the bit, "
+          f"rank by rank, single-process fits of {C} chains with the "
+          f"ranks' seeds (host threads: ranks {res[0]['threads']}, "
+          f"single-process fits {torch.get_num_threads()})", flush=True)
+    res = [r[1] for r in ranks]
+    d = res[0]["draws"]
+    same = np.array([
+        np.array_equal(d["tree_feature"][c, 0], ref.draws.tree_feature[c, 0])
+        and np.array_equal(d["tree_cut"][c, 0], ref.draws.tree_cut[c, 0])
+        for c in range(chains)])
+    launches = res[0]["launches"]["bart_sweep_sharded"]
+    print(f"{label}: a 2-rank obs-sharded fit's first forests equal the "
+          f"unsharded fit's in {int(same.sum())}/{chains} chains; "
+          f"bart_sweep_sharded launches per rank {launches}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if same.sum() < chains - 1 or launches != 21 * 20:
+        raise AssertionError(f"{label}: the obs-sharded fit differs")
+    return {"bart_sweep_batch": chain_batch, "bart_sweep_sharded": launches}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (default all); "
-                    "1, 2 and 4 are the kernel phases, which the kernels "
-                    "line needs")
+                    "1, 2, 4 and 10 (or 10a) are the kernel phases, which "
+                    "the kernels line needs; 10a, 10b, 10c run one part of "
+                    "phase 10")
     args = ap.parse_args()
     run = set(args.phases.split(","))
+    if "10" in run:
+        run |= {"10a", "10b", "10c"}
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
     from stan4bart_torch.ops import cuda_build
+    from stan4bart_torch.ops.bart_sweep_kernel import (
+        bart_sweep_fused_batch_tiled, sweep_tiled_cuda)
     from stan4bart_torch.utils.device import resolve_device
 
     device = resolve_device("cuda")
@@ -1498,10 +1928,15 @@ def main():
     if "4" in run:
         large = {n: phase_large(device, n, c)
                  for n, c in ((50_000, 64), (51_840, 64), (200_000, 16))}
+        # phase 5 runs its fit at 32 chains
+        large[50_000]["max_abs_err_c32"] = hold_at_path_shape(
+            device, "phase 4", 50_000, 32,
+            {"tiled": (sweep_tiled_cuda, bart_sweep_fused_batch_tiled)},
+            seed=7)["tiled"]
         lap("phase 4")
     if "5" in run:
         paths["bart_sweep_tiled"]["phase 5"], _ = phase_main(
-            device, "phase 5", 50_000, 64, "bart_sweep_tiled", iters=225,
+            device, "phase 5", 50_000, 32, "bart_sweep_tiled", iters=225,
             warmup=150)
         lap("phase 5")
     if "6" in run:
@@ -1528,12 +1963,26 @@ def main():
         for k, v in phase_algorithm_options(device).items():
             paths[k]["phase 9 options"] = v
         lap("phase 9 options")
+    # phase 10's ranks are processes of their own on the card
+    torch.cuda.empty_cache()
+    sharded = None
+    if "10a" in run:
+        sharded = phase_sharded_kernel()
+        lap("phase 10a")
+    if "10b" in run:
+        paths["bart_sweep_sharded"]["phase 10b"] = phase_composed()
+        lap("phase 10b")
+    if "10c" in run:
+        for k, v in phase_contracts(device).items():
+            paths[k]["phase 10c"] = v
+        lap("phase 10c")
     print("wall seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; {sum(walls.values()):.1f} in all", flush=True)
-    launches = {k: (sum(v.values()) if run - {"1", "2", "4"} else None)
+    launches = {k: (sum(v.values()) if run - {"1", "2", "4", "10a"}
+                    else None)
                 for k, v in paths.items()}
-    if not {"1", "2", "4"} <= run:
+    if not {"1", "2", "4"} <= run or sharded is None:
         print(card(), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1566,7 +2015,8 @@ def main():
         "replaces": "stan4bart_tpu/ops/bart_sweep_kernel.py:1495",
         "launches": launches["bart_sweep_tiled"],
         "launches_by_path": paths["bart_sweep_tiled"],
-        "max_abs_err": max([err[1], full["tiled_max_abs_err"]]
+        "max_abs_err": max([err[1], full["tiled_max_abs_err"],
+                            big["max_abs_err_c32"]]
                            + [r["max_abs_err"] for r in large.values()]),
         "ms": big["ms"],
         "kernel_ms": big["ms"],
@@ -1617,6 +2067,28 @@ def main():
         "bound_by": "bytes",
         "library_ms": None,
         "cluster": ablate[256]["cluster"],
+    }, {
+        "name": "bart_sweep_sharded",
+        "route": "cuda",
+        "source": "stan4bart_torch/csrc/bart_sweep_sharded.cu",
+        # no Pallas kernel: the JAX package's XLA bart_sweep(axis_name=)
+        "replaces": "stan4bart_tpu/ops/bart.py:717",
+        # tree updates per rank (one stats and one apply launch each)
+        "launches": launches["bart_sweep_sharded"],
+        "launches_by_path": paths["bart_sweep_sharded"],
+        "max_abs_err": sharded["max_abs_err"],
+        "ms": sharded["ms"],
+        "kernel_ms": sharded["ms"],
+        "plain_ms": sharded["plain_ms"],
+        "bound_ms": sharded["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "cluster": sharded["cluster"],
+        "sweep_wall_ms_2_ranks": sharded["wall_ms"],
+        "collective_share": sharded["share"],
+        "tiled_ms_same_call": sharded["tiled_ms"],
+        "ms_world_size_1": sharded["w1_ms"],
+        "bound_ms_world_size_1": sharded["bound_w1_ms"],
     }]}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -331,15 +331,15 @@ inline int refused(cudaError_t err) {
   return (int)err;
 }
 
-// Launches ``kernel(a, K)`` on C * K blocks of kThreads in clusters of K
-// with ``dyn`` bytes of dynamic shared memory; returns the CUDA error code,
-// cudaErrorInvalidValue for a K outside 1..8 (the portable cluster sizes)
-// or for more shared memory than a block may have, and
-// cudaErrorInvalidConfiguration when no cluster of the kernel fits on the
-// device.
-template <typename Kernel>
+// Launches ``kernel(a, K, extra...)`` on C * K blocks of kThreads in
+// clusters of K with ``dyn`` bytes of dynamic shared memory; returns the
+// CUDA error code, cudaErrorInvalidValue for a K outside 1..8 (the
+// portable cluster sizes) or for more shared memory than a block may have,
+// and cudaErrorInvalidConfiguration when no cluster of the kernel fits on
+// the device.
+template <typename Kernel, typename... Extra>
 inline int launch_clusters(Kernel kernel, const SweepArgs& a, int C, int K,
-                           size_t dyn, void* stream) {
+                           size_t dyn, void* stream, Extra... extra) {
   if (K < 1 || K > 8) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
@@ -360,7 +360,7 @@ inline int launch_clusters(Kernel kernel, const SweepArgs& a, int C, int K,
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   if (err != cudaSuccess) return refused(err);
   if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
-  err = cudaLaunchKernelEx(&cfg, kernel, a, K);
+  err = cudaLaunchKernelEx(&cfg, kernel, a, K, extra...);
   if (err != cudaSuccess) return refused(err);
   return (int)cudaGetLastError();
 }

@@ -311,70 +311,76 @@ __device__ inline void chain_stats(TreeShared& s, const float acc[8], int N,
   __syncthreads();
 }
 
+// The Metropolis-Hastings decision of the move from the chain's six move
+// statistics st (n, s over the move's nodes, over those going left, over
+// the current left child); on acceptance rewrites the tree rows in shared
+// memory and sets s.sc[4].  Run by one thread.
+__device__ inline void mh_decide(const SweepArgs& a, TreeShared& s,
+                                 const Move& mv, const float* st,
+                                 const TreeRows& rows, float s2, float t2) {
+  const float* u = rows.u;
+  const int eta = mv.eta, lft = mv.lft, rgt = mv.rgt, move = mv.move;
+  float n_all = st[0], s_all = st[1], n_ln = st[2], s_ln = st[3];
+  float n_lo = st[4], s_lo = st[5];
+  float n_rn = n_all - n_ln, s_rn = s_all - s_ln;
+  float n_ro = n_all - n_lo, s_ro = s_all - s_lo;
+  float m_all = leaf_marginal(n_all, s_all, s2, t2);
+  float m_ln = leaf_marginal(n_ln, s_ln, s2, t2);
+  float m_rn = leaf_marginal(n_rn, s_rn, s2, t2);
+  float m_lo = leaf_marginal(n_lo, s_lo, s2, t2);
+  float m_ro = leaf_marginal(n_ro, s_ro, s2, t2);
+  int n_leaf = s.sc[7], n_nog = s.sc[8];
+  int d = 31 - __clz(eta + 1);
+  float ps_d = a.psplit[d];
+  float split_term = logf(ps_d)
+      + 2.0f * log1pf(-a.psplit[min(d + 1, a.max_depth + 1)])
+      - log1pf(-ps_d);
+  bool valid;
+  float log_accept;
+  if (mv.grow) {
+    int parent = eta > 0 ? (eta - 1) / 2 : 0;
+    bool parent_was_nog =
+        eta > 0 && ((s.nog_bits[parent >> 5] >> (parent & 31)) & 1u);
+    int n_nog_grow = n_nog + 1 - (parent_was_nog ? 1 : 0);
+    float trans = a.trans_grow0 + logf((float)n_leaf)
+        - logf((float)n_nog_grow);
+    log_accept = split_term + trans + (m_ln + m_rn - m_all);
+    valid = d < a.max_depth && n_ln > 0.0f && n_rn > 0.0f;
+  } else if (move == 1) {
+    float trans = a.trans_prune0 + logf((float)n_nog)
+        - logf((float)max(n_leaf - 1, 1));
+    log_accept = -split_term + trans + (m_all - m_lo - m_ro);
+    valid = n_nog > 0;
+  } else {
+    log_accept = m_ln + m_rn - m_lo - m_ro;
+    valid = n_nog > 0 && n_ln > 0.0f && n_rn > 0.0f;
+  }
+  bool accept = valid && (logf(u[5]) < log_accept);
+  if (accept) {
+    if (move == 1) {
+      s.feat[eta] = kLeaf;
+      s.feat[lft] = kInactive;
+      s.feat[rgt] = kInactive;
+    } else {
+      s.feat[eta] = s.sc[5];
+      s.feat[lft] = kLeaf;
+      s.feat[rgt] = kLeaf;
+      s.cut[eta] = mv.cn;
+    }
+  }
+  s.sc[4] = accept ? 1 : 0;
+}
+
 // Sums the threads' move statistics (chain_stats) and makes the
-// Metropolis-Hastings decision; on acceptance rewrites the tree rows in
-// shared memory.  Returns whether the move was accepted.  Called by every
-// thread; every block of a cluster makes the same decision from the same
-// numbers.
+// Metropolis-Hastings decision (mh_decide).  Returns whether the move was
+// accepted.  Called by every thread; every block of a cluster makes the
+// same decision from the same numbers.
 __device__ inline bool decide(const SweepArgs& a, TreeShared& s,
                               const Move& mv, const float acc[8],
                               const TreeRows& rows, float s2, float t2,
                               int K = 1) {
   chain_stats(s, acc, a.N, K);
-  if (threadIdx.x == 0) {
-    const float* u = rows.u;
-    const int eta = mv.eta, lft = mv.lft, rgt = mv.rgt, move = mv.move;
-    const float* st = s.tot;
-    float n_all = st[0], s_all = st[1], n_ln = st[2], s_ln = st[3];
-    float n_lo = st[4], s_lo = st[5];
-    float n_rn = n_all - n_ln, s_rn = s_all - s_ln;
-    float n_ro = n_all - n_lo, s_ro = s_all - s_lo;
-    float m_all = leaf_marginal(n_all, s_all, s2, t2);
-    float m_ln = leaf_marginal(n_ln, s_ln, s2, t2);
-    float m_rn = leaf_marginal(n_rn, s_rn, s2, t2);
-    float m_lo = leaf_marginal(n_lo, s_lo, s2, t2);
-    float m_ro = leaf_marginal(n_ro, s_ro, s2, t2);
-    int n_leaf = s.sc[7], n_nog = s.sc[8];
-    int d = 31 - __clz(eta + 1);
-    float ps_d = a.psplit[d];
-    float split_term = logf(ps_d)
-        + 2.0f * log1pf(-a.psplit[min(d + 1, a.max_depth + 1)])
-        - log1pf(-ps_d);
-    bool valid;
-    float log_accept;
-    if (mv.grow) {
-      int parent = eta > 0 ? (eta - 1) / 2 : 0;
-      bool parent_was_nog =
-          eta > 0 && ((s.nog_bits[parent >> 5] >> (parent & 31)) & 1u);
-      int n_nog_grow = n_nog + 1 - (parent_was_nog ? 1 : 0);
-      float trans = a.trans_grow0 + logf((float)n_leaf)
-          - logf((float)n_nog_grow);
-      log_accept = split_term + trans + (m_ln + m_rn - m_all);
-      valid = d < a.max_depth && n_ln > 0.0f && n_rn > 0.0f;
-    } else if (move == 1) {
-      float trans = a.trans_prune0 + logf((float)n_nog)
-          - logf((float)max(n_leaf - 1, 1));
-      log_accept = -split_term + trans + (m_all - m_lo - m_ro);
-      valid = n_nog > 0;
-    } else {
-      log_accept = m_ln + m_rn - m_lo - m_ro;
-      valid = n_nog > 0 && n_ln > 0.0f && n_rn > 0.0f;
-    }
-    bool accept = valid && (logf(u[5]) < log_accept);
-    if (accept) {
-      if (move == 1) {
-        s.feat[eta] = kLeaf;
-        s.feat[lft] = kInactive;
-        s.feat[rgt] = kInactive;
-      } else {
-        s.feat[eta] = s.sc[5];
-        s.feat[lft] = kLeaf;
-        s.feat[rgt] = kLeaf;
-        s.cut[eta] = mv.cn;
-      }
-    }
-    s.sc[4] = accept ? 1 : 0;
-  }
+  if (threadIdx.x == 0) mh_decide(a, s, mv, s.tot, rows, s2, t2);
   __syncthreads();
   return s.sc[4] != 0;
 }

@@ -1,15 +1,22 @@
 """Top-level user API: ``stan4bart(formula, data, ...)``.
 
-Counterpart of ``stan4bart_tpu/fit.py`` on the single-device path:
-validates arguments, builds model frames, detects the family ({0,1}
-response -> probit, else gaussian), builds the treatment counterfactual
-frame, computes the parametric initialization, assembles the samplers,
-runs all chains as one batch on ``device`` and packages the draws into a
-:class:`~stan4bart_torch.results.Stan4bartFit`.
+Counterpart of ``stan4bart_tpu/fit.py``: validates arguments, builds
+model frames, detects the family ({0,1} response -> probit, else
+gaussian), builds the treatment counterfactual frame, computes the
+parametric initialization, assembles the samplers, runs the chains and
+packages the draws into a :class:`~stan4bart_torch.results.Stan4bartFit`.
+
+The chains run as one batch on ``device``; inside an initialized
+``torch.distributed`` world of several ranks (``torchrun``, or
+``parallel.mesh.spawn``) they are sharded over the ranks, with
+``stan_args={"obs_shards": k}`` over chain groups of k ranks that split
+the observations (``parallel/mesh.py``); and ``cores > 1`` with several
+visible cards spawns one rank per card.
 """
 
 from __future__ import annotations
 
+import inspect
 import time
 import warnings
 
@@ -241,12 +248,26 @@ def stan4bart(
 
     ``device`` (default ``"cuda"``) is where every chain runs; without a
     CUDA device this raises unless ``device="cpu"`` is given.  ``cores``
-    spreads chains over devices in the JAX package; on one device (the
-    CPU, or one visible card) it runs the single-device path, and with
-    more than one visible card ``cores > 1`` is not ported yet.  ``dtype``
-    defaults to float32 (the CUDA sweep kernel's type); float64 runs on
-    the CPU only.  ``chunk_size`` bounds the iterations between progress
-    reports and interrupt checks.
+    spreads chains over devices, as in the JAX package: on one device (the
+    CPU, or one visible card) it runs the single-device path; with more
+    than one visible card ``cores > 1`` spawns one rank per card on
+    min(cores, cards, chains) cards (fewer where that count does not
+    divide the chains), joined by NCCL, and returns rank 0's fit
+    (``parallel.mesh.fit_on_devices``; the arguments must pickle, so a
+    callback must be a module-level function).  Inside an initialized
+    ``torch.distributed`` world of W > 1 ranks every rank runs the same
+    call: the chains are sharded over the ranks (W must divide
+    ``chains``), each chain group with its own generator
+    (``parallel.multihost.rank_seed``), and the draws are gathered to
+    every rank; ``stan_args={"obs_shards": k}`` (k >= 2 dividing W)
+    makes W / k chain groups of k ranks, each rank holding 1 / k of the
+    observations, with every sufficient statistic all-reduced over its
+    group (``parallel/mesh.py``; no callback, ``keep_fits=False`` or
+    pooled adaptation).  A fit from several ranks keeps its final states
+    on the ranks (``final_states`` is None), so it cannot
+    ``continue_sampling``.  ``dtype`` defaults to float32 (the CUDA sweep
+    kernel's type); float64 runs on the CPU only.  ``chunk_size`` bounds
+    the iterations between progress reports and interrupt checks.
 
     ``algorithm`` selects the parametric block's sampler within Gibbs:
     ``"nuts"`` (default; the only one with exact posterior contracts),
@@ -259,20 +280,35 @@ def stan4bart(
     ``vi_eta`` set the optimizer steps per iteration, the draws per ELBO
     gradient and the base rate.
     """
+    from stan4bart_torch.parallel import mesh, multihost
     from stan4bart_torch.results import Stan4bartFit
 
     if cores is not None and cores <= 0:
         raise ValueError("'cores' must be a positive integer")
+    world_size, _ = multihost.world()
     # as in the JAX package, chains spread over cores only where the
     # device type has more than one device; on one device (the CPU, or a
     # single card) cores > 1 runs the single-device path
-    if (cores is not None and cores > 1
+    if (cores is not None and cores > 1 and world_size == 1
             and torch.device(device).type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            "multi-device chain dispatch (cores > 1 with more than one "
-            "CUDA device) is not ported to stan4bart_torch yet (ROADMAP "
-            "queue 1 item 11)")
+            and torch.cuda.device_count() > 1 and chains > 1):
+        n_dev = min(int(cores), torch.cuda.device_count(), int(chains))
+        while chains % n_dev != 0:      # the ranks must divide the chains
+            n_dev -= 1
+        if n_dev > 1:
+            # every argument but those that place the fit goes to the ranks
+            args = locals()
+            kwargs = {k: args[k] for k in
+                      inspect.signature(stan4bart).parameters
+                      if k not in ("formula", "data", "cores", "device",
+                                   "_progress")}
+            if seed is None and not (stan_args or {}).get("seed"):
+                # every rank must draw from one seed
+                kwargs["seed"] = int(np.random.SeedSequence().entropy
+                                     % (2 ** 31))
+            return mesh.fit_on_devices(
+                [f"cuda:{i}" for i in range(n_dev)], "cpu:gloo,cuda:nccl",
+                formula, data, kwargs)
     dev = resolve_device(device)
     if offset_type not in OFFSET_TYPES:
         raise ValueError(f"offset_type must be one of {OFFSET_TYPES}")
@@ -399,7 +435,12 @@ def stan4bart(
         leaf_gibbs=resolved_stan_args.leaf_gibbs,
         leaf_block=resolved_stan_args.leaf_block,
         leaf_block_dim=resolved_stan_args.leaf_block_dim,
-        gram_lik=resolved_stan_args.gram_lik,
+        # the obs-sharded driver requires the Gram-compressed likelihood
+        # (GibbsProgram.local_view), so obs_shards turns the auto default
+        # on; an explicit gram_lik=False fails there
+        gram_lik=(True if resolved_stan_args.obs_shards >= 2
+                  and resolved_stan_args.gram_lik is None
+                  else resolved_stan_args.gram_lik),
         keep_trees=keep_trees,
         parametric_method="vi" if algorithm in ("vi", "advi") else "nuts",
         vi_method="adagrad" if algorithm == "advi" else "rmsprop",
@@ -416,9 +457,14 @@ def stan4bart(
     if seed is None and resolved_stan_args.seed is not None:
         seed = resolved_stan_args.seed
     if seed is None:
+        if world_size > 1:
+            raise ValueError(
+                "a fit inside a torch.distributed world needs a 'seed' "
+                "(every rank must draw the same chains' streams)")
         seed = np.random.SeedSequence().entropy % (2 ** 31)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
+    n_data = int(resolved_stan_args.obs_shards)
 
     # callback semantics (init.cpp:849-911; test-11-callback.R): the user
     # callback gets a NAMED view of one chain's draw; its results are
@@ -445,10 +491,32 @@ def stan4bart(
         chunk_size = min(chunk_size or refresh, max(int(refresh), 1))
 
     t_start = time.perf_counter()
-    final_states, draws, run_info = prog.run_chains_chunked(
-        gen, chains, chunk_size, bart_offset_init=bart_offset_init,
-        sigma_init=sigma_init, keep_warmup=True, callback=cb,
-        verbose=verbose, refresh=refresh, progress=_progress)
+    run_kw = dict(chunk_size=chunk_size, bart_offset_init=bart_offset_init,
+                  sigma_init=sigma_init, keep_warmup=True, verbose=verbose,
+                  refresh=refresh, progress=_progress)
+    if n_data >= 2:
+        # the chains x data layout: every sufficient statistic is an
+        # all-reduce over the rank's data group (parallel/mesh.py)
+        if cb is not None:
+            raise ValueError(
+                "obs_shards does not compose with callback / "
+                "keep_fits=False (the shard_map program stores full "
+                "draws); run those on the default driver")
+        if world_size % n_data != 0:
+            raise ValueError(
+                f"obs_shards ({n_data}) must divide the global device "
+                f"count ({world_size})")
+        final_states, draws, run_info = mesh.run_chains_obs_sharded(
+            prog, int(seed), chains, world_size // n_data, n_data, **run_kw)
+        gen.set_state(run_info.pop("rng_state"))
+    elif world_size > 1:
+        # the chains sharded over the ranks, draws gathered to every rank
+        final_states, draws, run_info = multihost.run_chains_multihost(
+            prog, int(seed), chains, callback=cb, **run_kw)
+        gen.set_state(run_info.pop("rng_state"))
+    else:
+        final_states, draws, run_info = prog.run_chains_chunked(
+            gen, chains, callback=cb, **run_kw)
     callback_draws = None
     if callback is not None and keep_fits:
         callback_draws = draws["callback"]
@@ -461,6 +529,8 @@ def stan4bart(
         sweep=run_info["sweep"],
         post=run_info["post"],
     )
+    if world_size > 1:
+        timings.update(run=run_info["run_s"], gather=run_info["gather_s"])
     if run_info["interrupted"]:
         timings["interrupted"] = True
         warmup = min(warmup, run_info["warmup_done"])
@@ -483,6 +553,7 @@ def stan4bart(
         rng_state=gen.get_state(),
         stan_args=resolved_stan_args,
         program_args=program_args,
+        run_info=run_info,
     )
     if verbose >= 0:
         fit.check_sampler_diagnostics()

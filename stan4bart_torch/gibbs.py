@@ -36,7 +36,9 @@ effects, the BART fit or the whole parametric mean.
 
 All randomness comes from one ``torch.Generator`` on the program's device,
 passed in explicitly.  ``continue_chunked`` resumes the sampling phase
-from a final state.
+from a final state.  ``local_view`` is the program on one shard of the
+observations, whose sufficient statistics are all-reduced over a data
+group of ranks (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from stan4bart_torch.ops.bart_sweep_kernel import (
     bart_sweep_fused,
     bart_sweep_fused_batch,
     bart_sweep_fused_batch_tiled,
+    bart_sweep_fused_sharded,
     make_sweep_consts,
 )
 from stan4bart_torch.ops.nuts import (
@@ -296,6 +299,15 @@ class GibbsProgram:
         # wall-clock seconds per phase of step / step_batched, summed over
         # calls
         self.phase_s = {"nuts_gibbs": 0.0, "sweep": 0.0, "post": 0.0}
+        # the observation axis of a shard's view (local_view): the data
+        # group's all-reduces, the global and padded row counts and this
+        # shard's first row; None on the whole data
+        self.obs_axis = None
+        self.N_global = self.N_global_pad = self.N
+        self.obs_start = 0
+        # pooled adaptation over the chains of every rank
+        # (parallel/multihost.ChainPool); None pools this program's chains
+        self.chain_pool = None
 
     def _t(self, x):
         return torch.as_tensor(np.asarray(x, dtype=np.float64),
@@ -346,8 +358,27 @@ class GibbsProgram:
             rng_scale = torch.ones_like(k)
         else:
             resp = self.y - bart_offset
-            rng_scale = resp.amax(-1) - resp.amin(-1)
+            if self.obs_axis is None:
+                rng_scale = resp.amax(-1) - resp.amin(-1)
+            else:
+                # the global range, by one all-reduce of (max, -min)
+                m = self.obs_axis.max(torch.stack([resp.amax(-1),
+                                                   -resp.amin(-1)]))
+                rng_scale = m[0] + m[1]
         return cfg.node_scale * rng_scale / (k * math.sqrt(cfg.num_trees))
+
+    def _probit_latents(self, mean, gen):
+        """Truncated-normal probit latents of every chain.  A shard's view
+        draws the uniforms of the global (padded) rows and takes its own,
+        so every observation sees the variate it sees unsharded (with no
+        padding) whatever the shard count."""
+        if self.obs_axis is None:
+            return bart_ops.sample_probit_latents(mean, self.y, gen)
+        u = torch.rand((mean.shape[0], self.N_global_pad), generator=gen,
+                       dtype=mean.dtype, device=mean.device)
+        u = 1e-7 + u[:, self.obs_start: self.obs_start + self.N] \
+            * (1.0 - 2e-7)
+        return bart_ops.sample_probit_latents(mean, self.y, u=u)
 
     def _sweep(self, bart_state, y_target, sigma, gen, per_chain):
         """One sweep of every chain.  ``step_batched`` (not per_chain)
@@ -358,7 +389,13 @@ class GibbsProgram:
         kernel, which computes the same function.  The three kernels run
         one on-chip sweep in clusters of K blocks per chain and give
         bit-identical forests at equal K (a change of route, not of
-        result)."""
+        result).  A shard's view (``local_view``) runs the
+        observation-sharded sweep, ``csrc/bart_sweep_sharded.cu`` on the
+        card, with one all-reduce over the data group per tree update."""
+        if self.obs_axis is not None:
+            return bart_sweep_fused_sharded(
+                self.bart_cfg, bart_state, y_target, self.sweep_consts,
+                sigma, gen, weights=self.weights, reduce=self.obs_axis.sum)
         if per_chain and self.sweep_single_ok:
             sweep = bart_sweep_fused
         elif per_chain or self.sweep_tiled:
@@ -375,7 +412,8 @@ class GibbsProgram:
         varcount."""
         bart_state = bart_ops.regrow_refresh(
             self.bart_cfg, bart_state, y_target, self.ranks,
-            self.split_probs, sigma, gen, weights=self.weights)
+            self.split_probs, sigma, gen, weights=self.weights,
+            reduce=None if self.obs_axis is None else self.obs_axis.sum)
         return bart_state, bart_ops.count_variable_use(
             bart_state.feature, self.ranks.shape[1])
 
@@ -417,8 +455,8 @@ class GibbsProgram:
         bart_state = bart_state._replace(
             sigma_mu=self._sigma_mu(bart_offset, bart_state.k))
         if self.is_binary:
-            latents = bart_ops.sample_probit_latents(
-                bart_state.allfit + bart_offset, self.y, gen)
+            latents = self._probit_latents(bart_state.allfit + bart_offset,
+                                           gen)
             y_target = latents - bart_offset
             sigma = torch.ones(C, dtype=dt, device=dev)
         else:
@@ -433,14 +471,22 @@ class GibbsProgram:
         stan_offset = self._stan_offset_from_fit(bart_state.allfit)
 
         nuts = nuts_init(q0, stepsize=self.stepsize_init)
-        scale_y = (1.0 if self.is_binary
-                   else float(np.std(self.y.double().cpu().numpy(), ddof=1)))
-        inv_mass0 = torch.as_tensor(pm.initial_inv_mass(scale_y, N),
-                                    dtype=dt, device=dev).expand(C, -1)
-        nuts = nuts._replace(inv_mass=inv_mass0.clone())
         y_stan = latents if self.is_binary else self.y
-        eps = init_stepsize(lambda u: pm.log_prob(u, stan_offset, y_stan),
-                            q0, nuts.inv_mass, self.stepsize_init, gen)
+        if self.obs_axis is None:
+            scale_y = (1.0 if self.is_binary else
+                       float(np.std(self.y.double().cpu().numpy(), ddof=1)))
+            inv_mass0 = pm.initial_inv_mass(scale_y, N)
+            logp = lambda u: pm.log_prob(u, stan_offset, y_stan)  # noqa: E731
+        else:
+            # a shard's view carries the global heuristics, and its
+            # stepsize search differentiates the Gram form anchored at q0
+            # (no gradient crosses the all-reduce)
+            inv_mass0 = self._inv_mass0_global
+            logp = self._logp(q0, stan_offset, y_stan)
+        inv_mass0 = torch.as_tensor(np.asarray(inv_mass0), dtype=dt,
+                                    device=dev).expand(C, -1)
+        nuts = nuts._replace(inv_mass=inv_mass0.clone())
+        eps = init_stepsize(logp, q0, nuts.inv_mass, self.stepsize_init, gen)
         nuts = nuts._replace(da=nuts.da._replace(
             log_eps=torch.log(eps), mu=torch.log(10.0 * eps)))
         if self.parametric_method == "vi":
@@ -574,6 +620,7 @@ class GibbsProgram:
             G = torch.bmm(V, V.transpose(1, 2))
             h_lik = torch.bmm(V, r[..., None])[..., 0]
         del V
+        G, h_lik = self.pm._psum(G, h_lik)
         h_lik = h_lik * inv_s2[:, None]
         L_t = leaf_mask.sum(-1).to(dt)
         h = h_lik - (d_leaf * bart_state.leaf_value).sum(-1) \
@@ -642,6 +689,7 @@ class GibbsProgram:
             G = torch.bmm(Wt, W)
             h = torch.bmm(Wt, r[..., None])[..., 0]
         del W, Wt
+        G, h = self.pm._psum(G, h)
         h = h * inv_s2[:, None]
         eye = torch.eye(D, dtype=dt, device=dev)
         Pm = G * inv_s2[:, None, None] + inv_smu2[:, None, None] * eye
@@ -686,11 +734,11 @@ class GibbsProgram:
 
         r = y_stan - bart_state.allfit - bart_offset
         if self.weights is not None:
-            sw = self.weights.sum()
-            swr = (self.weights * r).sum(-1)
+            sw, swr = self.pm._psum(self.weights.sum(),
+                                    (self.weights * r).sum(-1))
         else:
-            sw = float(self.N)
-            swr = r.sum(-1)
+            sw = float(self.N_global)
+            swr = self.pm._psum(r.sum(-1))
 
         leaf_mask = (bart_state.feature == bart_ops.LEAF).to(self.dtype)
         L_t = leaf_mask.sum(-1)                                  # (C, T)
@@ -896,7 +944,8 @@ class GibbsProgram:
                 else:
                     flags = (False, False, False)
                 nuts, info = nuts_transition(logp, nuts, gen,
-                                             self.nuts_cfg, *flags)
+                                             self.nuts_cfg, *flags,
+                                             pool=self.chain_pool)
         if self.sigma_gibbs:
             nuts = nuts._replace(q=self._sigma_gibbs_update(
                 nuts.q, state.stan_offset, y_stan, gen))
@@ -1004,8 +1053,8 @@ class GibbsProgram:
         varcount = None
         for _ in range(self.skip_bart):
             if self.is_binary:
-                latents = bart_ops.sample_probit_latents(
-                    bart_state.allfit + bart_offset, self.y, gen)
+                latents = self._probit_latents(
+                    bart_state.allfit + bart_offset, gen)
                 y_target = latents - bart_offset
             else:
                 y_target = self.y - bart_offset
@@ -1019,6 +1068,66 @@ class GibbsProgram:
                                latents, varcount, gen, it)
         self._mark("post", t0)
         return out
+
+    def local_view(self, local: dict, axis, inv_mass0, n_global_pad: int,
+                   start: int):
+        """This program on one shard of the observations, for the
+        observation-sharded driver (parallel/mesh.run_chains_obs_sharded;
+        the JAX package's ``local_view``): every obs-sized member is
+        replaced by the shard's rows and every sufficient statistic is
+        all-reduced over the data group by ``axis`` (``sum`` and ``max``
+        of a tensor).
+
+        ``local`` holds the shard's tensors on this program's device: y,
+        ranks (numpy), X, z_structs (list of (lhs, gidx)), gram_A,
+        gram_AW, and optionally weights and user_offset.  ``inv_mass0`` is
+        the initial metric from the global data, ``n_global_pad`` the
+        padded global row count and ``start`` the shard's first row.
+
+        Requires the Gram-compressed likelihood (NUTS differentiates only
+        the anchored O(D^2) form, whose all-reduce is forward only) and
+        refuses pooled adaptation, as the JAX package does."""
+        import copy
+        import dataclasses
+
+        if not self.use_gram:
+            raise ValueError(
+                "the obs-sharded driver requires the Gram-compressed "
+                "likelihood (gram_lik=True): NUTS gradients may not "
+                "cross the observation psum")
+        if self.nuts_cfg.pooled:
+            raise ValueError(
+                "pooled_adaptation is not supported obs-sharded (the "
+                "chain pool would silently become per-device-group)")
+        lpm = copy.copy(self.pm)
+        lpm.obs_axis = axis
+        lpm.X = local["X"]
+        lpm.z_structs = [tuple(zs) for zs in local["z_structs"]]
+        if "weights" in local:
+            lpm.weights = local["weights"]
+            lpm.cfg = dataclasses.replace(lpm.cfg, has_weights=True)
+        lpm.N_rows = int(local["y"].shape[0])
+        lpm.gram_A = local["gram_A"]
+        lpm.gram_AW = local["gram_AW"]
+
+        lp = copy.copy(self)
+        lp.pm = lpm
+        lp.obs_axis = axis
+        lp.y = local["y"]
+        lp.ranks = torch.as_tensor(local["ranks"], device=self.device)
+        lp.weights = local.get("weights")
+        if self.user_offset is not None:
+            lp.user_offset = local["user_offset"]
+        lp.N = int(local["y"].shape[0])
+        lp.N_global = self.N
+        lp.N_global_pad = int(n_global_pad)
+        lp.obs_start = int(start)
+        lp._inv_mass0_global = np.asarray(inv_mass0)
+        lp.sweep_consts = make_sweep_consts(
+            self.bart_cfg, local["ranks"], self.split_probs,
+            device=self.device)
+        lp.phase_s = {k: 0.0 for k in self.phase_s}
+        return lp
 
     def _disengage(self, state: GibbsState) -> GibbsState:
         """Freeze the sampling stepsize (rule: bar, last or mid)."""

@@ -3,8 +3,10 @@
 Counterpart of ``stan4bart_tpu/models/assemble.py``: default priors,
 autoscaling by sd(y) and per-column sd(x), the QR rotation of the fixed
 effects, decov / lkj hyperparameter broadcasting, the R2 prior's eta,
-and the control-argument defaults and validation.  Observation sharding
-(``obs_shards``) is not ported and raises NotImplementedError.
+and the control-argument defaults and validation.  ``obs_shards``
+(observation sharding over the ranks of a ``torch.distributed`` world,
+``parallel/mesh.py``) is validated here as the JAX package validates it;
+``stan4bart`` dispatches on it.
 """
 
 from __future__ import annotations
@@ -68,8 +70,6 @@ class StanArgs:
     keep_trees: bool = False
 
 
-# (field, default) pairs the port does not implement
-_UNPORTED = (("obs_shards", 0),)
 
 
 def _sd(x):
@@ -114,11 +114,6 @@ def _validate_stan_args(sa: StanArgs):
     if sa.pooled_parts not in ("metric", "stepsize", "both"):
         raise ValueError(
             "stan_args pooled_parts must be metric, stepsize, or both")
-    for name, default in _UNPORTED:
-        if getattr(sa, name) != default:
-            raise NotImplementedError(
-                f"stan_args {name} is not ported to stan4bart_torch yet "
-                "(ROADMAP queue 1 item 11)")
 
 
 def build_parametric_model(

@@ -410,6 +410,13 @@ class ParametricModel:
             for lhs, gidx in z_structs
         ]
         self.weights = T(weights) if cfg.has_weights else None
+        # observation sharding (parallel/mesh.py): when set, X / z_structs
+        # / weights / gram_A / gram_AW hold this rank's shard of the rows
+        # and every likelihood sum is all-reduced over the data group by
+        # ``obs_axis.sum``; cfg.N stays the global count (it enters only
+        # normalizing constants), N_rows is the local row count
+        self.obs_axis = None
+        self.N_rows = self.X.shape[0]
         self.hyper_np = dict(hyper)
         self.hyper = {
             k: (T(v) if isinstance(v, (np.ndarray, list, float, int))
@@ -471,6 +478,18 @@ class ParametricModel:
     @property
     def num_upars(self) -> int:
         return self.layout.num_upars
+
+    def _psum(self, *xs):
+        """The tensors ``xs`` summed over the observation shards in one
+        all-reduce (unchanged when not sharded); one tensor for one."""
+        if self.obs_axis is None:
+            return xs[0] if len(xs) == 1 else xs
+        flat = self.obs_axis.sum(torch.cat([x.reshape(-1) for x in xs]))
+        out, off = [], 0
+        for x in xs:
+            out.append(flat[off: off + x.numel()].reshape(x.shape))
+            off += x.numel()
+        return out[0] if len(out) == 1 else tuple(out)
 
     # -- transformed parameters ---------------------------------------------
 
@@ -550,7 +569,15 @@ class ParametricModel:
         tp = self.transformed(c)
         eta = offset_ + self.parametric_mean(c, tp)
         aux = tp["aux"]
-        if not cfg.has_weights:
+        if self.obs_axis is not None:
+            # the local quadratic, one all-reduce, the global N; forward
+            # only (NUTS differentiates the Gram form instead)
+            r = y - eta
+            quad = self._psum((r * r * self.weights).sum(-1)
+                              if cfg.has_weights else (r * r).sum(-1))
+            lp = (-0.5 * cfg.N * torch.log(2.0 * math.pi * aux * aux)
+                  - 0.5 * quad / (aux * aux))
+        elif not cfg.has_weights:
             lp = dists.normal_lpdf(y, eta, aux[:, None])
         else:
             lp = (-0.5 * cfg.N * torch.log(2.0 * math.pi * aux * aux)
@@ -730,6 +757,9 @@ class ParametricModel:
             rw = r * self.weights if self.cfg.has_weights else r
             rr = (r * rw).sum(-1)
             g = r @ self.gram_AW
+            # observation-sharded: one all-reduce carries the likelihood
+            # into every leapfrog of the iteration
+            rr, g = self._psum(rr, g)
         return vhat, rr, g
 
     def log_prob_gram(self, u, anchor):
@@ -807,7 +837,7 @@ class ParametricModel:
             C, D = vhat.shape
             r = y - (offset_ + vhat @ self.gram_A.T)
             rw = r * self.weights if cfg.has_weights else r
-            g = rw @ self.gram_A
+            g = self._psum(rw @ self.gram_A)
 
             P = torch.diag_embed(self._lg_prec_head.expand(C, D)).clone()
             col = cfg.K

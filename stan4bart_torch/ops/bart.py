@@ -227,7 +227,7 @@ def _leaf_marginal(n, s, sigma2, tau2):
 
 
 def tree_step(cfg: BartConfig, feature, cut, lidx, r, sigma2, tau2, u6, zn,
-              ranks_t, spcum, depths, p_split, w=None):
+              ranks_t, spcum, depths, p_split, w=None, reduce=None):
     """One grow/prune/change MH step and the conjugate leaf draws of one
     tree, for C chains at once.
 
@@ -238,6 +238,18 @@ def tree_step(cfg: BartConfig, feature, cut, lidx, r, sigma2, tau2, u6, zn,
     spcum (P,) split-prob cumsum, depths (M,) int64 node depths,
     p_split (max_depth + 2,) by depth, w (N,) optional likelihood
     weights (every statistic becomes (sum w, sum w r)).
+
+    reduce: the observation-sharded form (the JAX package's
+    ``_tree_move(axis_name=)``).  The observations here are one shard of
+    the data, and ``reduce`` sums a (C, 2, M + 1) block over the shards
+    (an all-reduce over the data group).  The tree update then does ONE
+    reduction: the per-node (sum w, sum w r) of the current partition and
+    the proposed-left pair.  The other move statistics follow from the
+    per-node sums, and the accepted partition's per-node sums are the
+    current ones with the three nodes whose membership changes (eta, its
+    children) set from the move's totals.  The local sums are taken in
+    float64 and rounded once, so they are the exact sums up to one
+    rounding, as the sharded kernel's fixed-point sums are.
 
     Returns (feature, cut, lidx, leaf_value (C, M), fit (C, N)).
     """
@@ -288,9 +300,30 @@ def tree_step(cfg: BartConfig, feature, cut, lidx, r, sigma2, tau2, u6, zn,
         n = mask.sum(1).to(dtype) if w is None else (mask * w).sum(1)
         return n, torch.where(mask, wr, 0.0).sum(1)
 
-    n_all, s_all = masked_stats(members)
-    n_ln, s_ln = masked_stats(members & go_left)
-    n_lo, s_lo = masked_stats(is_lft)
+    if reduce is None:
+        n_all, s_all = masked_stats(members)
+        n_ln, s_ln = masked_stats(members & go_left)
+        n_lo, s_lo = masked_stats(is_lft)
+    else:
+        f64 = torch.float64
+        cnt_old, sum_old = node_stats(lidx, wr.to(f64), M,
+                                      None if w is None else w.to(f64))
+        mask_ln = members & go_left
+        wr64 = wr.to(f64)
+        n_ln_loc = (mask_ln.to(f64).sum(1) if w is None
+                    else (mask_ln * w.to(f64)).sum(1))
+        s_ln_loc = torch.where(mask_ln, wr64, 0.0).sum(1)
+        blk = torch.stack([torch.cat([cnt_old, n_ln_loc[:, None]], 1),
+                           torch.cat([sum_old, s_ln_loc[:, None]], 1)],
+                          1).to(dtype)
+        blk = reduce(blk)                                 # (C, 2, M + 1)
+        cnt_old, sum_old = blk[:, 0, :M], blk[:, 1, :M]
+        n_ln, s_ln = blk[:, 0, M], blk[:, 1, M]
+        n_eta, s_eta = cnt_old[rows, eta], sum_old[rows, eta]
+        n_lo, s_lo = cnt_old[rows, lft], sum_old[rows, lft]
+        n_rgt, s_rgt = cnt_old[rows, rgt], sum_old[rows, rgt]
+        n_all = torch.where(do_grow, n_eta, n_lo + n_rgt)
+        s_all = torch.where(do_grow, s_eta, s_lo + s_rgt)
     n_rn, s_rn = n_all - n_ln, s_all - s_ln
     n_ro, s_ro = n_all - n_lo, s_all - s_lo
 
@@ -342,11 +375,32 @@ def tree_step(cfg: BartConfig, feature, cut, lidx, r, sigma2, tau2, u6, zn,
     lidx = torch.where(acc, new_lidx, lidx)
 
     # conjugate leaf draws from the accepted partition
-    cw = (torch.ones_like(r) if w is None else w.expand_as(r))
-    counts = torch.zeros((C, M), dtype=dtype, device=dev).scatter_add_(
-        1, lidx, cw)
-    sums = torch.zeros((C, M), dtype=dtype, device=dev).scatter_add_(
-        1, lidx, wr)
+    if reduce is None:
+        cw = (torch.ones_like(r) if w is None else w.expand_as(r))
+        counts = torch.zeros((C, M), dtype=dtype, device=dev).scatter_add_(
+            1, lidx, cw)
+        sums = torch.zeros((C, M), dtype=dtype, device=dev).scatter_add_(
+            1, lidx, wr)
+    else:
+        # the current partition's sums, with eta and its children set
+        # from the move's totals where the move was accepted
+        zero = torch.zeros_like(n_all)
+        prune = do_prune
+        new_n = (torch.where(prune, n_all, zero),
+                 torch.where(prune, zero, n_ln),
+                 torch.where(prune, zero, n_rn))
+        new_s = (torch.where(prune, s_all, zero),
+                 torch.where(prune, zero, s_ln),
+                 torch.where(prune, zero, s_rn))
+        counts, sums = cnt_old.clone(), sum_old.clone()
+        # rgt, then lft, then eta: at the bottom row lft and rgt clamp to
+        # one slot, where no grow is valid
+        for node, vn, vs in ((rgt, new_n[2], new_s[2]),
+                             (lft, new_n[1], new_s[1]),
+                             (eta, new_n[0], new_s[0])):
+            counts[rows, node] = torch.where(accept, vn,
+                                             counts[rows, node])
+            sums[rows, node] = torch.where(accept, vs, sums[rows, node])
     s2, t2 = sigma2[:, None], tau2[:, None]
     post_var = 1.0 / (counts / s2 + 1.0 / t2)
     post_mean = post_var * sums / s2
@@ -369,7 +423,8 @@ def node_stats(lidx, wr, max_nodes: int, w=None):
 
 
 def _subtree_regrow(cfg: BartConfig, feature, cut, lidx, wr, ranks, spcum,
-                    depths, p_split, sigma2, tau2, g, u3, w=None):
+                    depths, p_split, sigma2, tau2, g, u3, w=None,
+                    reduce=None):
     """Subtree-regrow MH move of one tree of each of C chains: pick an
     active node eta uniformly, propose the whole subtree at eta redrawn
     from the CGM structure prior (at eta's absolute depth), and accept
@@ -383,7 +438,8 @@ def _subtree_regrow(cfg: BartConfig, feature, cut, lidx, wr, ranks, spcum,
     (gate, node pick, accept), u3 (C, 3, M) uniforms (split, variable,
     cut per node), w (N,) optional weights.  Returns (feature, cut,
     lidx, counts, sums), the last two the accepted partition's per-node
-    statistics."""
+    statistics.  ``reduce`` (observation-sharded) sums both partitions'
+    per-node statistics over the data shards in one (C, 4, M) block."""
     C, M = feature.shape
     dev = feature.device
     rows = torch.arange(C, device=dev)
@@ -425,6 +481,9 @@ def _subtree_regrow(cfg: BartConfig, feature, cut, lidx, wr, ranks, spcum,
 
     counts_old, sums_old = node_stats(lidx, wr, M, w)
     counts_new, sums_new = node_stats(new_lidx, wr, M, w)
+    if reduce is not None:
+        counts_old, sums_old, counts_new, sums_new = reduce(torch.stack(
+            [counts_old, sums_old, counts_new, sums_new], 1)).unbind(1)
     s2, t2 = sigma2[:, None], tau2[:, None]
     leaf_old = (feature == LEAF) & in_sub
     leaf_new = (new_feature == LEAF) & in_sub
@@ -465,7 +524,7 @@ def draw_regrow_variates(gen, n_chains: int, cfg: BartConfig, dtype,
 
 def regrow_refresh(cfg: BartConfig, state: BartState, y_target, ranks,
                    split_probs, sigma, gen=None, weights=None,
-                   variates=None) -> BartState:
+                   variates=None, reduce=None) -> BartState:
     """``cfg.regrow_per_sweep`` random-scan subtree regrows of every
     chain's forest: pick a tree uniformly, attempt one whole-subtree
     regrow (``_subtree_regrow``, exact MH), then redraw its leaves from
@@ -476,7 +535,9 @@ def regrow_refresh(cfg: BartConfig, state: BartState, y_target, ranks,
     variates: optional ``(tree, g, u3, zn)`` as ``draw_regrow_variates``
     makes them, replacing the draw from ``gen``.  The new tree's fit is
     a gather of its new leaf values, so ``tree_fit`` equals
-    ``leaf_value[leaf_idx]`` to the bit."""
+    ``leaf_value[leaf_idx]`` to the bit.  ``reduce``: the
+    observation-sharded form, one reduction per regrow
+    (``_subtree_regrow``)."""
     R = cfg.regrow_per_sweep
     if R <= 0:
         return state
@@ -511,7 +572,8 @@ def regrow_refresh(cfg: BartConfig, state: BartState, y_target, ranks,
         f2, c2, li2, counts, sums = _subtree_regrow(
             cfg, feature[rows, j].long(), cut[rows, j].long(),
             leaf_idx[rows, j].long(), wr, ranks, spcum, depths, p_split,
-            sigma2, tau2, g[:, r].to(dtype), u3[:, r].to(dtype), w)
+            sigma2, tau2, g[:, r].to(dtype), u3[:, r].to(dtype), w,
+            reduce=reduce)
         post_var = 1.0 / (counts / s2 + 1.0 / t2)
         post_mean = post_var * sums / s2
         mu = post_mean + torch.sqrt(post_var) * zn[:, r].to(dtype)
@@ -539,7 +601,8 @@ def draw_variates(gen, n_chains: int, num_trees: int, dtype, device):
 
 
 def sweep_trees(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
-                tau2, u, zn, ranks_t, spcum, depths, p_split, weights=None):
+                tau2, u, zn, ranks_t, spcum, depths, p_split, weights=None,
+                reduce=None):
     """The sequential sweep over the trees of C chains, with the running
     residual carried from tree to tree as the CUDA kernel carries it —
     the plain version of ``csrc/bart_sweep_batch.cu``.
@@ -548,6 +611,9 @@ def sweep_trees(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
     response minus every tree, sigma2/tau2 (C,), u (C, T, >= 6) and zn
     (C, T, >= M) variates, ranks_t (P, N) int64, spcum, depths, p_split
     and weights as ``tree_step`` takes them; floats in resid0's dtype.
+    ``reduce``: the observation-sharded sweep (``tree_step``), one
+    reduction per tree update; the plain version of
+    ``csrc/bart_sweep_sharded.cu``.
     Returns (feature, cut, leaf_value, leaf_idx, tree_fit, resid)."""
     R = resid0
     outs = []
@@ -556,7 +622,7 @@ def sweep_trees(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
         f, c, li, lv, new_fit = tree_step(
             cfg, feature[:, t].long(), cut[:, t].long(), lidx[:, t].long(),
             r, sigma2, tau2, u[:, t, :6], zn[:, t], ranks_t, spcum, depths,
-            p_split, w=weights)
+            p_split, w=weights, reduce=reduce)
         R = r - new_fit
         outs.append((f, c, lv, li, new_fit))
     f, c, lv, li, fit = (torch.stack(x, 1) for x in zip(*outs))
@@ -565,7 +631,8 @@ def sweep_trees(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
 
 
 def bart_sweep(cfg: BartConfig, state: BartState, y_target, ranks,
-               split_probs, sigma, gen=None, weights=None, variates=None):
+               split_probs, sigma, gen=None, weights=None, variates=None,
+               reduce=None):
     """One full Gibbs sweep over all trees of C chains (the reference's
     ``runSamplerWithResults`` with one sample).
 
@@ -577,7 +644,10 @@ def bart_sweep(cfg: BartConfig, state: BartState, y_target, ranks,
     ``gen``.  With ``cfg.regrow_per_sweep`` the regrows of
     ``regrow_refresh`` follow the trees (before the k update), drawn from
     ``gen``, as the JAX package's op-form sweep runs them; they take no
-    pre-drawn variates here.  Returns (state, varcount (C, P))."""
+    pre-drawn variates here.  ``reduce``: the observation-sharded sweep
+    (the JAX package's ``bart_sweep(axis_name=)``): every obs-sized input
+    is this rank's shard and every sufficient statistic is summed over
+    the shards by ``reduce``.  Returns (state, varcount (C, P))."""
     if cfg.regrow_per_sweep > 0 and variates is not None:
         raise ValueError(
             "the regrow refresh takes no pre-drawn sweep variates; pass "
@@ -599,13 +669,14 @@ def bart_sweep(cfg: BartConfig, state: BartState, y_target, ranks,
         ranks.t().contiguous().long(), spcum,
         torch.as_tensor(node_depths(cfg), dtype=torch.long, device=dev),
         torch.as_tensor(split_prob_by_depth(cfg), dtype=dtype, device=dev),
-        weights=w)
+        weights=w, reduce=reduce)
     new_state = state._replace(
         feature=feature, cut=cut, leaf_value=lv, leaf_idx=lidx,
         allfit=y_target - resid, tree_fit=fit)
     if cfg.regrow_per_sweep > 0:
         new_state = regrow_refresh(cfg, new_state, y_target, ranks,
-                                   split_probs, sigma, gen, weights=w)
+                                   split_probs, sigma, gen, weights=w,
+                                   reduce=reduce)
     if cfg.k_df > 0:
         k, sigma_mu = chi_k_update(cfg, new_state.feature,
                                    new_state.leaf_value, state.k,

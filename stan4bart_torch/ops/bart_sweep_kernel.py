@@ -35,6 +35,13 @@ sweep kernels are bit-identical at equal K.  A K whose slice does not fit
 on chip has no resident cluster and is never chosen; forced, its launch
 raises.
 
+``bart_sweep_fused_sharded`` is the observation-sharded sweep of one
+rank of a data group: on a CUDA tensor ``csrc/bart_sweep_sharded.cu``,
+two launches per tree with the caller's all-reduce between them (the
+counterpart of the JAX package's XLA ``bart_sweep(axis_name=)``, which
+no Pallas kernel implements); on a CPU tensor ``sweep_trees`` with the
+same ``reduce`` hook.
+
 ``bart_sweep_ablate`` runs the ablation stubs of the single-pass kernel
 (``csrc/bart_sweep_ablate.cu``, counterparts of the TPU stubs in
 ``benchmarks/ablate_batch_kernel.py``), a measurement aid on no fit path.
@@ -117,15 +124,16 @@ def make_sweep_consts(cfg: BartConfig, ranks, split_probs,
 
 
 def sweep_plain(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
-                tau2, u, zn, consts: SweepConsts, weights=None):
+                tau2, u, zn, consts: SweepConsts, weights=None, reduce=None):
     """``ops/bart.py:sweep_trees`` on the kernel's operands, in resid0's
-    dtype.  Returns (feature, cut, leaf_value, leaf_idx, tree_fit,
-    resid)."""
+    dtype; with ``reduce``, its observation-sharded form (the plain
+    version of ``csrc/bart_sweep_sharded.cu``).  Returns (feature, cut,
+    leaf_value, leaf_idx, tree_fit, resid)."""
     dtype = resid0.dtype
     return sweep_trees(cfg, feature, cut, lidx, tfit, resid0, sigma2, tau2,
                        u, zn, consts.ranks_t.long(), consts.spcum.to(dtype),
                        consts.depths, consts.psplit.to(dtype),
-                       weights=weights)
+                       weights=weights, reduce=reduce)
 
 
 def cluster_size(C: int, N: int, resident) -> int:
@@ -161,13 +169,10 @@ def _ptr(x):
     return ctypes.c_void_p(0 if x is None else x.data_ptr())
 
 
-def _launch(name: str, cfg: BartConfig, feature, cut, lidx, tfit, resid0,
-            sigma2, tau2, u, zn, consts: SweepConsts, weights, K: int):
-    """Check the operands and launch kernel ``csrc/<name>.cu`` on the
-    current stream in clusters of K blocks per chain; returns its fresh
-    outputs."""
-    from stan4bart_torch.ops.cuda_build import load
-
+def _operands(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
+              tau2, u, zn, consts: SweepConsts, weights):
+    """Check a sweep kernel's operands and allocate its outputs; returns
+    (outputs, the launcher's leading ctypes arguments, their argtypes)."""
     C, T, M = feature.shape
     N = consts.n_obs
     P = consts.ranks_t.shape[0]
@@ -193,25 +198,37 @@ def _launch(name: str, cfg: BartConfig, feature, cut, lidx, tfit, resid0,
     lidx_o = torch.empty_like(lidx)
     tfit_o = torch.empty_like(tfit)
     resid_o = torch.empty_like(resid0)
+    outs = (feature_o, cut_o, lv_o, lidx_o, tfit_o, resid_o)
+    head = ([_ptr(x) for x in (feature, cut, lidx, tfit, resid0, sigma2,
+                               tau2, u, zn, consts.ranks_t, consts.spcum,
+                               consts.psplit, weights)]
+            + [_ptr(x) for x in outs]
+            + [C, T, N, P, M, cfg.max_depth, cfg.n_cuts,
+               cfg.p_grow, cfg.p_prune,
+               math.log(cfg.p_prune) - math.log(cfg.p_grow),
+               math.log(cfg.p_grow) - math.log(cfg.p_prune)])
+    argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
+                + [ctypes.c_float] * 4)
+    return outs, head, argtypes
 
+
+def _launch(name: str, cfg: BartConfig, feature, cut, lidx, tfit, resid0,
+            sigma2, tau2, u, zn, consts: SweepConsts, weights, K: int):
+    """Check the operands and launch kernel ``csrc/<name>.cu`` on the
+    current stream in clusters of K blocks per chain; returns its fresh
+    outputs."""
+    from stan4bart_torch.ops.cuda_build import load
+
+    outs, head, argtypes = _operands(cfg, feature, cut, lidx, tfit, resid0,
+                                     sigma2, tau2, u, zn, consts, weights)
     fn = getattr(load(name), f"{name}_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = argtypes + [ctypes.c_int, ctypes.c_void_p]
     stream = torch.cuda.current_stream(feature.device).cuda_stream
-    err = fn(_ptr(feature), _ptr(cut), _ptr(lidx), _ptr(tfit), _ptr(resid0),
-             _ptr(sigma2), _ptr(tau2), _ptr(u), _ptr(zn),
-             _ptr(consts.ranks_t), _ptr(consts.spcum), _ptr(consts.psplit),
-             _ptr(weights), _ptr(feature_o), _ptr(cut_o), _ptr(lv_o),
-             _ptr(lidx_o), _ptr(tfit_o), _ptr(resid_o),
-             C, T, N, P, M, cfg.max_depth, cfg.n_cuts,
-             cfg.p_grow, cfg.p_prune,
-             math.log(cfg.p_prune) - math.log(cfg.p_grow),
-             math.log(cfg.p_grow) - math.log(cfg.p_prune),
-             K, ctypes.c_void_p(stream))
+    err = fn(*head, K, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    return feature_o, cut_o, lv_o, lidx_o, tfit_o, resid_o
+    return outs
 
 
 _info_cache: dict = {}
@@ -219,7 +236,8 @@ _info_cache: dict = {}
 
 def kernel_smem(name: str, N: int, T: int, K: int) -> dict:
     """Shared memory per block of the sweep kernel ``name``
-    (``bart_sweep_batch``, ``bart_sweep_tiled`` or ``bart_sweep_chain``)
+    (``bart_sweep_batch``, ``bart_sweep_tiled``, ``bart_sweep_chain`` or,
+    its stats launch, ``bart_sweep_sharded``)
     at N observations, T trees and clusters of K blocks, on the current
     CUDA device: static and dynamic bytes, the device's opt-in limit, how
     many clusters can be resident at once (0 where the on-chip kernels'
@@ -308,12 +326,67 @@ def sweep_chain_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
     return out
 
 
+def apply_blocks(C: int, N: int) -> int:
+    """Blocks per chain of the sharded sweep's apply launch: enough for two
+    blocks per SM of a 132-SM card over all chains, at least
+    ``MIN_OBS_PER_BLOCK`` observations each."""
+    return max(1, min(-(-N // MIN_OBS_PER_BLOCK), -(-264 // C)))
+
+
+def sweep_sharded_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
+                       sigma2, tau2, u, zn, consts: SweepConsts,
+                       weights=None, reduce=None, cluster=None):
+    """The observation-sharded sweep of ``csrc/bart_sweep_sharded.cu`` on
+    the current stream: per tree a stats launch (clusters of K blocks per
+    chain over this rank's observations), ``reduce`` of the (C, 2, M + 1)
+    block over the data group (None: one rank), and an apply launch; then
+    a flush launch.  Same contract as ``sweep_plain`` with the same
+    ``reduce`` (all float inputs float32); ``cluster`` forces the stats
+    launch's blocks per chain.  ``bart_sweep_fused_sharded.launches``
+    counts tree updates (one stats and one apply launch each)."""
+    from stan4bart_torch.ops.cuda_build import load
+
+    C, T, M = feature.shape
+    K = _cluster("bart_sweep_sharded", C, T, consts, cluster)
+    nb = apply_blocks(C, consts.n_obs)
+    outs, head, argtypes = _operands(cfg, feature, cut, lidx, tfit, resid0,
+                                     sigma2, tau2, u, zn, consts, weights)
+    lib = load("bart_sweep_sharded")
+    stats, apply = lib.bart_sweep_sharded_stats, lib.bart_sweep_sharded_apply
+    for fn in (stats, apply):
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes + [ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_int, ctypes.c_void_p]
+    stream = ctypes.c_void_p(
+        torch.cuda.current_stream(feature.device).cuda_stream)
+    blk = torch.empty((C, 2, M + 1), dtype=torch.float32,
+                      device=feature.device)
+    for t in range(T + 1):
+        err = stats(*head, t, _ptr(blk), K, stream)
+        if err != 0:
+            raise RuntimeError(f"bart_sweep_sharded stats launch failed: "
+                               f"CUDA error {err}")
+        if t == T:
+            break
+        if reduce is not None:
+            blk = reduce(blk)
+            _check(blk, "reduced block", torch.float32, (C, 2, M + 1))
+        err = apply(*head, t, _ptr(blk), nb, stream)
+        if err != 0:
+            raise RuntimeError(f"bart_sweep_sharded apply launch failed: "
+                               f"CUDA error {err}")
+        bart_sweep_fused_sharded.launches += 1
+    bart_sweep_fused_sharded.last_cluster = K
+    return outs
+
+
 # each kernel's widest padded observation row (None: any n)
 _MAX_NPAD = {"bart_sweep_batch": MAX_NPAD, "bart_sweep_tiled": None,
-             "bart_sweep_chain": MAX_N_CHAIN}
+             "bart_sweep_chain": MAX_N_CHAIN, "bart_sweep_sharded": None}
 _LAUNCH = {"bart_sweep_batch": sweep_cuda,
            "bart_sweep_tiled": sweep_tiled_cuda,
-           "bart_sweep_chain": sweep_chain_cuda}
+           "bart_sweep_chain": sweep_chain_cuda,
+           "bart_sweep_sharded": sweep_sharded_cuda}
 
 
 def check_kernel_supports(consts: SweepConsts, dtype,
@@ -333,7 +406,7 @@ def check_kernel_supports(consts: SweepConsts, dtype,
 
 def _fused(kernel: str, cfg: BartConfig, state: BartState, y_target,
            consts: SweepConsts, sigma, gen, weights, variates, gamma,
-           **launch_kw):
+           reduce=None, **launch_kw):
     dev = state.allfit.device
     dtype = state.allfit.dtype
     C, T = state.feature.shape[:2]
@@ -353,10 +426,12 @@ def _fused(kernel: str, cfg: BartConfig, state: BartState, y_target,
             state.leaf_idx.contiguous(),
             state.tree_fit.to(work).contiguous(), resid0, sigma2, tau2,
             u, zn, consts)
+    if reduce is not None:
+        launch_kw["reduce"] = reduce
     if on_cuda:
         out = _LAUNCH[kernel](*args, weights=w, **launch_kw)
     else:
-        out = sweep_plain(*args, weights=w)
+        out = sweep_plain(*args, weights=w, reduce=reduce)
     feature, cut, lv, lidx, tfit, resid = out
     leaf_value = lv.to(dtype)
     k, sigma_mu = state.k, state.sigma_mu
@@ -417,6 +492,25 @@ def bart_sweep_fused(cfg: BartConfig, state: BartState, y_target,
     version."""
     return _fused("bart_sweep_chain", cfg, state, y_target, consts, sigma,
                   gen, weights, variates, gamma, cluster=cluster)
+
+
+def bart_sweep_fused_sharded(cfg: BartConfig, state: BartState, y_target,
+                             consts: SweepConsts, sigma, gen, *,
+                             weights=None, reduce=None):
+    """The observation-sharded sweep: ``bart_sweep_fused_batch``'s contract
+    on this rank's shard of the observations (y_target, the state's
+    leaf_idx / tree_fit / allfit, the weights and ``consts`` are the
+    shard's), every sufficient statistic summed over the data group by
+    ``reduce`` (one call per tree update; None on one rank).  The
+    variates are drawn as the other wrappers draw them, from a generator
+    that every rank of the data group holds in the same state, so the
+    forests are the same on every rank.
+
+    On a CUDA state this runs ``csrc/bart_sweep_sharded.cu``
+    (``sweep_sharded_cuda``, float32 only).  On a CPU state it runs the
+    plain sharded sweep (``sweep_plain`` with ``reduce``)."""
+    return _fused("bart_sweep_sharded", cfg, state, y_target, consts, sigma,
+                  gen, weights, None, None, reduce=reduce)
 
 
 def ablate_plain(mode: str, feature, cut, lv, lidx, tfit, resid0,
@@ -515,8 +609,10 @@ def bart_sweep_ablate(mode: str, feature, cut, lv, lidx, tfit, resid0, u,
 bart_sweep_fused_batch.launches = 0
 bart_sweep_fused_batch_tiled.launches = 0
 bart_sweep_fused.launches = 0
+bart_sweep_fused_sharded.launches = 0
 bart_sweep_ablate.launches = 0
 bart_sweep_fused_batch.last_cluster = None
 bart_sweep_fused_batch_tiled.last_cluster = None
 bart_sweep_fused.last_cluster = None
+bart_sweep_fused_sharded.last_cluster = None
 bart_sweep_ablate.last_cluster = None

@@ -116,19 +116,29 @@ def welford_variance(w: WelfordState):
     return (n / (n + 5.0)) * var + 1e-3 * (5.0 / (n + 5.0))
 
 
-def pooled_welford_variance(w: WelfordState, include_between: bool = False):
+def chain_mean(x, pool=None):
+    """The mean of x (C, ...) over the chains, (1, ...): over this
+    program's chains, or with ``pool`` (parallel/multihost.ChainPool) over
+    every chain of every rank, by one all-reduce."""
+    return x.mean(0, keepdim=True) if pool is None else pool.mean(x)
+
+
+def pooled_welford_variance(w: WelfordState, include_between: bool = False,
+                            pool=None):
     """The pooled metric estimate over the chain dimension, the same row
     for every chain: the geometric mean of the per-chain variances (robust
     to chains whose window mean still drifts), regularized as Stan does
     but with the pooled count n C; optionally plus the between-chain
-    variance of the window means, scaled by C / (C - 1)."""
+    variance of the window means, scaled by C / (C - 1).  ``pool`` pools
+    over every chain of every rank (one all-reduce, two more with the
+    between-chain term)."""
     n = w.count[:, None]
-    C = w.count.shape[0]
-    var = torch.exp(torch.log(torch.clamp(w.m2 / (n - 1.0), min=1e-30))
-                    .mean(0, keepdim=True))
+    C = w.count.shape[0] if pool is None else pool.n_chains
+    var = torch.exp(chain_mean(
+        torch.log(torch.clamp(w.m2 / (n - 1.0), min=1e-30)), pool))
     if include_between:
-        gm = w.mean.mean(0, keepdim=True)
-        var = var + ((w.mean - gm) ** 2).mean(0, keepdim=True) * (
+        gm = chain_mean(w.mean, pool)
+        var = var + chain_mean((w.mean - gm) ** 2, pool) * (
             C / max(C - 1.0, 1.0))
     pooled_n = n * C
     return ((pooled_n / (pooled_n + 5.0)) * var
@@ -252,13 +262,15 @@ def _pick(mask, new, old):
 def nuts_transition(logdensity_fn: Callable, state: NutsState, gen,
                     cfg: NutsConfig, adapt_stepsize: bool, collect: bool,
                     window_end: bool, momentum=None, u_leaf=None,
-                    u_depth=None):
+                    u_depth=None, pool=None):
     """One NUTS transition + adaptation bookkeeping for every chain.
 
     adapt_stepsize / collect / window_end: this iteration's schedule
     flags (shared by all chains); all False after warmup.  momentum
     (C, D) standard normals, u_leaf (C, 2^max_treedepth + 1) and
     u_depth (C, max_treedepth, 2) uniforms optionally replace the draws.
+    pool: pooled adaptation over every chain of every rank
+    (parallel/multihost.ChainPool) instead of this program's chains.
     """
     q0 = state.q
     C, D = q0.shape
@@ -440,13 +452,17 @@ def nuts_transition(logdensity_fn: Callable, state: NutsState, gen,
     if adapt_stepsize:
         # pooled: every chain's dual averaging takes the chains' mean
         # accept signal
-        da = da_update(da, accept_stat.mean().expand(C) if pool_eps
+        if pool_eps:
+            mean_acc = (accept_stat.mean() if pool is None
+                        else pool.mean(accept_stat[:, None])[0, 0])
+        da = da_update(da, mean_acc.expand(C) if pool_eps
                        else accept_stat, cfg)
     if collect:
         welford = welford_update(welford, sample_q)
     if window_end:
         if cfg.pooled and cfg.pooled_parts != "stepsize":
-            inv_mass = pooled_welford_variance(welford, cfg.pooled_between)
+            inv_mass = pooled_welford_variance(welford, cfg.pooled_between,
+                                               pool)
         else:
             inv_mass = welford_variance(welford)
         if cfg.window_end_research:
@@ -456,7 +472,10 @@ def nuts_transition(logdensity_fn: Callable, state: NutsState, gen,
             new_eps = torch.exp(da.log_eps)
         if pool_eps:
             # the chains restart from their geometric-mean stepsize
-            new_eps = torch.exp(torch.log(new_eps).mean()).expand(C)
+            log_eps = torch.log(new_eps)
+            new_eps = torch.exp(
+                log_eps.mean() if pool is None
+                else pool.mean(log_eps[:, None])[0, 0]).expand(C)
         zero = torch.zeros_like(new_eps)
         da = DualAveragingState(
             log_eps=torch.log(new_eps), log_eps_bar=da.log_eps_bar,

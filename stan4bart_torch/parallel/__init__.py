@@ -1,1 +1,2 @@
-"""Convergence diagnostics of the port."""
+"""Convergence diagnostics, and chains and observations over several
+processes (``multihost``, ``mesh``)."""

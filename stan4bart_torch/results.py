@@ -76,8 +76,9 @@ class Stan4bartFit:
     # resolved prior info (assemble info dict) for prior_summary()
     prior_info: dict | None = None
     # measured wall-clock seconds: 'total', 'warmup', 'sample', and the
-    # iteration phases 'nuts_gibbs', 'sweep', 'post'; 'interrupted': True
-    # on partial fits
+    # iteration phases 'nuts_gibbs', 'sweep', 'post' (from several ranks
+    # this rank's, with 'run' and 'gather'); 'interrupted': True on
+    # partial fits
     timings: dict | None = None
     # whether the chains ran the per-chain GibbsProgram.step (a callback
     # or keep_fits=False); continue_sampling resumes on the same driver
@@ -89,6 +90,11 @@ class Stan4bartFit:
     # model and the device: what load() rebuilds the program from
     stan_args: Any = None
     program_args: dict | None = None
+    # the sampling driver's record: measured warmup / sample seconds,
+    # completed counts, the per-phase seconds and, from several ranks, the
+    # layout (world_size, rank, chain_groups, obs_shards, backend), the
+    # data group's all-reduce count and the run / gather seconds
+    run_info: dict | None = None
     # True once the stored stan draws hold un-rotated betas: an init field,
     # so that replace() and load() carry it and __post_init__ never
     # applies R_inv to draws it has already un-rotated

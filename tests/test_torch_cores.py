@@ -3,10 +3,14 @@ chains spread over cores only where there is more than one device).
 
 On one device (the CPU here, or one visible card) ``cores > 1`` runs the
 single-device path and gives the draws of ``cores=None``; with more than
-one visible CUDA device it raises ``NotImplementedError`` (multi-device
-dispatch is not ported) before any device work; ``cores <= 0`` is the
-reference's ValueError.  The fit is sized as tests/test_cores_skip.py
-sizes its own: n = 100, 4 chains, 20 iterations, 4 trees."""
+one visible CUDA device it hands the fit to ``parallel.mesh.
+fit_on_devices``, one NCCL rank per card on min(cores, cards, chains)
+cards (tests/test_torch_multihost.py runs that function on CPU ranks);
+``cores <= 0`` is the reference's ValueError.  The fit is sized as
+tests/test_cores_skip.py sizes its own: n = 100, 4 chains, 20 iterations,
+4 trees."""
+
+import inspect
 
 import numpy as np
 import pytest
@@ -43,10 +47,25 @@ def test_cores_on_the_cpu_runs_the_single_device_path():
 
 @pytest.mark.parametrize("cores", [2, 4])
 def test_cores_with_several_cuda_devices_is_not_ported(monkeypatch, cores):
+    """Several visible cards: one spawned NCCL rank per card (no longer a
+    NotImplementedError), on min(cores, cards, chains) of them, before any
+    device work of this process."""
+    from stan4bart_torch.parallel import mesh
+
+    calls = []
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        stan4bart_torch.stan4bart(FORMULA, _df(), device="cuda",
-                                  cores=cores, **KW)
+    monkeypatch.setattr(mesh, "fit_on_devices",
+                        lambda *a: calls.append(a) or "fit")
+    assert stan4bart_torch.stan4bart(FORMULA, _df(), device="cuda",
+                                     cores=cores, **KW) == "fit"
+    (devices, backend, formula, _, kwargs), = calls
+    assert devices == ["cuda:0", "cuda:1"] and backend.endswith("nccl")
+    assert formula == FORMULA and kwargs["chains"] == 4
+    assert "cores" not in kwargs and "device" not in kwargs
+    # every other argument of stan4bart reaches the ranks
+    params = inspect.signature(stan4bart_torch.stan4bart).parameters
+    assert set(kwargs) == set(params) - {"formula", "data", "cores",
+                                         "device", "_progress"}
 
 
 def test_cores_with_one_cuda_device_takes_the_single_device_path(

@@ -194,15 +194,16 @@ def test_other_supported_priors_match(models, family):
 
 
 def test_unported_priors_raise(models):
-    """The options this test once saw raise now build; observation
-    sharding, the one stan_args option left unported, raises naming its
-    ROADMAP queue item."""
+    """The options this test once saw raise now build, observation
+    sharding (the last stan_args option to be ported) included; a
+    negative shard count is the JAX package's bounds error."""
     d, df, rmf, pmf, rpm, ppm, U, off, y = models
     from stan4bart_torch.models import priors
 
     for args in ({"prior": priors.laplace()}, {"qr": True},
-                 {"centered_ranef": True}, {"sigma_gibbs": True}):
+                 {"centered_ranef": True}, {"sigma_gibbs": True},
+                 {"obs_shards": 2}):
         pm, _, _ = port_pm(pmf, "gaussian", args, device="cpu")
-        assert pm.num_upars > 0
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        port_pm(pmf, "gaussian", {"obs_shards": 2}, device="cpu")
+        assert pm.num_upars > 0 and pm.obs_axis is None
+    with pytest.raises(ValueError, match="obs_shards must be >= 0"):
+        port_pm(pmf, "gaussian", {"obs_shards": -1}, device="cpu")
