@@ -121,10 +121,29 @@ with nvcc (one process per source, started together), then:
    equal to the bit, rank by rank, to single-process fits of the same
    chains with the ranks' seeds, and a 2-rank obs-sharded fit whose first
    forests equal the unsharded fit's in all but at most one chain.
+11. runs the in-sweep subtree regrow (``bart_args p_regrow``): a. the
+   single-pass, obs-tiled and per-chain kernels with p_regrow = 1 against
+   the plain sweep on the same (u, zn, rg) variates at the bench shape,
+   at phases 6-9's 10 000 x 128 and at phase 5's 50 000 x 32, there also
+   the obs-tiled kernel at K = 1, whose residual stays in device memory,
+   unweighted and weighted (identical forests and leaf indices in every
+   chain), every kernel with every
+   regrow gate shut equal to its p_regrow = 0 sweep to the bit, the
+   chains whose forests the move changed, and at the bench shape the
+   kernels' times at p_regrow 0, 0.25 and 1 with the plain sweep's and
+   the bound; b. in phase 10a's two ranks, the sharded kernel with
+   p_regrow = 1 against the plain sharded sweep (every chain), with its
+   regrow updates and all-reduces per rank, timed; c. the phase 3 fit at
+   128 chains with ``bart_args={"p_regrow": 0.25}``, every sweep through
+   the single-pass kernel with the move: the gaussian gates and SATE;
+   d. ``utils.profiling.profile_phases`` at the bench shape on phase 3's
+   final states (n_iter 3, repeats 1), printing ``format_profile``'s
+   lines.
 
-``--phases 3,7,9`` runs the listed phases only (``--phases 1,2,4,10`` the
-kernel phases; the kernels line needs those; ``10a``, ``10b`` and
-``10c`` run one part of phase 10).  Prints the card
+``--phases 3,7,9`` runs the listed phases only (``--phases
+1,2,4,10a,11a,11b`` the kernel phases; the kernels line needs those;
+``10a`` to ``10c`` and ``11a`` to ``11d`` run one part of phase 10 or
+11).  Prints the card
 (``nvidia-smi``), a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero.  Needs no network; imports nothing of JAX.
@@ -374,14 +393,16 @@ def check_sweep(name, outs, state, yt, C, N, T, min_same):
     return res
 
 
-def smem_note(name, N, T, K):
-    """One line on kernel ``name``'s shared memory per block at K."""
+def smem_note(name, N, T, K, regrow=False):
+    """One line on kernel ``name``'s shared memory per block at K (of its
+    instantiation with the regrow step when ``regrow``)."""
     from stan4bart_torch.ops.bart_sweep_kernel import kernel_smem
 
-    m = kernel_smem(name, N, T, K)
+    m = kernel_smem(name, N, T, K, regrow)
     where = ("in device memory" if not m["resid_on_chip"]
              else "on chip" if m["clusters"] else "slice does not fit")
-    return (f"{name} K={K}: {m['static']} B static + {m['dynamic']} B "
+    return (f"{name}{' with the regrow' if regrow else ''} K={K}: "
+            f"{m['static']} B static + {m['dynamic']} B "
             f"dynamic shared memory per block of the {m['optin']} B opt-in "
             f"limit, {m['clusters']} clusters resident at once, residual "
             f"{where}")
@@ -631,10 +652,12 @@ def launch_counters():
 
 
 def reset_counts():
-    """Every launch count set to 0; returns the wrappers by kernel."""
+    """Every launch count set to 0 (and every count of launches that ran
+    the in-sweep regrow); returns the wrappers by kernel."""
     counts = launch_counters()
     for fn in counts.values():
         fn.launches = 0
+        fn.regrow_launches = 0
     return counts
 
 
@@ -1537,13 +1560,16 @@ def _same_chains(a, b, sl_a=slice(None), sl_b=slice(None)):
     return same.cpu().numpy(), max(lv, fit)
 
 
-def _sharded_rank(rank, world, device, N, C, T, reps, path_shape):
+def _sharded_rank(rank, world, device, N, C, T, reps, path_shape,
+                  regrow=False):
     """Phase 10a in one rank: the sharded kernel on this rank's shard
     against the plain sharded sweep (both all-reducing over the world)
     and against the obs-tiled kernel over the whole n, at (N, C) and at
     the composed path's ``path_shape`` (its n and chains per data group)
     with the K and apply blocks the kernel picks there; rank 0 also times
-    them and checks world size 1."""
+    them and checks world size 1.  With ``regrow`` (phase 11b), the same
+    at (N, C) with p_regrow = 1 against the plain sharded sweep, with its
+    regrow updates and all-reduces, and rank 0 times it."""
     import torch.distributed as dist
 
     from stan4bart_torch.ops.bart_sweep_kernel import (
@@ -1614,17 +1640,42 @@ def _sharded_rank(rank, world, device, N, C, T, reps, path_shape):
         out["bound_w1_ms"] = (sweep_bytes(C, T, N, cfg.max_nodes)
                               / HBM_BYTES_PER_S * 1e3)
     dist.barrier()
+    if regrow:
+        lon, rg = regrow_args(largs, 1.0, 104)
+        axis = DataAxis()
+        before = bart_sweep_fused_sharded.regrow_launches
+        kr = sweep_sharded_cuda(*lon, reduce=axis.sum, rg=rg)
+        out["rg_updates"] = bart_sweep_fused_sharded.regrow_launches - before
+        out["rg_reductions"] = axis.calls
+        pr = sweep_plain(*lon, reduce=axis.sum, rg=rg)
+        torch.cuda.synchronize()
+        out["rg_same"], out["rg_err"] = _same_chains(kr, pr)
+        out["rg_moved"] = changed_chains(kr, k)
+        del pr
+        dist.barrier()
+        if rank == 0:
+            out["rg_ms"], out["rg_all_ms"] = _time(
+                lambda: sweep_sharded_cuda(*lon, rg=rg), reps)
+            out["rg_plain_ms"] = _time(lambda: sweep_plain(*lon, rg=rg),
+                                       3)[0]
+            out["rg_bound_ms"] = (
+                (sweep_bytes(C, T, N // world, cfg.max_nodes)
+                 + regrow_bytes(C, T, cfg.max_nodes))
+                / HBM_BYTES_PER_S * 1e3)
+        dist.barrier()
     return out
 
 
 def phase_sharded_kernel(N=50_000, C=64, T=75, reps=7, label="phase 10a",
-                         path_shape=(10_000, 128)):
-    """The observation-sharded sweep kernel over 2 ranks on the card."""
+                         path_shape=(10_000, 128), regrow=False):
+    """The observation-sharded sweep kernel over 2 ranks on the card; with
+    ``regrow``, phase 11b in the same ranks."""
     from stan4bart_torch.parallel import mesh
 
     t0 = time.perf_counter()
     r0, r1 = mesh.spawn(_sharded_rank, ["cuda:0", "cuda:0"], RANK_BACKEND,
-                        args=(N, C, T, reps, path_shape), timeout_s=600)
+                        args=(N, C, T, reps, path_shape, regrow),
+                        timeout_s=600)
     same_p = r0["same_plain"] & r1["same_plain"]
     same_t = r0["same_tiled"] & r1["same_tiled"]
     print(f"{label}: backend {r0['backend']}, gloo all_reduce / broadcast "
@@ -1667,6 +1718,25 @@ def phase_sharded_kernel(N=50_000, C=64, T=75, reps=7, label="phase 10a",
           f"{r0['plain_ms']:.4f} ms; memory bound {r0['bound_ms']:.4f} ms at "
           f"the local n ({r0['bound_w1_ms']:.4f} ms at n={N}); "
           f"{time.perf_counter() - t0:.1f} s; {card()}", flush=True)
+    if regrow:
+        same = r0["rg_same"] & r1["rg_same"]
+        print(f"phase 11b: the sharded kernel with p_regrow 1 at n={N} over "
+              f"2 ranks, chains={C}: {int(same.sum())}/{C} chains identical "
+              "to the plain sharded sweep (max |kernel - plain| "
+              f"{max(r0['rg_err'], r1['rg_err']):.3g}); the move changed "
+              f"{r0['rg_moved']}/{C} chains' forests; per rank "
+              f"{T} tree updates and {r0['rg_updates']} regrow updates "
+              f"(rank 1 {r1['rg_updates']}), {r0['rg_reductions']} "
+              f"all-reduces (rank 1 {r1['rg_reductions']}); kernels alone "
+              f"median {r0['rg_ms']:.4f} ms "
+              f"{[round(x, 4) for x in r0['rg_all_ms']]} against "
+              f"{r0['ms']:.4f} ms at p_regrow 0; plain sharded sweep "
+              f"{r0['rg_plain_ms']:.4f} ms; bound {r0['rg_bound_ms']:.4f} "
+              f"ms; {card()}", flush=True)
+        if (same.sum() < C or r0["rg_updates"] != r1["rg_updates"]
+                or r0["rg_reductions"] != T + r0["rg_updates"]):
+            raise AssertionError("phase 11b: the sharded kernel with the "
+                                 "regrow disagrees")
     return dict(r0, max_abs_err=max(
         r0["err_w1"], *(r[k] for r in (r0, r1) for k in (
             "err_plain", "err_tiled", "path_err_plain", "path_err_tiled"))),
@@ -1868,17 +1938,208 @@ def phase_contracts(device, label="phase 10c", chains=16, n=2000):
     return {"bart_sweep_batch": chain_batch, "bart_sweep_sharded": launches}
 
 
+def regrow_bytes(C, T, M):
+    """Bytes the in-sweep regrow adds to a sweep's bound: its variates
+    (3 + 3 M uniforms per chain and tree), read once.  The cut ranks its
+    walks read are the ranks table ``sweep_bytes`` counts once already,
+    and the leaf indices and residuals it reads are on chip."""
+    return C * T * (3 + 3 * M) * 4
+
+
+def regrow_args(args, p, seed, shut=False):
+    """``sweep_args``' operands with ``p_regrow = p`` and regrow variates
+    drawn from ``seed`` (every gate shut when ``shut``)."""
+    from stan4bart_torch.ops import bart as ops
+
+    cfg = args[0]
+    C, T = args[1].shape[:2]
+    gen = torch.Generator(device=args[1].device)
+    gen.manual_seed(seed)
+    rg = ops.draw_tree_regrow_variates(gen, C, cfg, torch.float32,
+                                       args[1].device)
+    if shut:
+        rg[..., 0] = 1.0
+    return (cfg._replace(p_regrow=p),) + args[1:], rg
+
+
+def changed_chains(a, b):
+    """How many chains' forests differ between two sweeps' outputs."""
+    return int(((a[0] != b[0]).flatten(1).any(1)
+                | (a[1] != b[1]).flatten(1).any(1)).sum())
+
+
+def regrow_at_shape(device, label, N, C, kernels, seed, T=75, times=False,
+                    reps=7, weighted=False):
+    """Each kernel of ``kernels`` (name -> (launcher, wrapper)) at N x C
+    chains, at the K it picks, with p_regrow = 1 against the plain sweep
+    on the same (u, zn, rg) variates (identical forests and leaf indices
+    in every chain); every gate shut against p_regrow = 0 (to the bit);
+    and how many chains' forests the move changed.  ``weighted``: every
+    sweep with observation weights drawn in [0.5, 2).  With ``times``,
+    the kernels' CUDA-event times at p_regrow = 0, 0.25 and 1 and the
+    plain sweep's at 1.  Returns the largest error and the times."""
+    from stan4bart_torch.ops.bart_sweep_kernel import sweep_plain
+
+    _, state, yt, args = sweep_args(N, T, C, seed, device)
+    w = None
+    if weighted:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed + 200)
+        w = 0.5 + 1.5 * torch.rand(N, generator=gen, device=device)
+    on, rg = regrow_args(args, 1.0, seed + 100)
+    shut, rg_shut = regrow_args(args, 0.5, seed + 100, shut=True)
+    outs, off, ks, moved = {}, {}, {}, {}
+    for name, (launch, wrapper) in kernels.items():
+        off[name] = launch(*args, weights=w)
+        closed = launch(*shut, weights=w, rg=rg_shut)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(off[name], closed)):
+            raise AssertionError(f"{label}: {name} with every regrow gate "
+                                 "shut differs from p_regrow = 0")
+        outs[name] = launch(*on, weights=w, rg=rg)
+        ks[name] = wrapper.last_cluster
+        moved[name] = changed_chains(outs[name], off[name])
+    outs["plain"] = sweep_plain(*on, weights=w, rg=rg)
+    torch.cuda.synchronize()
+    res = check_sweep(f"{label} regrow p=1 n={N} chains={C}"
+                      + (" weighted" if weighted else ""), outs, state,
+                      yt, C, N, T, C)
+    print(f"{label} n={N} chains={C}{' weighted' if weighted else ''}: "
+          "with every gate shut each kernel "
+          "equals its p_regrow = 0 sweep to the bit; at p_regrow = 1 the "
+          "move changed the forests of "
+          + ", ".join(f"{k} (K={ks[k]}) {v}/{C}" for k, v in moved.items())
+          + " chains", flush=True)
+    out = dict(err=max(v[1] for v in res.values()), clusters=ks)
+    if times:
+        mid, rg_mid = regrow_args(args, 0.25, seed + 100)
+        for name, (launch, _) in kernels.items():
+            for tag, a, r in (("0", args, None), ("0.25", mid, rg_mid),
+                              ("1", on, rg)):
+                ms, all_ms = _time(lambda: launch(*a, weights=w, rg=r),
+                                   reps)
+                out[f"{name}_ms_{tag}"] = ms
+                out[f"{name}_all_{tag}"] = all_ms
+        out["plain_ms_1"] = _time(
+            lambda: sweep_plain(*on, weights=w, rg=rg), 3)[0]
+    return out
+
+
+def phase_regrow_kernels(device, reps=7):
+    """Phase 11a: the one-launch kernels with the in-sweep regrow at the
+    bench shape (timed, with the bound) and at the shapes the main paths
+    run (phases 6-9: 10 000 x 128; phase 5: 50 000 x 32), where the
+    obs-tiled kernel also runs at K = 1, whose 50 000 rows a block keep
+    the residual in device memory (its streaming kernel's regrow step),
+    unweighted and weighted."""
+    from functools import partial
+
+    from stan4bart_torch.ops.bart_sweep_kernel import (
+        bart_sweep_fused, bart_sweep_fused_batch,
+        bart_sweep_fused_batch_tiled, kernel_smem, sweep_chain_cuda,
+        sweep_cuda, sweep_tiled_cuda)
+
+    C, N, T, M = 256, 10_000, 75, 127
+    three = {"batch": (sweep_cuda, bart_sweep_fused_batch),
+             "tiled": (sweep_tiled_cuda, bart_sweep_fused_batch_tiled),
+             "chain": (sweep_chain_cuda, bart_sweep_fused)}
+    bench = regrow_at_shape(device, "phase 11a", N, C, three, 3, T,
+                            times=True, reps=reps)
+    at128 = regrow_at_shape(
+        device, "phase 11a", N, 128,
+        {k: three[k] for k in ("batch", "chain")}, 6, T)
+    if kernel_smem("bart_sweep_tiled", 50_000, T, 1, True)["resid_on_chip"]:
+        raise AssertionError("phase 11a: the obs-tiled kernel at 50 000 "
+                             "rows a block keeps the residual on chip; "
+                             "its streaming kernel would go unchecked")
+    at50k = {"tiled": three["tiled"],
+             "tiled streamed": (partial(sweep_tiled_cuda, cluster=1),
+                                bart_sweep_fused_batch_tiled)}
+    at50k = [regrow_at_shape(device, "phase 11a", 50_000, 32, at50k, 7, T,
+                             weighted=wt) for wt in (False, True)]
+    print("phase 11a " + smem_note("bart_sweep_tiled", 50_000, T, 1, True),
+          flush=True)
+    nbytes = sweep_bytes(C, T, N, M) + regrow_bytes(C, T, M)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    lines = "; ".join(
+        f"{k} (K={bench['clusters'][k]}) p_regrow 0 / 0.25 / 1: "
+        f"{bench[k + '_ms_0']:.4f} / {bench[k + '_ms_0.25']:.4f} / "
+        f"{bench[k + '_ms_1']:.4f} ms" for k in three)
+    print("phase 11a " + "; ".join(
+        smem_note(f"bart_sweep_{k}", N, T, bench["clusters"][k], True)
+        for k in three), flush=True)
+    print(f"phase 11a times at n={N} chains={C} trees={T}, median of "
+          f"{reps}: {lines}; batch at p_regrow 1 "
+          f"{[round(t, 4) for t in bench['batch_all_1']]}; plain sweep at "
+          f"p_regrow 1 {bench['plain_ms_1']:.4f} ms; bound with the move "
+          f"{bound_ms:.4f} ms ({nbytes / 1e9:.4f} GB at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s; the regrow variates "
+          f"{regrow_bytes(C, T, M) / 1e6:.1f} MB); {card()}", flush=True)
+    return dict(bench, bound_ms=bound_ms,
+                max_abs_err=max(bench["err"], at128["err"],
+                                *(r["err"] for r in at50k)))
+
+
+def phase_regrow_fit(device, label="phase 11c", n=10_000, chains=128,
+                     iters=150, warmup=75, trees=75, p_regrow=0.25):
+    """Phase 11c: the phase 3 fit (at 128 chains) with the in-sweep
+    regrow, every sweep through the single-pass kernel with the move: the
+    gaussian gates and SATE."""
+    from stan4bart_torch.ops.bart_sweep_kernel import bart_sweep_fused_batch
+
+    d, fit, launches = run_fit(label, device, n, chains, "bart_sweep_batch",
+                               iters, warmup, trees,
+                               bart_args={"n_trees": trees,
+                                          "p_regrow": p_regrow})
+    regrown = bart_sweep_fused_batch.regrow_launches
+    finite_draws(label, fit)
+    if fit.prog.bart_cfg.p_regrow != p_regrow or regrown != launches:
+        raise AssertionError(f"{label}: {regrown} of {launches} launches "
+                             "ran the regrow")
+    cor = centered_cor(fit.fitted("indiv.bart"), d["mu_bart"])
+    check_gates(label, cor, float(fit.fitted("sigma")), "bart_sweep_batch",
+                launches, iters)
+    z = d["z"]
+    sate = float(np.mean((fit.fitted("ev") - fit.fitted("ev", sample="test"))
+                         * (2 * z - 1)))
+    print(f"{label}: p_regrow {p_regrow}, {regrown} launches with the move; "
+          f"SATE {sate:.4f} (truth {d['tau']}, within 1)", flush=True)
+    if abs(sate - d["tau"]) >= 1.0:
+        raise AssertionError(f"{label}: SATE gate failed")
+    return launches
+
+
+def phase_profile(device, fit3=None, label="phase 11d", n=10_000,
+                  chains=256, trees=75):
+    """Phase 11d: ``utils.profiling.profile_phases`` at the bench shape
+    (n_iter 3, repeats 1) on phase 3's final states, or on a short fit's
+    when phase 3 did not run; prints ``format_profile``'s lines."""
+    from stan4bart_torch.utils.profiling import format_profile, profile_phases
+
+    if fit3 is None:
+        _, fit3, _ = run_fit(f"{label} states", device, n, chains,
+                             "bart_sweep_batch", 4, 2, trees)
+    t0 = time.perf_counter()
+    p = profile_phases(fit3.prog, fit3.final_states, n_iter=3, repeats=1)
+    print(f"{label}: profile_phases at n={n} chains={chains} trees={trees} "
+          f"({time.perf_counter() - t0:.1f} s); {card()}\n"
+          + format_profile(p), flush=True)
+    return p
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (default all); "
-                    "1, 2, 4 and 10 (or 10a) are the kernel phases, which "
-                    "the kernels line needs; 10a, 10b, 10c run one part of "
-                    "phase 10")
+                    "1, 2, 4, 10a, 11a and 11b are the kernel phases, "
+                    "which the kernels line needs; 10a, 10b, 10c and 11a "
+                    "to 11d run one part of phase 10 or 11")
     args = ap.parse_args()
     run = set(args.phases.split(","))
     if "10" in run:
         run |= {"10a", "10b", "10c"}
+    if "11" in run:
+        run |= {"11a", "11b", "11c", "11d"}
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1922,8 +2183,8 @@ def main():
         paths["bart_sweep_batch"]["phase 3"], fit3 = phase_main(
             device, "phase 3", 10_000, 256, "bart_sweep_batch")
         t3 = dict(fit3.timings, iters=fit3.draws.stan.shape[1])
-        if "9" not in run:      # phase 9 adjudicates it by SMC
-            del fit3
+        if not {"9", "11d"} & run:   # 9 adjudicates it, 11d profiles it
+            fit3 = None
         lap("phase 3")
     if "4" in run:
         large = {n: phase_large(device, n, c)
@@ -1958,17 +2219,21 @@ def main():
     if "9" in run:
         paths["bart_sweep_batch"]["phase 9"] = phase_algorithms(
             device, t3, fit3, ev7)
-        del fit3
         lap("phase 9")
         for k, v in phase_algorithm_options(device).items():
             paths[k]["phase 9 options"] = v
         lap("phase 9 options")
-    # phase 10's ranks are processes of their own on the card
+    p11 = None     # phase 3's fit, profiled by 11d
+    if "11d" in run and fit3 is not None:
+        p11 = fit3
+    del fit3
+    # phase 10's ranks are processes of their own on the card; 11b runs
+    # in 10a's
     torch.cuda.empty_cache()
     sharded = None
-    if "10a" in run:
-        sharded = phase_sharded_kernel()
-        lap("phase 10a")
+    if "10a" in run or "11b" in run:
+        sharded = phase_sharded_kernel(regrow="11b" in run)
+        lap("phase 10a" + (" and 11b" if "11b" in run else ""))
     if "10b" in run:
         paths["bart_sweep_sharded"]["phase 10b"] = phase_composed()
         lap("phase 10b")
@@ -1976,13 +2241,27 @@ def main():
         for k, v in phase_contracts(device).items():
             paths[k]["phase 10c"] = v
         lap("phase 10c")
+    regrow = None
+    if "11a" in run:
+        regrow = phase_regrow_kernels(device)
+        lap("phase 11a")
+    if "11c" in run:
+        n11 = phase_regrow_fit(device)
+        paths["bart_sweep_batch"]["phase 11c"] = n11
+        paths["bart_sweep_regrow"] = {"phase 11c": n11}
+        lap("phase 11c")
+    if "11d" in run:
+        phase_profile(device, p11)
+        del p11
+        lap("phase 11d")
     print("wall seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; {sum(walls.values()):.1f} in all", flush=True)
-    launches = {k: (sum(v.values()) if run - {"1", "2", "4", "10a"}
+    launches = {k: (sum(v.values()) if run - {"1", "2", "4", "10a", "11a",
+                                              "11b"}
                     else None)
                 for k, v in paths.items()}
-    if not {"1", "2", "4"} <= run or sharded is None:
+    if not {"1", "2", "4", "11a", "11b"} <= run or sharded is None:
         print(card(), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2089,6 +2368,33 @@ def main():
         "tiled_ms_same_call": sharded["tiled_ms"],
         "ms_world_size_1": sharded["w1_ms"],
         "bound_ms_world_size_1": sharded["bound_w1_ms"],
+    }, {
+        # the in-sweep regrow step: no Pallas kernel (the JAX package's
+        # move is XLA); it runs inside the one-launch kernels and, sharded,
+        # as a regrow stats and a regrow apply launch
+        "name": "bart_sweep_regrow",
+        "route": "cuda",
+        "source": "stan4bart_torch/csrc/sweep_common.cuh",
+        "replaces": "stan4bart_tpu/ops/bart.py:531",
+        # single-pass kernel launches that ran the move, on its fit path
+        "launches": launches.get("bart_sweep_regrow"),
+        "launches_by_path": paths.get("bart_sweep_regrow", {}),
+        "max_abs_err": max(regrow["max_abs_err"], sharded["rg_err"]),
+        "ms": regrow["batch_ms_1"],
+        "kernel_ms": regrow["batch_ms_1"],
+        "ms_p_regrow_0": regrow["batch_ms_0"],
+        "ms_p_regrow_0.25": regrow["batch_ms_0.25"],
+        "tiled_ms": regrow["tiled_ms_1"],
+        "chain_ms": regrow["chain_ms_1"],
+        "plain_ms": regrow["plain_ms_1"],
+        "bound_ms": regrow["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "cluster": regrow["clusters"]["batch"],
+        "sharded_ms": sharded["rg_ms"],
+        "sharded_plain_ms": sharded["rg_plain_ms"],
+        "sharded_bound_ms": sharded["rg_bound_ms"],
+        "sharded_regrow_updates": sharded["rg_updates"],
     }]}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

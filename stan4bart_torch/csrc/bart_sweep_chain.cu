@@ -15,6 +15,15 @@
 // computes, with the arithmetic of bart_sweep_batch.cu and
 // bart_sweep_tiled.cu, so the three are bit-identical at equal K.
 //
+// With p_regrow > 0 each tree's move is followed, where the tree's gate
+// uniform falls under p_regrow, by a subtree-regrow Metropolis-Hastings
+// move (the JAX package's XLA-only stan4bart_tpu/ops/bart.py:
+// _subtree_regrow; sweep_cluster.cuh:regrow_on_chip): a prior draw of
+// eta's subtree from 3 + 3 M more pre-drawn uniforms, one pass over the
+// observations under eta into a second exact histogram, and the decision
+// from both partitions' sums.  With p_regrow == 0 the move costs one
+// compare per tree and the forests are those without it, to the bit.
+//
 // What bounds it: bytes.  Per (chain, tree) it reads leaf_idx and
 // tree_fit and writes both (16 B of device memory per observation); the
 // cut-rank row and the weights are shared by every chain and stay in L2.
@@ -31,27 +40,30 @@ namespace {
 
 using namespace s4b;
 
+template <bool kRegrow>
 __global__ void __launch_bounds__(kThreads)
 bart_sweep_chain_kernel(SweepArgs a, int K) {
   extern __shared__ float4 smem4[];
-  __shared__ TreeShared s;
-  sweep_on_chip<Body::kFull>(a, s, reinterpret_cast<unsigned char*>(smem4),
-                             K);
+  on_chip_kernel<kRegrow>(a, K, reinterpret_cast<unsigned char*>(smem4));
 }
 
 }  // namespace
 
 // Writes the kernel's static and dynamic shared memory per block at N, T
-// and K, the device's opt-in limit per block and the number of clusters of
-// K blocks that can be resident at once (0 where a block's slice does not
+// and K (with the regrow step when ``regrow``), the device's opt-in limit
+// per block and the number of clusters of K blocks that can be resident
+// at once (0 where a block's slice does not
 // fit); returns the CUDA error code.
-extern "C" int bart_sweep_chain_info(int N, int T, int K, long long* static_b,
+extern "C" int bart_sweep_chain_info(int N, int T, int K, int regrow,
+                                     long long* static_b,
                                      long long* dynamic_b, int* optin,
                                      int* clusters) {
   const size_t dyn = on_chip_bytes(N, T, K);
   *dynamic_b = (long long)dyn;
-  return cluster_info(bart_sweep_chain_kernel, K, dyn, static_b, optin,
-                      clusters);
+  return regrow ? cluster_info(bart_sweep_chain_kernel<true>, K, dyn,
+                               static_b, optin, clusters)
+                : cluster_info(bart_sweep_chain_kernel<false>, K, dyn,
+                               static_b, optin, clusters);
 }
 
 // Launches one sweep over C chains in clusters of K blocks on ``stream``;
@@ -67,11 +79,15 @@ extern "C" int bart_sweep_chain_launch(
     float* lv_out, int32_t* lidx_out, float* tfit_out, float* resid_out,
     int C, int T, int N, int P, int M, int max_depth, int n_cuts,
     float p_grow, float p_prune, float trans_grow0, float trans_prune0,
-    int K, void* stream) {
+    float p_regrow, const float* rg, int K, void* stream) {
   SweepArgs a{feature_in, cut_in, lidx_in, tfit_in, resid0, sigma2, tau2,
               u, zn, ranks_t, spcum, psplit, weights, feature_out, cut_out,
               lv_out, lidx_out, tfit_out, resid_out, T, N, P, M, max_depth,
               n_cuts, p_grow, p_prune, trans_grow0, trans_prune0};
-  return launch_clusters(bart_sweep_chain_kernel, a, C, K,
-                         on_chip_bytes(N, T, K), stream);
+  a.p_regrow = p_regrow;
+  a.rg = rg;
+  const size_t dyn = on_chip_bytes(N, T, K);
+  return with_regrow(a)
+      ? launch_clusters(bart_sweep_chain_kernel<true>, a, C, K, dyn, stream)
+      : launch_clusters(bart_sweep_chain_kernel<false>, a, C, K, dyn, stream);
 }

@@ -26,13 +26,19 @@
 //             tree's partial residual and sums the six move statistics;
 //             the Metropolis-Hastings decision follows;
 //     pass B  rewrites the leaf indices and sums the per-node leaf
-//             statistics; the leaf draw follows;
+//             statistics; where the tree's regrow gate opens (p_regrow),
+//             a regrow pass reads the new leaf indices back and walks the
+//             observations under eta down the proposed subtree (and again,
+//             rewriting their leaf indices, if the move is accepted); the
+//             leaf draw follows;
 //
 //   and a flush pass after the last tree applies its fit.  This moves 36 B
 //   per observation and tree: pass A reads the previous leaf indices, the
 //   residual, the tree fit and the leaf indices and writes the previous
 //   fit and the residual; pass B reads the leaf indices and the residual
-//   again and writes the new leaf indices.
+//   again and writes the new leaf indices.  A regrow adds 4 B per
+//   observation and tree, and the residual and the cut ranks of the
+//   observations under eta.
 //
 // Both take every sum in the order of sweep_common.cuh over the same
 // observation ranges and per-thread order (tid + j * kThreads within a
@@ -51,17 +57,56 @@ using namespace s4b;
 constexpr int kStreamPer = 8;                    // per thread per tile
 constexpr int kStreamTile = kThreads * kStreamPer;
 
+template <bool kRegrow>
 __global__ void __launch_bounds__(kThreads)
 bart_sweep_tiled_on_chip_kernel(SweepArgs a, int K) {
   extern __shared__ float4 smem4[];
-  __shared__ TreeShared s;
-  sweep_on_chip<Body::kFull>(a, s, reinterpret_cast<unsigned char*>(smem4),
-                             K);
+  on_chip_kernel<kRegrow>(a, K, reinterpret_cast<unsigned char*>(smem4));
 }
 
+// The regrow step of tree ct of a block of the streaming kernel, whose
+// observations [start, start + n) hold their post-move leaves in li_out
+// and their partial residuals in R (weights wts, both offset to start):
+// the post-move sums gathered, the proposal, a pass that reads the leaf
+// indices back (each thread those it wrote) and walks the observations
+// under eta down the proposed subtree into r.hist2 (regrow_pass), the
+// decision and, if accepted, the rows and those leaf indices rewritten.
+// Called by every thread after a block barrier; ends on one.  Not
+// inlined, as regrow_on_chip.
+__device__ __noinline__ Regrow regrow_streamed(RegrowArgs ra, TreeShared& s,
+                                               RegrowShared& r, size_t ct,
+                                               int start, int n,
+                                               int32_t* li_out,
+                                               const float* R,
+                                               const float* wts, float s2,
+                                               float t2, int K) {
+  const SweepArgs a = ra.args();
+  const int tid = threadIdx.x;
+  const float* row = regrow_row(a, ct);
+  gather_hist(s, a.M, K);
+  regrow_propose(a, s, r, row);
+  const int eta = r.rsc[0];
+  regrow_pass(a, s, r, start, n, wts, [&](int i) { return li_out[i]; },
+              [&](int i) { return R[i]; });
+  __syncthreads();
+  if (!regrow_decide(a, s, r, row, s2, t2, K)) return Regrow::kRefused;
+  for (int i = tid; i < n; i += kThreads)
+    if (bit(r.sub_bits, li_out[i]))
+      li_out[i] = regrow_leaf(a, r, eta, start + i);
+  regrow_accept(s, r);
+  return Regrow::kAccepted;
+}
+
+template <bool kRegrow>
 __global__ void __launch_bounds__(kThreads)
 bart_sweep_tiled_stream_kernel(SweepArgs a, int K) {
   __shared__ TreeShared s;
+  // the regrow step's state, in the kernel that runs it
+  RegrowShared* rs = nullptr;
+  if constexpr (kRegrow) {
+    __shared__ RegrowShared r;
+    rs = &r;
+  }
 
   const int N = a.N, T = a.T;
   const int rank = block_rank(K);
@@ -78,6 +123,7 @@ bart_sweep_tiled_stream_kernel(SweepArgs a, int K) {
     const bool flush = t == T;
     const size_t ct = (size_t)c * T + t;
     const TreeRows rows = global_rows(a, ct);
+    const bool regrow = kRegrow && !flush && regrow_gate(a, ct);
     Move mv{};
     if (!flush) mv = begin_tree(a, s, rows);
     // the previous tree's new leaf indices and its fit (t > 0)
@@ -167,18 +213,24 @@ bart_sweep_tiled_stream_kernel(SweepArgs a, int K) {
       hist_add<kStreamPer>(s, in, li, w, wr, wts != nullptr);
     }
     __syncthreads();
-    draw_leaves(a, s, ct, rows, s2, t2, K, rank == 0);
+    const Regrow rg = regrow ? regrow_streamed(RegrowArgs(a), s, *rs, ct,
+                                               start, n, li_out, R, wts, s2,
+                                               t2, K)
+                             : Regrow::kNone;
+    draw_leaves(a, s, ct, rows, s2, t2, K, rank == 0, rg, rs);
   }
   // no block leaves while another may still read its shared memory
   if (K > 1) cluster_sync();
 }
 
-// The kernel that runs at N, T and K (on chip where its shared memory fits
-// the device's opt-in limit per block) and its dynamic shared memory.
-int pick(int N, int T, int K, bool* on_chip, size_t* dyn) {
+// The kernel that runs at N, T and K, with the regrow step or without
+// (on chip where its shared memory fits the device's opt-in limit per
+// block) and its dynamic shared memory.
+int pick(int N, int T, int K, bool regrow, bool* on_chip, size_t* dyn) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr,
-                                          bart_sweep_tiled_on_chip_kernel);
+  cudaError_t err = cudaFuncGetAttributes(
+      &attr, regrow ? bart_sweep_tiled_on_chip_kernel<true>
+                    : bart_sweep_tiled_on_chip_kernel<false>);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, optin = 0;
   err = cudaGetDevice(&dev);
@@ -194,23 +246,47 @@ int pick(int N, int T, int K, bool* on_chip, size_t* dyn) {
 
 }  // namespace
 
-// Writes the shared memory per block (static, dynamic) of the kernel that
-// runs at N, T and K, the device's opt-in limit per block, the number of
-// clusters of K blocks that can be resident at once, and whether the
-// residual stays on chip; returns the CUDA error code.
-extern "C" int bart_sweep_tiled_info(int N, int T, int K, long long* static_b,
-                                     long long* dynamic_b, int* optin,
-                                     int* clusters, int* resid_on_chip) {
+// The kernel that runs at N, T and K with the regrow step or without.
+template <bool kRegrow>
+int info(int N, int T, int K, long long* static_b, long long* dynamic_b,
+         int* optin, int* clusters, int* resid_on_chip) {
   bool on_chip = false;
   size_t dyn = 0;
-  int e = pick(N, T, K, &on_chip, &dyn);
+  int e = pick(N, T, K, kRegrow, &on_chip, &dyn);
   if (e != 0) return e;
   *dynamic_b = (long long)dyn;
   *resid_on_chip = on_chip ? 1 : 0;
-  return on_chip ? cluster_info(bart_sweep_tiled_on_chip_kernel, K, dyn,
-                                static_b, optin, clusters)
-                 : cluster_info(bart_sweep_tiled_stream_kernel, K, dyn,
-                                static_b, optin, clusters);
+  return on_chip ? cluster_info(bart_sweep_tiled_on_chip_kernel<kRegrow>, K,
+                                dyn, static_b, optin, clusters)
+                 : cluster_info(bart_sweep_tiled_stream_kernel<kRegrow>, K,
+                                dyn, static_b, optin, clusters);
+}
+
+template <bool kRegrow>
+int launch(const SweepArgs& a, int C, int K, void* stream) {
+  bool on_chip = false;
+  size_t dyn = 0;
+  int e = pick(a.N, a.T, K, kRegrow, &on_chip, &dyn);
+  if (e != 0) return e;
+  return on_chip ? launch_clusters(bart_sweep_tiled_on_chip_kernel<kRegrow>,
+                                   a, C, K, dyn, stream)
+                 : launch_clusters(bart_sweep_tiled_stream_kernel<kRegrow>,
+                                   a, C, K, dyn, stream);
+}
+
+// Writes the shared memory per block (static, dynamic) of the kernel that
+// runs at N, T and K (with the regrow step when ``regrow``), the device's
+// opt-in limit per block, the number of clusters of K blocks that can be
+// resident at once, and whether the residual stays on chip; returns the
+// CUDA error code.
+extern "C" int bart_sweep_tiled_info(int N, int T, int K, int regrow,
+                                     long long* static_b,
+                                     long long* dynamic_b, int* optin,
+                                     int* clusters, int* resid_on_chip) {
+  return regrow ? info<true>(N, T, K, static_b, dynamic_b, optin, clusters,
+                             resid_on_chip)
+                : info<false>(N, T, K, static_b, dynamic_b, optin, clusters,
+                              resid_on_chip);
 }
 
 // Launches one sweep over C chains in clusters of K blocks on ``stream``;
@@ -226,17 +302,13 @@ extern "C" int bart_sweep_tiled_launch(
     float* lv_out, int32_t* lidx_out, float* tfit_out, float* resid_out,
     int C, int T, int N, int P, int M, int max_depth, int n_cuts,
     float p_grow, float p_prune, float trans_grow0, float trans_prune0,
-    int K, void* stream) {
+    float p_regrow, const float* rg, int K, void* stream) {
   SweepArgs a{feature_in, cut_in, lidx_in, tfit_in, resid0, sigma2, tau2,
               u, zn, ranks_t, spcum, psplit, weights, feature_out, cut_out,
               lv_out, lidx_out, tfit_out, resid_out, T, N, P, M, max_depth,
               n_cuts, p_grow, p_prune, trans_grow0, trans_prune0};
-  bool on_chip = false;
-  size_t dyn = 0;
-  int e = pick(N, T, K, &on_chip, &dyn);
-  if (e != 0) return e;
-  return on_chip ? launch_clusters(bart_sweep_tiled_on_chip_kernel, a, C, K,
-                                   dyn, stream)
-                 : launch_clusters(bart_sweep_tiled_stream_kernel, a, C, K,
-                                   dyn, stream);
+  a.p_regrow = p_regrow;
+  a.rg = rg;
+  return with_regrow(a) ? launch<true>(a, C, K, stream)
+                        : launch<false>(a, C, K, stream);
 }

@@ -142,18 +142,62 @@ struct TileStream {
 
 enum class Body { kFull, kCopy, kObs };
 
+// The regrow step of tree ct of a block of sweep_on_chip, whose
+// observations [start, start + n) hold their post-move leaves in lidx_s
+// and their partial residuals in R: the post-move sums gathered, the
+// proposal, a pass that walks the observations under eta down the
+// proposed subtree into r.hist2 (regrow_pass), the decision and, if
+// accepted, the rows and the leaf indices rewritten (each observation
+// under eta walked again: only accepted moves pay for the rewrite).
+// Each thread reads the leaf indices it wrote.  Called by every thread
+// after a block barrier; ends on one.  Not inlined, its operands a small
+// RegrowArgs by value: the loop around it keeps its own registers (the
+// step inlined made the loop spill).
+__device__ __noinline__ Regrow regrow_on_chip(RegrowArgs ra, TreeShared& s,
+                                              RegrowShared& r, size_t ct,
+                                              int start, int n,
+                                              uint8_t* lidx_s, const float* R,
+                                              float s2, float t2, int K) {
+  const SweepArgs a = ra.args();
+  const int tid = threadIdx.x;
+  const float* row = regrow_row(a, ct);
+  gather_hist(s, a.M, K);
+  regrow_propose(a, s, r, row);
+  const int eta = r.rsc[0];
+  regrow_pass(a, s, r, start, n, a.weights ? a.weights + start : nullptr,
+              [&](int i) { return (int)lidx_s[i]; },
+              [&](int i) { return R[i]; });
+  __syncthreads();
+  if (!regrow_decide(a, s, r, row, s2, t2, K)) return Regrow::kRefused;
+  const size_t obs0 = ct * a.N + start;
+  for (int i = tid; i < n; i += kThreads) {
+    if (bit(r.sub_bits, lidx_s[i])) {
+      const int li = regrow_leaf(a, r, eta, start + i);
+      lidx_s[i] = (uint8_t)li;
+      a.lidx_out[obs0 + i] = li;
+    }
+  }
+  regrow_accept(s, r);
+  return Regrow::kAccepted;
+}
+
 // One chain's sweep by one block of its cluster, residual slice on chip.
 // Per tree: pass 1 streams the tree's operands through the ring, takes
 // the last tree's new fit off the residual (writing that fit out), forms
 // the partial residual and the six move statistics; the decision; pass 2
-// rewrites the leaf indices and fills the leaf histograms; the leaf draw.
+// rewrites the leaf indices and fills the leaf histograms; where the
+// tree's regrow gate opens, the regrow (regrow_on_chip); the leaf draw.
 // A flush after the last tree applies its fit.  Each thread rounds the
 // residual as a separate fit pass would (r - fit, then + old fit), so each
 // residual value is the plain sweep's (ops/bart.py:sweep_trees).  smem is
-// the dynamic shared memory of on_chip_bytes.
-template <Body kBody>
+// the dynamic shared memory of on_chip_bytes.  kRegrow: the sweep with the
+// regrow step (its state in rs); the kernels instantiate both and launch
+// this one only where p_regrow > 0, so the sweep without the move is the
+// code it was before the move existed, registers and shared memory alike.
+template <Body kBody, bool kRegrow = false>
 __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared& s,
-                                     unsigned char* smem, int K) {
+                                     unsigned char* smem, int K,
+                                     RegrowShared* rs = nullptr) {
   const int N = a.N, T = a.T, M = a.M;
   const int tid = threadIdx.x;
   const int rank = block_rank(K);
@@ -191,6 +235,8 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared& s,
     const int h = t % kStages;
     const TreeRows rows{heads->feat[h], heads->cut[h], heads->u[h],
                         heads->zn[h]};
+    // the chain's regrow gate, loaded now and read after pass 2
+    const bool regrow = kRegrow && regrow_gate(a, ct);
     Move mv{};
     if (kBody == Body::kFull) {
       mv = begin_tree(a, s, rows);
@@ -292,7 +338,11 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared& s,
     }
     __syncthreads();
     if (kBody == Body::kFull) {
-      draw_leaves(a, s, ct, rows, s2, t2, K, writer);
+      const Regrow rg = regrow ? regrow_on_chip(RegrowArgs(a), s, *rs, ct,
+                                                start, n, lidx_s, R, s2, t2,
+                                                K)
+                               : Regrow::kNone;
+      draw_leaves(a, s, ct, rows, s2, t2, K, writer, rg, rs);
     } else {
       // the obs stub keeps the leaf statistics so that nothing is dropped
       gather_hist(s, M, K);
@@ -322,6 +372,25 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared& s,
   }
   // no block leaves while another may still read its shared memory
   if (K > 1) cluster_sync();
+}
+
+// The body of an on-chip sweep kernel: the sweep with the regrow step
+// (kRegrow, its state in a second static shared block) or without.
+template <bool kRegrow>
+__device__ inline void on_chip_kernel(const SweepArgs& a, int K,
+                                      unsigned char* smem) {
+  __shared__ TreeShared s;
+  if constexpr (kRegrow) {
+    __shared__ RegrowShared r;
+    sweep_on_chip<Body::kFull, true>(a, s, smem, K, &r);
+  } else {
+    sweep_on_chip<Body::kFull, false>(a, s, smem, K);
+  }
+}
+
+// Whether a launch runs the sweep with the regrow step.
+inline bool with_regrow(const SweepArgs& a) {
+  return a.rg != nullptr && a.p_regrow > 0.0f;
 }
 
 // ``err`` as an int, with the runtime's last error reset: a refused launch

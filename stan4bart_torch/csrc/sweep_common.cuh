@@ -8,7 +8,10 @@
 // statistics over the observations (add_move_stats, then decide's
 // fixed-order sum and the Metropolis-Hastings decision), rewrite the leaf
 // indices (moved_leaf) while summing the per-node leaf statistics
-// (hist_add), and draw the leaf values (draw_leaves).  Only the
+// (hist_add), optionally try a subtree regrow of the post-move tree
+// (regrow_propose, a pass over the observations under its node eta that
+// walks them down the proposed subtree into a second histogram, and
+// regrow_mh), and draw the leaf values (draw_leaves).  Only the
 // observation passes differ between the kernels, so the decision
 // arithmetic exists once and the kernels give the same forest on the same
 // inputs.
@@ -70,6 +73,12 @@ struct SweepArgs {
   // the ablation stubs' extra operands (bart_sweep_ablate.cu), else null
   const float* lv_in;          // (C, T, M) leaf values to look up
   float* stats_out;            // (C, T, 2, M) per-node leaf statistics
+  // the in-sweep subtree regrow (ops/bart.py:_subtree_regrow): its
+  // probability and, per (chain, tree), a row of 3 + 3 M uniforms: gate,
+  // node pick, accept, then each node's split, variable and cut; rg is
+  // null when p_regrow is 0
+  float p_regrow;
+  const float* rg;             // (C, T, 3 + 3 M)
 };
 
 // The block's per-tree state, in shared memory.
@@ -90,6 +99,30 @@ struct TreeShared {
   // n_leaf, n_nog, the fixed-point scales of w and of w r
   int sc[11];
 };
+
+// The block's state of a tree's regrow step (regrow_propose), in shared
+// memory beside TreeShared only in the kernels that run the move: the
+// proposed subtree's rows (valid on eta's subtree), the proposed
+// partition's fixed-point sums over the observations under eta, the
+// masks of eta's subtree, of the post-move tree's active nodes, of the
+// proposal's active nodes and of the nodes whose split uniform falls
+// under p_split; eta, the decision, n_active.
+struct RegrowShared {
+  int rfeat[kNodePad];
+  int rcut[kNodePad];
+  unsigned long long hist2[2][kNodePad];
+  unsigned sub_bits[4], act_bits[4], new_bits[4], want_bits[4];
+  int rsc[3];
+};
+
+// What the regrow step of a tree did: not run (its gate shut or the move
+// off), run and refused, run and accepted.
+enum class Regrow { kNone, kRefused, kAccepted };
+
+// bit m of a 128-bit mask
+__device__ inline bool bit(const unsigned* bits, int m) {
+  return (bits[m >> 5] >> (m & 31)) & 1u;
+}
 
 // Where a tree's input rows are read from: device memory, or copies in
 // shared memory that arrived ahead of the tree (sweep_cluster.cuh).
@@ -313,16 +346,19 @@ __device__ inline void chain_stats(TreeShared& s, const float acc[8], int N,
 
 // The Metropolis-Hastings decision of the move from the chain's six move
 // statistics st (n, s over the move's nodes, over those going left, over
-// the current left child); on acceptance rewrites the tree rows in shared
-// memory and sets s.sc[4].  Run by one thread.
+// the current left child) and, when given, the pair rn over those going
+// right (else the move's total less the left pair); on acceptance
+// rewrites the tree rows in shared memory and sets s.sc[4].  Run by one
+// thread.
 __device__ inline void mh_decide(const SweepArgs& a, TreeShared& s,
                                  const Move& mv, const float* st,
-                                 const TreeRows& rows, float s2, float t2) {
+                                 const TreeRows& rows, float s2, float t2,
+                                 const float* rn = nullptr) {
   const float* u = rows.u;
   const int eta = mv.eta, lft = mv.lft, rgt = mv.rgt, move = mv.move;
   float n_all = st[0], s_all = st[1], n_ln = st[2], s_ln = st[3];
   float n_lo = st[4], s_lo = st[5];
-  float n_rn = n_all - n_ln, s_rn = s_all - s_ln;
+  float n_rn = rn ? rn[0] : n_all - n_ln, s_rn = rn ? rn[1] : s_all - s_ln;
   float n_ro = n_all - n_lo, s_ro = s_all - s_lo;
   float m_all = leaf_marginal(n_all, s_all, s2, t2);
   float m_ln = leaf_marginal(n_ln, s_ln, s2, t2);
@@ -410,13 +446,14 @@ __device__ inline long long group_sum(unsigned grp, long long v) {
 }
 
 // Adds W observations per lane (weight w[k] and weighted residual wr[k]
-// in leaf li[k], ignored unless in[k]) to the block's leaf histograms, in
-// the fixed-point scales chain_stats set.  Every lane of the warp calls it
-// together.  The W observations are independent, so their warp
-// reductions overlap.  Unweighted (every w 1), the weights' sum is the
-// group's size times 2^scale, exactly.
+// in leaf li[k], ignored unless in[k]) to the histogram pair h (of the
+// block's shared memory), in the fixed-point scales chain_stats set.
+// Every lane of the warp calls it together.  The W observations are
+// independent, so their warp reductions overlap.  Unweighted (every w 1),
+// the weights' sum is the group's size times 2^scale, exactly.
 template <int W>
-__device__ inline void hist_add(TreeShared& s, const bool (&in)[W],
+__device__ inline void hist_add(unsigned long long (&h)[2][kNodePad],
+                                const TreeShared& s, const bool (&in)[W],
                                 const int (&li)[W], const float (&w)[W],
                                 const float (&wr)[W], bool weighted) {
   const int lane = threadIdx.x & 31;
@@ -435,10 +472,18 @@ __device__ inline void hist_add(TreeShared& s, const bool (&in)[W],
 #pragma unroll
   for (int k = 0; k < W; ++k) {
     if (in[k] && lane == __ffs(grp[k]) - 1) {
-      atomicAdd(&s.hist[0][li[k]], (unsigned long long)tw[k]);
-      atomicAdd(&s.hist[1][li[k]], (unsigned long long)tr[k]);
+      atomicAdd(&h[0][li[k]], (unsigned long long)tw[k]);
+      atomicAdd(&h[1][li[k]], (unsigned long long)tr[k]);
     }
   }
+}
+
+// hist_add into the block's leaf histograms
+template <int W>
+__device__ inline void hist_add(TreeShared& s, const bool (&in)[W],
+                                const int (&li)[W], const float (&w)[W],
+                                const float (&wr)[W], bool weighted) {
+  hist_add<W>(s.hist, s, in, li, w, wr, weighted);
 }
 
 // In a cluster of K > 1 blocks, publishes the block's leaf histograms and
@@ -453,37 +498,56 @@ __device__ inline void gather_hist(TreeShared& s, int M, int K) {
   cluster_sync();
 }
 
-// Node m's leaf statistics (weight and weighted residual sums) over the
-// chain, after gather_hist.
-__device__ inline void leaf_sums(TreeShared& s, int m, int K, float& cnt,
-                                 float& sm) {
+// Node m's sums (weight and weighted residual) in the histogram pair h
+// over the chain: this block's (K = 1) or, in a cluster, every block's in
+// rank order, in the fixed-point scales of chain_stats.
+__device__ inline void hist_sums(TreeShared& s,
+                                 unsigned long long (&h)[2][kNodePad], int m,
+                                 int K, float& cnt, float& sm) {
   unsigned long long c = 0, r = 0;
   if (K == 1) {
-    c = s.hist[0][m];
-    r = s.hist[1][m];
+    c = h[0][m];
+    r = h[1][m];
   } else {
     for (int k = 0; k < K; ++k) {
-      c += in_rank(&s.hsum[0][0], k)[m];
-      r += in_rank(&s.hsum[1][0], k)[m];
+      c += in_rank(&h[0][0], k)[m];
+      r += in_rank(&h[1][0], k)[m];
     }
   }
   cnt = from_fixed(c, s.sc[9]);
   sm = from_fixed(r, s.sc[10]);
 }
 
+// Node m's leaf statistics (weight and weighted residual sums) over the
+// chain, after gather_hist; after an accepted regrow (r not null), those
+// of the proposed partition on eta's subtree.
+__device__ inline void leaf_sums(TreeShared& s, int m, int K, float& cnt,
+                                 float& sm, RegrowShared* r = nullptr) {
+  if (r != nullptr && bit(r->sub_bits, m))
+    hist_sums(s, r->hist2, m, K, cnt, sm);
+  else if (K == 1)
+    hist_sums(s, s.hist, m, K, cnt, sm);
+  else
+    hist_sums(s, s.hsum, m, K, cnt, sm);
+}
+
 // Conjugate leaf draws from the summed histograms; keeps the tree's leaf
 // values in s.lv and, when ``write`` (one block per chain writes), writes
 // the tree's rows out.  Every block of a cluster draws the same values
-// from the same sums.  Called by every thread after a block barrier; ends
-// on one.
+// from the same sums.  ``rg``: what the tree's regrow step did (which
+// gathered the histograms already when it ran), with its state r.
+// Called by every thread after a block barrier; ends on one.
 __device__ inline void draw_leaves(const SweepArgs& a, TreeShared& s,
                                    size_t ct, const TreeRows& rows, float s2,
-                                   float t2, int K = 1, bool write = true) {
+                                   float t2, int K = 1, bool write = true,
+                                   Regrow rg = Regrow::kNone,
+                                   RegrowShared* r = nullptr) {
   const int M = a.M;
-  gather_hist(s, M, K);
+  if (rg == Regrow::kNone) gather_hist(s, M, K);
+  RegrowShared* accepted = rg == Regrow::kAccepted ? r : nullptr;
   for (int m = threadIdx.x; m < M; m += kThreads) {
     float cnt, sm;
-    leaf_sums(s, m, K, cnt, sm);
+    leaf_sums(s, m, K, cnt, sm, accepted);
     float pv = 1.0f / (cnt / s2 + 1.0f / t2);
     float pm = pv * sm / s2;
     float mu = pm + sqrtf(pv) * rows.zn[m];
@@ -493,6 +557,245 @@ __device__ inline void draw_leaves(const SweepArgs& a, TreeShared& s,
       a.lv_out[ct * M + m] = lv;
       a.feature_out[ct * M + m] = s.feat[m];
       a.cut_out[ct * M + m] = s.cut[m];
+    }
+  }
+  __syncthreads();
+}
+
+// The operands a regrow step reads, for a step that is not inlined into
+// the sweep's loop (sweep_cluster.cuh:regrow_on_chip): passed by value
+// in a few registers, where the whole SweepArgs would take many.
+struct RegrowArgs {
+  const float* rg;
+  const int32_t* ranks_t;
+  const float* spcum;
+  const float* psplit;
+  const float* weights;
+  int32_t* lidx_out;
+  int N, P, M, n_cuts;
+  float p_regrow;
+
+  explicit __device__ RegrowArgs(const SweepArgs& a)
+      : rg(a.rg), ranks_t(a.ranks_t), spcum(a.spcum), psplit(a.psplit),
+        weights(a.weights), lidx_out(a.lidx_out), N(a.N), P(a.P), M(a.M),
+        n_cuts(a.n_cuts), p_regrow(a.p_regrow) {}
+
+  // the SweepArgs the regrow's functions read (its other fields null)
+  __device__ SweepArgs args() const {
+    SweepArgs a{};
+    a.rg = rg;
+    a.ranks_t = ranks_t;
+    a.spcum = spcum;
+    a.psplit = psplit;
+    a.weights = weights;
+    a.lidx_out = lidx_out;
+    a.N = N;
+    a.P = P;
+    a.M = M;
+    a.n_cuts = n_cuts;
+    a.p_regrow = p_regrow;
+    return a;
+  }
+};
+
+// This (chain, tree)'s row of regrow uniforms.
+__device__ inline const float* regrow_row(const SweepArgs& a, size_t ct) {
+  return a.rg + ct * (size_t)(3 + 3 * a.M);
+}
+
+// Whether the tree's regrow gate opens: the move is on and the gate
+// uniform falls under p_regrow.  The same for every thread of a chain.
+__device__ inline bool regrow_gate(const SweepArgs& a, size_t ct) {
+  return a.rg != nullptr && regrow_row(a, ct)[0] < a.p_regrow;
+}
+
+// Proposes the regrow of the post-move tree in s.feat / s.cut from its
+// uniforms ``row``: eta picked among the active nodes by pick_marked, and
+// over eta's subtree a draw from the CGM prior (split where the split
+// uniform falls under p_split at the node's absolute depth, the variable
+// by pick_var, the cut uniformly), active where every node from eta down
+// to its parent splits.  Leaves the proposal in r.rfeat / r.rcut, the
+// masks in r.sub_bits, r.act_bits and r.new_bits, eta in r.rsc[0] and
+// n_active in r.rsc[2], and r.hist2 zeroed.  Called by every thread;
+// ends on a block barrier.
+__device__ inline void regrow_propose(const SweepArgs& a,
+                                      const TreeShared& s, RegrowShared& r,
+                                      const float* row) {
+  const int M = a.M;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* u3 = row + 3;
+  for (int j = tid; j < 2 * kNodePad; j += kThreads) (&r.hist2[0][0])[j] = 0;
+  if (warp == 0) {
+    int n = 0;
+    for (int k = 0; k < 4; ++k) {
+      const unsigned b = __ballot_sync(kFull, s.feat[32 * k + lane] !=
+                                                  kInactive);
+      n += __popc(b);
+      if (lane == 0) r.act_bits[k] = b;
+    }
+    if (lane == 0) {
+      r.rsc[0] = pick_marked(r.act_bits, n, row[1]);
+      r.rsc[2] = n;
+    }
+  }
+  __syncthreads();
+  const int eta = r.rsc[0];
+  bool in = false, want = false;
+  int v = 0, cn = 0;
+  if (tid < kNodePad) {
+    const int m = tid;
+    if (m < M) {
+      for (int x = m;; x = (x - 1) >> 1) {
+        if (x == eta) {
+          in = true;
+          break;
+        }
+        if (x == 0) break;
+      }
+      want = u3[m] < a.psplit[31 - __clz(m + 1)];
+      v = pick_var(a, u3[M + m]);
+      cn = min((int)floorf(u3[2 * M + m] * (float)a.n_cuts), a.n_cuts - 1);
+    }
+    const unsigned wb = __ballot_sync(kFull, want);
+    const unsigned sb = __ballot_sync(kFull, in);
+    if (lane == 0) {
+      r.want_bits[warp] = wb;
+      r.sub_bits[warp] = sb;
+    }
+  }
+  __syncthreads();
+  if (tid < kNodePad) {
+    const int m = tid;
+    bool act = in;
+    for (int x = m; act && x != eta;) {
+      x = (x - 1) >> 1;
+      act = bit(r.want_bits, x);
+    }
+    const int f = act ? (want ? v : kLeaf) : kInactive;
+    r.rfeat[m] = f;
+    r.rcut[m] = f >= 0 ? cn : 0;
+    const unsigned nb = __ballot_sync(kFull, act);
+    if (lane == 0) r.new_bits[warp] = nb;
+  }
+  __syncthreads();
+}
+
+// The leaf of the proposed subtree that observation ``obs`` (of the N),
+// whose post-move leaf lies under eta, lands in: the walk down from eta.
+__device__ inline int regrow_leaf(const SweepArgs& a, const RegrowShared& r,
+                                  int eta, int obs) {
+  int node = eta;
+  for (int f = r.rfeat[node]; f >= 0; f = r.rfeat[node])
+    node = 2 * node + (a.ranks_t[(size_t)f * a.N + obs] <= r.rcut[node]
+                       ? 1 : 2);
+  return node;
+}
+
+// The proposed partition's sums of a block's observations [0, n) (of
+// the N, from ``start``) into r.hist2: those whose post-move leaf
+// leaf(i) lies under eta, at the leaf of the proposed subtree they land
+// in, with their weights wts[i] (null: unweighted) and partial residuals
+// resid(i).  One observation per thread at a time, so that the step adds
+// few registers to the sweep it runs in; the sums are integers, so their
+// order does not matter.  Every thread calls it; no barrier.
+template <typename Leaf, typename Resid>
+__device__ inline void regrow_pass(const SweepArgs& a, const TreeShared& s,
+                                   RegrowShared& r, int start, int n,
+                                   const float* wts, Leaf leaf,
+                                   Resid resid) {
+  const int eta = r.rsc[0];
+  for (int base = 0; base < n; base += kThreads) {
+    const int i = base + threadIdx.x;
+    bool in[1] = {i < n && bit(r.sub_bits, leaf(i))};
+    int li[1] = {-1};
+    float w[1] = {0.0f}, wr[1] = {0.0f};
+    if (in[0]) {
+      li[0] = regrow_leaf(a, r, eta, start + i);
+      w[0] = wts ? wts[i] : 1.0f;
+      wr[0] = wts ? w[0] * resid(i) : resid(i);
+    }
+    hist_add<1>(r.hist2, s, in, li, w, wr, wts != nullptr);
+  }
+}
+
+// The regrow's Metropolis-Hastings decision from each node's sums in the
+// post-move partition (old(m, cnt, sm)) and in the proposed one
+// (prop(m, cnt, sm)): log accept = m(T') - m(T) + log n_active(T) -
+// log n_active(T'), each marginal summed over the leaves of eta's
+// subtree in node order; a proposal with an empty leaf (weights
+// included) is refused.  The gate has opened.  Run by warp 0; leaves the
+// decision in r.rsc[1].
+template <typename Old, typename Prop>
+__device__ inline void regrow_mh(const TreeShared& s, RegrowShared& r,
+                                 const float* row, int M, float s2, float t2,
+                                 Old old, Prop prop) {
+  const int lane = threadIdx.x & 31;
+  float m_old = 0.0f, m_new = 0.0f;
+  bool empty = false;
+  for (int k = 0; k < 4; ++k) {
+    const int m = 32 * k + lane;
+    float to = 0.0f, tn = 0.0f;
+    if (m < M && bit(r.sub_bits, m)) {
+      float cnt, sm;
+      if (s.feat[m] == kLeaf) {
+        old(m, cnt, sm);
+        to = leaf_marginal(cnt, sm, s2, t2);
+      }
+      if (r.rfeat[m] == kLeaf) {
+        prop(m, cnt, sm);
+        tn = leaf_marginal(cnt, sm, s2, t2);
+        empty = empty || cnt <= 0.0f;
+      }
+    }
+    for (int j = 0; j < 32; ++j) {
+      m_old += __shfl_sync(kFull, to, j);
+      m_new += __shfl_sync(kFull, tn, j);
+    }
+  }
+  empty = __any_sync(kFull, empty);
+  if (lane == 0) {
+    int n_sub = 0, n_new = 0;
+    for (int k = 0; k < 4; ++k) {
+      n_sub += __popc(r.act_bits[k] & r.sub_bits[k]);
+      n_new += __popc(r.new_bits[k]);
+    }
+    const int n_act = r.rsc[2], n_act_new = n_act - n_sub + n_new;
+    const float log_accept = m_new - m_old + logf((float)n_act)
+        - logf((float)n_act_new);
+    r.rsc[1] = !empty && logf(row[2]) < log_accept ? 1 : 0;
+  }
+}
+
+// regrow_mh from the block's histograms: the post-move partition's in
+// s.hist (s.hsum in a cluster, after gather_hist), the proposed one's in
+// r.hist2.  Called by every thread after a block barrier that follows
+// the proposed partition's pass; in a cluster of K > 1 blocks it waits on
+// a cluster barrier first.  Returns the decision, the same in every
+// block.
+__device__ inline bool regrow_decide(const SweepArgs& a, TreeShared& s,
+                                     RegrowShared& r, const float* row,
+                                     float s2, float t2, int K) {
+  if (K > 1) cluster_sync();
+  if (threadIdx.x < 32) {
+    regrow_mh(s, r, row, a.M, s2, t2,
+              [&](int m, float& cnt, float& sm) {
+                leaf_sums(s, m, K, cnt, sm);
+              },
+              [&](int m, float& cnt, float& sm) {
+                hist_sums(s, r.hist2, m, K, cnt, sm);
+              });
+  }
+  __syncthreads();
+  return r.rsc[1] != 0;
+}
+
+// An accepted regrow's rows: eta's subtree set from the proposal.  Called
+// by every thread; ends on a block barrier.
+__device__ inline void regrow_accept(TreeShared& s, const RegrowShared& r) {
+  for (int m = threadIdx.x; m < kNodePad; m += kThreads) {
+    if (bit(r.sub_bits, m)) {
+      s.feat[m] = r.rfeat[m];
+      s.cut[m] = r.rcut[m];
     }
   }
   __syncthreads();

@@ -31,12 +31,6 @@ from stan4bart_torch.ops.nuts import NutsConfig
 from stan4bart_torch.utils.device import resolve_device
 
 
-def _unported(what: str, item: int):
-    raise NotImplementedError(
-        f"{what} is not ported to stan4bart_torch yet "
-        f"(ROADMAP queue 1 item {item})")
-
-
 def _detect_family(y: np.ndarray) -> str:
     vals = np.unique(y[~np.isnan(y)])
     if len(vals) <= 2 and np.all(np.isin(vals, (0.0, 1.0))):
@@ -116,14 +110,14 @@ def _resolve_bart_args(bart_args: dict | None, is_binary: bool):
     if sigma_mu_fixed is not None:
         sigma_mu_fixed = float(sigma_mu_fixed)
     keep_trees = bool(pop("keepTrees", "keep_trees", default=False))
+    # the probability of a subtree-regrow MH move after each tree's move,
+    # inside the sweep (ops/bart.py:_subtree_regrow; the sweep kernels
+    # take it); 0 = the reference's move set
+    p_regrow = float(pop("p_regrow", default=0.0))
     # random subtree regrows after each sweep (GibbsProgram._regrow)
     regrow_per_sweep = int(pop("regrow_per_sweep", default=0))
     if regrow_per_sweep < 0:
         raise ValueError("bart_args regrow_per_sweep must be >= 0")
-    # the per-tree regrow move runs inside the sweep, which the port's
-    # sweep kernels do not implement
-    if float(pop("p_regrow", default=0.0)) > 0:
-        _unported("bart_args p_regrow", 13)
     pop("sweep_kernel")   # the port always runs its sweep kernel
 
     # k: numeric -> fixed; chi spec (dict or ("chi", df, scale)) ->
@@ -147,8 +141,35 @@ def _resolve_bart_args(bart_args: dict | None, is_binary: bool):
         power=power, base=base, node_scale=3.0 if is_binary else 0.5,
         k_init=k_init, k_df=k_df, k_scale=k_scale,
         sigma_mu_fixed=sigma_mu_fixed, regrow_per_sweep=regrow_per_sweep,
+        p_regrow=p_regrow,
     )
     return cfg, split_probs, keep_trees
+
+
+def _print_initial_summary(mf, family, bart_cfg, warmup, iterations, chains,
+                           skip_bart, skip_stan, stan_args, sigma_init):
+    """The reference's printInitialSummary (init.cpp:971-993): the
+    resolved control and model configuration before sampling."""
+    print(
+        f"stan4bart: {family} model, n = {mf.N}, "
+        f"fixed effects K = {mf.K}, bart predictors = {mf.bart_X.shape[1]}, "
+        f"ranef terms t = {len(mf.re_terms)} (q = {mf.q})"
+    )
+    print(
+        f"  chains = {chains}, warmup = {warmup}, draws = {iterations}, "
+        f"skip (bart, stan) = ({skip_bart}, {skip_stan})"
+    )
+    print(
+        f"  bart: trees = {bart_cfg.num_trees}, power = {bart_cfg.power}, "
+        f"base = {bart_cfg.base}, k = {bart_cfg.k_init}"
+        f"{' (chi hyperprior)' if bart_cfg.k_df > 0 else ''}, "
+        f"n.cuts = {bart_cfg.n_cuts}"
+    )
+    print(
+        f"  stan: adapt_delta = {stan_args.adapt_delta}, "
+        f"max_treedepth = {stan_args.max_treedepth}, "
+        f"init_r = {stan_args.init_r}, sigma_init = {sigma_init:.4g}"
+    )
 
 
 def chi(df=1.25, scale=float("inf")):
@@ -454,6 +475,11 @@ def stan4bart(
     prog = GibbsProgram(pm, y=y, bart_X=mf.bart_X, device=dev,
                         **program_args)
 
+    if verbose >= 1:
+        _print_initial_summary(mf, family, bart_cfg, warmup, iterations,
+                               chains, skip_bart, skip_stan,
+                               resolved_stan_args, sigma_init)
+
     if seed is None and resolved_stan_args.seed is not None:
         seed = resolved_stan_args.seed
     if seed is None:
@@ -506,8 +532,13 @@ def stan4bart(
             raise ValueError(
                 f"obs_shards ({n_data}) must divide the global device "
                 f"count ({world_size})")
+        # as the JAX package shrinks its chain mesh: the chain groups must
+        # divide the chains; the ranks outside the layout sit out the run
+        n_chain = max(world_size // n_data, 1)
+        while chains % n_chain != 0:
+            n_chain -= 1
         final_states, draws, run_info = mesh.run_chains_obs_sharded(
-            prog, int(seed), chains, world_size // n_data, n_data, **run_kw)
+            prog, int(seed), chains, n_chain, n_data, **run_kw)
         gen.set_state(run_info.pop("rng_state"))
     elif world_size > 1:
         # the chains sharded over the ranks, draws gathered to every rank

@@ -19,8 +19,10 @@ its leading dimension; one iteration advances all chains:
 5. ``skip_bart`` BART sweeps over all chains in one call of the sweep
    kernel (probit: truncated-normal latents first): for ``step_batched``
    the single-pass kernel, the obs-tiled one past n = 10368; for ``step``
-   the per-chain kernel, the obs-tiled one past n = 51840; each sweep
-   optionally followed by random subtree regrows (``regrow_per_sweep``);
+   the per-chain kernel, the obs-tiled one past n = 51840; with
+   ``p_regrow`` each tree's move followed by a subtree-regrow move inside
+   the kernel; each sweep optionally followed by random subtree regrows
+   (``regrow_per_sweep``);
 6. optionally ``leaf_gibbs`` conjugate draws of the leaf values along
    random Walsh directions, and every ``leaf_block`` iterations the joint
    draw of every leaf value of every tree;

@@ -14,9 +14,12 @@ Python loop.  Table lookups (child features, leaf values, cut ranks) are
 plain indexing — the one-hot matrix products of the JAX package exist
 only for the TPU's matrix unit.
 
-``regrow_refresh`` appends random single-tree subtree regrows to a sweep
-(the JAX package's ``regrow_per_sweep``); its per-node statistics are
-one-hot matrix products, so they sum in a fixed order on the card.
+The subtree-regrow move (``_subtree_regrow``) runs in two places: inside
+the sweep after each tree's grow/prune/change move with probability
+``p_regrow`` (``tree_step``), and as random single-tree regrows appended
+to a sweep (``regrow_refresh``, the JAX package's ``regrow_per_sweep``);
+its per-node statistics are one-hot matrix products, so they sum in a
+fixed order on the card.
 
 Every random draw can be supplied by the caller (``variates=`` of
 ``bart_sweep`` and ``regrow_refresh``, ``u=`` of ``sample_probit_latents``
@@ -53,6 +56,10 @@ class BartConfig(NamedTuple):
     # random single-tree subtree regrows (with a leaf redraw) appended to
     # every sweep (``regrow_refresh``); 0 = off
     regrow_per_sweep: int = 0
+    # probability of a subtree-regrow MH move after each tree's
+    # grow/prune/change move, inside the sweep (``_subtree_regrow``);
+    # 0 = off
+    p_regrow: float = 0.0
 
     @property
     def max_nodes(self) -> int:
@@ -227,9 +234,11 @@ def _leaf_marginal(n, s, sigma2, tau2):
 
 
 def tree_step(cfg: BartConfig, feature, cut, lidx, r, sigma2, tau2, u6, zn,
-              ranks_t, spcum, depths, p_split, w=None, reduce=None):
-    """One grow/prune/change MH step and the conjugate leaf draws of one
-    tree, for C chains at once.
+              ranks_t, spcum, depths, p_split, w=None, reduce=None,
+              rg=None):
+    """One grow/prune/change MH step, with ``rg`` a subtree-regrow MH
+    step after it, and the conjugate leaf draws of one tree, for C chains
+    at once.
 
     feature/cut (C, M) int64 heap rows, lidx (C, N) int64, r (C, N) the
     partial residual (response minus every other tree), sigma2/tau2 (C,),
@@ -241,15 +250,27 @@ def tree_step(cfg: BartConfig, feature, cut, lidx, r, sigma2, tau2, u6, zn,
 
     reduce: the observation-sharded form (the JAX package's
     ``_tree_move(axis_name=)``).  The observations here are one shard of
-    the data, and ``reduce`` sums a (C, 2, M + 1) block over the shards
+    the data, and ``reduce`` sums a (C, 2, M + 2) block over the shards
     (an all-reduce over the data group).  The tree update then does ONE
-    reduction: the per-node (sum w, sum w r) of the current partition and
-    the proposed-left pair.  The other move statistics follow from the
-    per-node sums, and the accepted partition's per-node sums are the
-    current ones with the three nodes whose membership changes (eta, its
-    children) set from the move's totals.  The local sums are taken in
-    float64 and rounded once, so they are the exact sums up to one
-    rounding, as the sharded kernel's fixed-point sums are.
+    reduction: the per-node (sum w, sum w r) of the current partition,
+    the proposed-left pair and the proposed-right pair.  The other move
+    statistics follow from the per-node sums, and the accepted
+    partition's per-node sums are the current ones with the three nodes
+    whose membership changes (eta, its children) set from the move's
+    totals.  The right pair is summed, not taken as the move's total less
+    the left pair as the JAX package takes it: with weights that
+    difference can leave a rounding residue where no observation goes
+    right, which passes the move's non-empty check.  The local sums are
+    taken in float64 and rounded once, so they are the exact sums up to
+    one rounding, as the sharded kernel's fixed-point sums are.
+
+    rg: optional (C, 3 + 3 M) regrow variates (``draw_tree_regrow_variates``'
+    row of this tree).  With it, after the move each chain whose gate
+    rg[:, 0] < cfg.p_regrow opens tries a subtree regrow of the
+    post-move tree (``_subtree_regrow``, the JAX package's per-tree
+    ``p_regrow`` move), and the leaves are drawn from the statistics of
+    the partition it leaves; sharded, that takes one more reduction,
+    made only where some chain's gate opens.
 
     Returns (feature, cut, lidx, leaf_value (C, M), fit (C, N)).
     """
@@ -304,27 +325,32 @@ def tree_step(cfg: BartConfig, feature, cut, lidx, r, sigma2, tau2, u6, zn,
         n_all, s_all = masked_stats(members)
         n_ln, s_ln = masked_stats(members & go_left)
         n_lo, s_lo = masked_stats(is_lft)
+        n_rn, s_rn = n_all - n_ln, s_all - s_ln
     else:
         f64 = torch.float64
-        cnt_old, sum_old = node_stats(lidx, wr.to(f64), M,
-                                      None if w is None else w.to(f64))
-        mask_ln = members & go_left
+        w64 = None if w is None else w.to(f64)
         wr64 = wr.to(f64)
-        n_ln_loc = (mask_ln.to(f64).sum(1) if w is None
-                    else (mask_ln * w.to(f64)).sum(1))
-        s_ln_loc = torch.where(mask_ln, wr64, 0.0).sum(1)
-        blk = torch.stack([torch.cat([cnt_old, n_ln_loc[:, None]], 1),
-                           torch.cat([sum_old, s_ln_loc[:, None]], 1)],
+        cnt_old, sum_old = node_stats(lidx, wr64, M, w64)
+
+        def local(mask):
+            n = mask.to(f64).sum(1) if w is None else (mask * w64).sum(1)
+            return n, torch.where(mask, wr64, 0.0).sum(1)
+
+        pairs = (local(members & go_left), local(members & ~go_left))
+        blk = torch.stack([torch.cat([cnt_old] + [p[0][:, None]
+                                                  for p in pairs], 1),
+                           torch.cat([sum_old] + [p[1][:, None]
+                                                  for p in pairs], 1)],
                           1).to(dtype)
-        blk = reduce(blk)                                 # (C, 2, M + 1)
+        blk = reduce(blk)                                 # (C, 2, M + 2)
         cnt_old, sum_old = blk[:, 0, :M], blk[:, 1, :M]
         n_ln, s_ln = blk[:, 0, M], blk[:, 1, M]
+        n_rn, s_rn = blk[:, 0, M + 1], blk[:, 1, M + 1]
         n_eta, s_eta = cnt_old[rows, eta], sum_old[rows, eta]
         n_lo, s_lo = cnt_old[rows, lft], sum_old[rows, lft]
         n_rgt, s_rgt = cnt_old[rows, rgt], sum_old[rows, rgt]
         n_all = torch.where(do_grow, n_eta, n_lo + n_rgt)
         s_all = torch.where(do_grow, s_eta, s_lo + s_rgt)
-    n_rn, s_rn = n_all - n_ln, s_all - s_ln
     n_ro, s_ro = n_all - n_lo, s_all - s_lo
 
     m_all = _leaf_marginal(n_all, s_all, sigma2, tau2)
@@ -401,6 +427,11 @@ def tree_step(cfg: BartConfig, feature, cut, lidx, r, sigma2, tau2, u6, zn,
             counts[rows, node] = torch.where(accept, vn,
                                              counts[rows, node])
             sums[rows, node] = torch.where(accept, vs, sums[rows, node])
+    if rg is not None:
+        feature, cut, lidx, counts, sums = _subtree_regrow(
+            cfg, feature, cut, lidx, wr, ranks_t, spcum, depths, p_split,
+            sigma2, tau2, rg[:, :3], rg[:, 3:].reshape(C, 3, M), w=w,
+            reduce=reduce, p_regrow=cfg.p_regrow, old=(counts, sums))
     s2, t2 = sigma2[:, None], tau2[:, None]
     post_var = 1.0 / (counts / s2 + 1.0 / t2)
     post_mean = post_var * sums / s2
@@ -422,31 +453,45 @@ def node_stats(lidx, wr, max_nodes: int, w=None):
     return out[:, 0], out[:, 1]
 
 
-def _subtree_regrow(cfg: BartConfig, feature, cut, lidx, wr, ranks, spcum,
+def _subtree_regrow(cfg: BartConfig, feature, cut, lidx, wr, ranks_t, spcum,
                     depths, p_split, sigma2, tau2, g, u3, w=None,
-                    reduce=None):
+                    reduce=None, p_regrow=1.0, old=None):
     """Subtree-regrow MH move of one tree of each of C chains: pick an
     active node eta uniformly, propose the whole subtree at eta redrawn
     from the CGM structure prior (at eta's absolute depth), and accept
     with min(1, m(T') / m(T) * n_active(T) / n_active(T')), m the
     integrated likelihood of the subtree's leaves (the prior terms
     cancel against the proposal).  A proposal with an empty leaf is
-    rejected.
+    rejected, and the move is tried only where the gate g[:, 0] <
+    p_regrow.
 
     feature/cut (C, M) int64, lidx (C, N) int64, wr (C, N) the weighted
-    partial residual, ranks (N, P), sigma2/tau2 (C,), g (C, 3) uniforms
-    (gate, node pick, accept), u3 (C, 3, M) uniforms (split, variable,
-    cut per node), w (N,) optional weights.  Returns (feature, cut,
-    lidx, counts, sums), the last two the accepted partition's per-node
-    statistics.  ``reduce`` (observation-sharded) sums both partitions'
-    per-node statistics over the data shards in one (C, 4, M) block."""
+    partial residual, ranks_t (P, N) int, sigma2/tau2 (C,), g (C, 3)
+    uniforms (gate, node pick, accept), u3 (C, 3, M) uniforms (split,
+    variable, cut per node), w (N,) optional weights.  Returns (feature,
+    cut, lidx, counts, sums), the last two the accepted partition's
+    per-node statistics.
+
+    old: the current partition's per-node (counts, sums), already summed
+    over the shards (the in-sweep move passes the accepted
+    grow/prune/change partition's).  Then only the proposed partition's
+    statistics are taken, ``reduce`` (observation-sharded) sums them in
+    one (C, 2, M + 1) block (slot M zero: the sharded kernel's block),
+    the accepted statistics take them on eta's subtree only, and where no
+    chain's gate opens nothing is computed or reduced.  Without ``old``
+    both partitions' statistics are taken and ``reduce`` sums them in
+    one (C, 4, M) block."""
     C, M = feature.shape
     dev = feature.device
+    dtype = wr.dtype
     rows = torch.arange(C, device=dev)
     node_ids = torch.arange(M, device=dev)
     parent_ids = torch.div(node_ids - 1, 2,
                            rounding_mode="floor").clamp(min=0)
     u_gate, u_sel, u_acc = g.unbind(1)
+    gate = u_gate < p_regrow
+    if old is not None and not bool(gate.any()):
+        return (feature, cut, lidx) + tuple(old)
 
     active = feature != INACTIVE
     n_act = active.sum(1)
@@ -477,13 +522,28 @@ def _subtree_regrow(cfg: BartConfig, feature, cut, lidx, wr, ranks, spcum,
     cut_prop = torch.where(feat_prop >= 0, c_prop, 0)
     new_feature = torch.where(in_sub, feat_prop, feature)
     new_cut = torch.where(in_sub, cut_prop, cut)
-    new_lidx = walk_tree(new_feature, new_cut, ranks, cfg.max_depth)
+    new_lidx = walk_tree(new_feature, new_cut, ranks_t.t(), cfg.max_depth)
 
-    counts_old, sums_old = node_stats(lidx, wr, M, w)
-    counts_new, sums_new = node_stats(new_lidx, wr, M, w)
-    if reduce is not None:
-        counts_old, sums_old, counts_new, sums_new = reduce(torch.stack(
-            [counts_old, sums_old, counts_new, sums_new], 1)).unbind(1)
+    if old is None:
+        counts_old, sums_old = node_stats(lidx, wr, M, w)
+        counts_new, sums_new = node_stats(new_lidx, wr, M, w)
+        if reduce is not None:
+            counts_old, sums_old, counts_new, sums_new = reduce(torch.stack(
+                [counts_old, sums_old, counts_new, sums_new], 1)).unbind(1)
+    else:
+        counts_old, sums_old = old
+        if reduce is None:
+            counts_new, sums_new = node_stats(new_lidx, wr, M, w)
+        else:
+            # the local sums in float64, rounded once
+            f64 = torch.float64
+            cnt, sm = node_stats(new_lidx, wr.to(f64), M,
+                                 None if w is None else w.to(f64))
+            pad = torch.zeros((C, 1), dtype=f64, device=dev)
+            blk = torch.stack([torch.cat([cnt, pad], 1),
+                               torch.cat([sm, pad], 1)], 1).to(dtype)
+            blk = reduce(blk)                             # (C, 2, M + 1)
+            counts_new, sums_new = blk[:, 0, :M], blk[:, 1, :M]
     s2, t2 = sigma2[:, None], tau2[:, None]
     leaf_old = (feature == LEAF) & in_sub
     leaf_new = (new_feature == LEAF) & in_sub
@@ -492,18 +552,18 @@ def _subtree_regrow(cfg: BartConfig, feature, cut, lidx, wr, ranks, spcum,
     m_new = torch.where(leaf_new, _leaf_marginal(counts_new, sums_new, s2,
                                                  t2), 0.0).sum(1)
     n_act_new = (new_feature != INACTIVE).sum(1)
-    dtype = wr.dtype
     log_accept = (m_new - m_old + torch.log(n_act.to(dtype))
                   - torch.log(n_act_new.to(dtype)))
     valid = ~(leaf_new & (counts_new <= 0)).any(1)
-    accept = (u_gate < 1.0) & valid & (torch.log(u_acc) < log_accept)
+    accept = gate & valid & (torch.log(u_acc) < log_accept)
 
     acc = accept[:, None]
+    take = acc if old is None else acc & in_sub
     return (torch.where(acc, new_feature, feature),
             torch.where(acc, new_cut, cut),
             torch.where(acc, new_lidx, lidx),
-            torch.where(acc, counts_new, counts_old),
-            torch.where(acc, sums_new, sums_old))
+            torch.where(take, counts_new, counts_old),
+            torch.where(take, sums_new, sums_old))
 
 
 def draw_regrow_variates(gen, n_chains: int, cfg: BartConfig, dtype,
@@ -559,6 +619,7 @@ def regrow_refresh(cfg: BartConfig, state: BartState, y_target, ranks,
                               device=dev)
     w = None if weights is None else torch.as_tensor(weights, dtype=dtype,
                                                      device=dev)
+    ranks_t = ranks.t()
     rows = torch.arange(C, device=dev)
     feature, cut = state.feature.clone(), state.cut.clone()
     leaf_value, leaf_idx = state.leaf_value.clone(), state.leaf_idx.clone()
@@ -571,7 +632,7 @@ def regrow_refresh(cfg: BartConfig, state: BartState, y_target, ranks,
         wr = resid if w is None else w * resid
         f2, c2, li2, counts, sums = _subtree_regrow(
             cfg, feature[rows, j].long(), cut[rows, j].long(),
-            leaf_idx[rows, j].long(), wr, ranks, spcum, depths, p_split,
+            leaf_idx[rows, j].long(), wr, ranks_t, spcum, depths, p_split,
             sigma2, tau2, g[:, r].to(dtype), u3[:, r].to(dtype), w,
             reduce=reduce)
         post_var = 1.0 / (counts / s2 + 1.0 / t2)
@@ -600,9 +661,20 @@ def draw_variates(gen, n_chains: int, num_trees: int, dtype, device):
     return u, zn
 
 
+def draw_tree_regrow_variates(gen, n_chains: int, cfg: BartConfig, dtype,
+                              device):
+    """The in-sweep regrow's draws (``cfg.p_regrow``), per (chain, tree)
+    one row of 3 + 3 M uniforms: ``_subtree_regrow``'s g (gate, node
+    pick, accept), then its u3 (split, variable and cut of each node),
+    row-major -> (C, T, 3 + 3 M), the layout the sweep kernels consume."""
+    M = cfg.max_nodes
+    return torch.rand((n_chains, cfg.num_trees, 3 + 3 * M), generator=gen,
+                      dtype=dtype, device=device)
+
+
 def sweep_trees(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
                 tau2, u, zn, ranks_t, spcum, depths, p_split, weights=None,
-                reduce=None):
+                reduce=None, rg=None):
     """The sequential sweep over the trees of C chains, with the running
     residual carried from tree to tree as the CUDA kernel carries it —
     the plain version of ``csrc/bart_sweep_batch.cu``.
@@ -613,7 +685,9 @@ def sweep_trees(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
     and weights as ``tree_step`` takes them; floats in resid0's dtype.
     ``reduce``: the observation-sharded sweep (``tree_step``), one
     reduction per tree update; the plain version of
-    ``csrc/bart_sweep_sharded.cu``.
+    ``csrc/bart_sweep_sharded.cu``.  rg (C, T, 3 + 3 M): the in-sweep
+    regrow's variates (``draw_tree_regrow_variates``), None when
+    ``cfg.p_regrow`` is 0.
     Returns (feature, cut, leaf_value, leaf_idx, tree_fit, resid)."""
     R = resid0
     outs = []
@@ -622,7 +696,8 @@ def sweep_trees(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
         f, c, li, lv, new_fit = tree_step(
             cfg, feature[:, t].long(), cut[:, t].long(), lidx[:, t].long(),
             r, sigma2, tau2, u[:, t, :6], zn[:, t], ranks_t, spcum, depths,
-            p_split, w=weights, reduce=reduce)
+            p_split, w=weights, reduce=reduce,
+            rg=None if rg is None else rg[:, t])
         R = r - new_fit
         outs.append((f, c, lv, li, new_fit))
     f, c, lv, li, fit = (torch.stack(x, 1) for x in zip(*outs))
@@ -640,18 +715,28 @@ def bart_sweep(cfg: BartConfig, state: BartState, y_target, ranks,
     latent z minus the offset).  ranks (N, P) int tensor.  sigma (C,):
     residual sd (1 for probit).  weights (N,): optional likelihood
     weights, y_i ~ N(fit_i, sigma^2 / w_i).  variates: optional
-    ``(u (C, T, >= 6), zn (C, T, >= M))`` replacing the draw from
-    ``gen``.  With ``cfg.regrow_per_sweep`` the regrows of
+    ``(u (C, T, >= 6), zn (C, T, >= M))``, with ``cfg.p_regrow`` ``(u,
+    zn, rg (C, T, 3 + 3 M))``, replacing the draw from ``gen``.  With
+    ``cfg.p_regrow`` each tree's move is followed by a subtree-regrow
+    move (``tree_step``).  With ``cfg.regrow_per_sweep`` the regrows of
     ``regrow_refresh`` follow the trees (before the k update), drawn from
     ``gen``, as the JAX package's op-form sweep runs them; they take no
-    pre-drawn variates here.  ``reduce``: the observation-sharded sweep
-    (the JAX package's ``bart_sweep(axis_name=)``): every obs-sized input
-    is this rank's shard and every sufficient statistic is summed over
-    the shards by ``reduce``.  Returns (state, varcount (C, P))."""
+    pre-drawn variates here.  The draws from ``gen`` come in this order:
+    u and zn (``draw_variates``), rg (``draw_tree_regrow_variates``),
+    the refresh's (``draw_regrow_variates``), the k update's.
+    ``reduce``: the observation-sharded sweep (the JAX package's
+    ``bart_sweep(axis_name=)``): every obs-sized input is this rank's
+    shard and every sufficient statistic is summed over the shards by
+    ``reduce``.  Returns (state, varcount (C, P))."""
     if cfg.regrow_per_sweep > 0 and variates is not None:
         raise ValueError(
             "the regrow refresh takes no pre-drawn sweep variates; pass "
             "its own to regrow_refresh")
+    if (variates is not None and cfg.p_regrow > 0) != (
+            variates is not None and len(variates) == 3):
+        raise ValueError(
+            "pre-drawn sweep variates are (u, zn, rg) with p_regrow > 0 "
+            "and (u, zn) without")
     dtype = state.allfit.dtype
     dev = state.allfit.device
     C, T = state.feature.shape[:2]
@@ -661,7 +746,9 @@ def bart_sweep(cfg: BartConfig, state: BartState, y_target, ranks,
                                                      device=dev)
     if variates is None:
         variates = draw_variates(gen, C, T, dtype, dev)
-    u, zn = (v.to(dtype) for v in variates)
+        if cfg.p_regrow > 0:
+            variates += (draw_tree_regrow_variates(gen, C, cfg, dtype, dev),)
+    u, zn, *rg = (v.to(dtype) for v in variates)
     feature, cut, lv, lidx, fit, resid = sweep_trees(
         cfg, state.feature, state.cut, state.leaf_idx, state.tree_fit,
         y_target - state.allfit, sigma * sigma,
@@ -669,7 +756,7 @@ def bart_sweep(cfg: BartConfig, state: BartState, y_target, ranks,
         ranks.t().contiguous().long(), spcum,
         torch.as_tensor(node_depths(cfg), dtype=torch.long, device=dev),
         torch.as_tensor(split_prob_by_depth(cfg), dtype=dtype, device=dev),
-        weights=w, reduce=reduce)
+        weights=w, reduce=reduce, rg=rg[0] if rg else None)
     new_state = state._replace(
         feature=feature, cut=cut, leaf_value=lv, leaf_idx=lidx,
         allfit=y_target - resid, tree_fit=fit)

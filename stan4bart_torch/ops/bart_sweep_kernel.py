@@ -22,25 +22,38 @@ of every chain:
   residual carried as the kernels carry it), for every wrapper.
 
 All consume the same pre-drawn variates ``(u (C, T, 8), zn (C, T,
-128))``, drawn here from the caller's generator when not supplied, so
-they compare chain for chain, and all end with the chi(df, scale) k
-update (``ops/bart.py:chi_k_update``) when ``cfg.k_df > 0``.  The
-varcount is counted outside the kernel.
+128))`` and, with ``cfg.p_regrow > 0``, the in-sweep regrow's ``rg (C, T,
+3 + 3 M)`` (``ops/bart.py:draw_tree_regrow_variates``), drawn here from
+the caller's generator in that order when not supplied, so they compare
+chain for chain, and all end with the chi(df, scale) k update
+(``ops/bart.py:chi_k_update``) when ``cfg.k_df > 0``.  The varcount is
+counted outside the kernel.  The regrow runs inside every kernel, after
+each tree's move, where the tree's gate opens (``csrc/sweep_common.cuh``
+``regrow_propose`` / ``regrow_mh``); with ``p_regrow == 0`` the kernels
+get no regrow variates and run as without the move.
+
+Each wrapper's ``launches`` counts its kernel's launches, and
+``regrow_launches`` those that ran the in-sweep regrow (for the sharded
+sweep: tree updates and regrow updates).
 
 The cluster size K of every sweep kernel is ``cluster_size``'s choice
 from the clusters the device holds at once, unless the caller forces it
 with ``cluster=``; the K of the last launch is the wrapper's
-``last_cluster``.  Every K gives a deterministic forest, and the three
-sweep kernels are bit-identical at equal K.  A K whose slice does not fit
-on chip has no resident cluster and is never chosen; forced, its launch
-raises.
+``last_cluster``.  Each one-launch kernel is built twice, with the regrow
+step and without: a launch with ``p_regrow == 0`` runs the one without,
+the code and the shared memory of the sweep before the move existed, and
+``kernel_smem`` (so the K) is the instantiation's.  Every K gives a
+deterministic forest, and the three sweep kernels are bit-identical at
+equal K.  A K whose slice does not fit on chip has no resident cluster
+and is never chosen; forced, its launch raises.
 
 ``bart_sweep_fused_sharded`` is the observation-sharded sweep of one
 rank of a data group: on a CUDA tensor ``csrc/bart_sweep_sharded.cu``,
-two launches per tree with the caller's all-reduce between them (the
-counterpart of the JAX package's XLA ``bart_sweep(axis_name=)``, which
-no Pallas kernel implements); on a CPU tensor ``sweep_trees`` with the
-same ``reduce`` hook.
+two launches per tree with the caller's all-reduce between them, and two
+more with a second all-reduce per tree whose regrow gate opens in some
+chain (the counterpart of the JAX package's XLA
+``bart_sweep(axis_name=)``, which no Pallas kernel implements); on a CPU
+tensor ``sweep_trees`` with the same ``reduce`` hook.
 
 ``bart_sweep_ablate`` runs the ablation stubs of the single-pass kernel
 (``csrc/bart_sweep_ablate.cu``, counterparts of the TPU stubs in
@@ -61,6 +74,7 @@ from stan4bart_torch.ops.bart import (
     BartState,
     chi_k_update,
     count_variable_use,
+    draw_tree_regrow_variates,
     draw_variates,
     node_depths,
     split_prob_by_depth,
@@ -123,17 +137,33 @@ def make_sweep_consts(cfg: BartConfig, ranks, split_probs,
     )
 
 
+def _regrow_variates(cfg: BartConfig, rg):
+    """The regrow variates a sweep takes: None when ``cfg.p_regrow`` is 0
+    (the move is off and ``rg`` is not read), else ``rg``, which must be
+    given."""
+    if cfg.p_regrow <= 0:
+        return None
+    if rg is None:
+        raise ValueError("p_regrow > 0 needs the regrow variates rg "
+                         "(ops/bart.py:draw_tree_regrow_variates)")
+    return rg
+
+
 def sweep_plain(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
-                tau2, u, zn, consts: SweepConsts, weights=None, reduce=None):
+                tau2, u, zn, consts: SweepConsts, weights=None, reduce=None,
+                rg=None):
     """``ops/bart.py:sweep_trees`` on the kernel's operands, in resid0's
     dtype; with ``reduce``, its observation-sharded form (the plain
-    version of ``csrc/bart_sweep_sharded.cu``).  Returns (feature, cut,
+    version of ``csrc/bart_sweep_sharded.cu``); ``rg`` the regrow
+    variates when ``cfg.p_regrow > 0``.  Returns (feature, cut,
     leaf_value, leaf_idx, tree_fit, resid)."""
     dtype = resid0.dtype
+    rg = _regrow_variates(cfg, rg)
     return sweep_trees(cfg, feature, cut, lidx, tfit, resid0, sigma2, tau2,
                        u, zn, consts.ranks_t.long(), consts.spcum.to(dtype),
                        consts.depths, consts.psplit.to(dtype),
-                       weights=weights, reduce=reduce)
+                       weights=weights, reduce=reduce,
+                       rg=None if rg is None else rg.to(dtype))
 
 
 def cluster_size(C: int, N: int, resident) -> int:
@@ -170,9 +200,11 @@ def _ptr(x):
 
 
 def _operands(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
-              tau2, u, zn, consts: SweepConsts, weights):
+              tau2, u, zn, consts: SweepConsts, weights, rg=None):
     """Check a sweep kernel's operands and allocate its outputs; returns
-    (outputs, the launcher's leading ctypes arguments, their argtypes)."""
+    (outputs, the launcher's leading ctypes arguments, their argtypes).
+    The regrow variates go to the kernel only when ``cfg.p_regrow > 0``
+    (else a null pointer: the move is off)."""
     C, T, M = feature.shape
     N = consts.n_obs
     P = consts.ranks_t.shape[0]
@@ -191,6 +223,9 @@ def _operands(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
     _check(consts.psplit, "psplit", f32, (cfg.max_depth + 2,))
     if weights is not None:
         _check(weights, "weights", f32, (N,))
+    rg = _regrow_variates(cfg, rg)
+    if rg is not None:
+        _check(rg, "rg", f32, (C, T, 3 + 3 * M))
 
     feature_o = torch.empty_like(feature)
     cut_o = torch.empty_like(cut)
@@ -206,21 +241,24 @@ def _operands(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
             + [C, T, N, P, M, cfg.max_depth, cfg.n_cuts,
                cfg.p_grow, cfg.p_prune,
                math.log(cfg.p_prune) - math.log(cfg.p_grow),
-               math.log(cfg.p_grow) - math.log(cfg.p_prune)])
+               math.log(cfg.p_grow) - math.log(cfg.p_prune),
+               cfg.p_regrow, _ptr(rg)])
     argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
-                + [ctypes.c_float] * 4)
+                + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     return outs, head, argtypes
 
 
 def _launch(name: str, cfg: BartConfig, feature, cut, lidx, tfit, resid0,
-            sigma2, tau2, u, zn, consts: SweepConsts, weights, K: int):
+            sigma2, tau2, u, zn, consts: SweepConsts, weights, K: int,
+            rg=None):
     """Check the operands and launch kernel ``csrc/<name>.cu`` on the
     current stream in clusters of K blocks per chain; returns its fresh
     outputs."""
     from stan4bart_torch.ops.cuda_build import load
 
     outs, head, argtypes = _operands(cfg, feature, cut, lidx, tfit, resid0,
-                                     sigma2, tau2, u, zn, consts, weights)
+                                     sigma2, tau2, u, zn, consts, weights,
+                                     rg)
     fn = getattr(load(name), f"{name}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = argtypes + [ctypes.c_int, ctypes.c_void_p]
@@ -234,15 +272,19 @@ def _launch(name: str, cfg: BartConfig, feature, cut, lidx, tfit, resid0,
 _info_cache: dict = {}
 
 
-def kernel_smem(name: str, N: int, T: int, K: int) -> dict:
+def kernel_smem(name: str, N: int, T: int, K: int,
+                regrow: bool = False) -> dict:
     """Shared memory per block of the sweep kernel ``name``
     (``bart_sweep_batch``, ``bart_sweep_tiled``, ``bart_sweep_chain`` or,
     its stats launch, ``bart_sweep_sharded``)
     at N observations, T trees and clusters of K blocks, on the current
-    CUDA device: static and dynamic bytes, the device's opt-in limit, how
-    many clusters can be resident at once (0 where the on-chip kernels'
-    slice does not fit), and whether the residual stays on chip."""
-    key = (name, N, T, K, torch.cuda.current_device())
+    CUDA device, for the one-launch kernels the instantiation with the
+    in-sweep regrow when ``regrow``: static and dynamic bytes, the
+    device's opt-in limit, how many clusters can be resident at once (0
+    where the on-chip kernels' slice does not fit), and whether the
+    residual stays on chip."""
+    regrow = bool(regrow) and name != "bart_sweep_sharded"
+    key = (name, N, T, K, regrow, torch.cuda.current_device())
     if key not in _info_cache:
         from stan4bart_torch.ops.cuda_build import load
 
@@ -251,8 +293,10 @@ def kernel_smem(name: str, N: int, T: int, K: int) -> dict:
         st, dy = ctypes.c_longlong(), ctypes.c_longlong()
         optin, clusters, on_chip = ctypes.c_int(), ctypes.c_int(), \
             ctypes.c_int(1)
-        args = [N, T, K, ctypes.byref(st), ctypes.byref(dy),
-                ctypes.byref(optin), ctypes.byref(clusters)]
+        args = [N, T, K] + ([int(regrow)] if name != "bart_sweep_sharded"
+                            else []) + [
+            ctypes.byref(st), ctypes.byref(dy), ctypes.byref(optin),
+            ctypes.byref(clusters)]
         if name == "bart_sweep_tiled":
             args.append(ctypes.byref(on_chip))
         err = fn(*args)
@@ -264,64 +308,70 @@ def kernel_smem(name: str, N: int, T: int, K: int) -> dict:
     return _info_cache[key]
 
 
-def _cluster(name: str, C: int, T: int, consts: SweepConsts, cluster) -> int:
+def _cluster(name: str, C: int, T: int, consts: SweepConsts, cluster,
+             regrow: bool = False) -> int:
     """The cluster size to launch: ``cluster`` when given, else
-    ``cluster_size`` from the device's resident clusters at each K."""
+    ``cluster_size`` from the device's resident clusters at each K (of
+    the kernel with the regrow step when ``regrow``)."""
     if cluster is not None:
         if not 1 <= cluster <= MAX_CLUSTER:
             raise ValueError(f"cluster must be in 1..{MAX_CLUSTER}, got "
                              f"{cluster}")
         return cluster
     N = consts.n_obs
-    resident = [kernel_smem(name, N, T, K)["clusters"]
+    resident = [kernel_smem(name, N, T, K, regrow)["clusters"]
                 if K == 1 or N / K >= MIN_OBS_PER_BLOCK else 0
                 for K in range(1, MAX_CLUSTER + 1)]
     return cluster_size(C, N, resident)
 
 
 def sweep_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
-               tau2, u, zn, consts: SweepConsts, weights=None, cluster=None):
+               tau2, u, zn, consts: SweepConsts, weights=None, cluster=None,
+               rg=None):
     """Launch ``csrc/bart_sweep_batch.cu`` on the current stream; same
     contract as ``sweep_plain`` (all float inputs float32).  ``cluster``
     forces the blocks per chain (default: ``cluster_size``'s rule)."""
     C, T = feature.shape[:2]
-    K = _cluster("bart_sweep_batch", C, T, consts, cluster)
+    K = _cluster("bart_sweep_batch", C, T, consts, cluster, cfg.p_regrow > 0)
     out = _launch("bart_sweep_batch", cfg, feature, cut, lidx, tfit, resid0,
-                  sigma2, tau2, u, zn, consts, weights, K)
+                  sigma2, tau2, u, zn, consts, weights, K, rg)
     bart_sweep_fused_batch.launches += 1
+    bart_sweep_fused_batch.regrow_launches += int(cfg.p_regrow > 0)
     bart_sweep_fused_batch.last_cluster = K
     return out
 
 
 def sweep_tiled_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
                      sigma2, tau2, u, zn, consts: SweepConsts,
-                     weights=None, cluster=None):
+                     weights=None, cluster=None, rg=None):
     """Launch the obs-tiled ``csrc/bart_sweep_tiled.cu`` on the current
     stream; same contract as ``sweep_plain`` at any n (all float inputs
     float32).  ``cluster`` forces the blocks per chain (default:
     ``cluster_size``'s rule)."""
     C, T = feature.shape[:2]
-    K = _cluster("bart_sweep_tiled", C, T, consts, cluster)
+    K = _cluster("bart_sweep_tiled", C, T, consts, cluster, cfg.p_regrow > 0)
     out = _launch("bart_sweep_tiled", cfg, feature, cut, lidx, tfit, resid0,
-                  sigma2, tau2, u, zn, consts, weights, K)
+                  sigma2, tau2, u, zn, consts, weights, K, rg)
     bart_sweep_fused_batch_tiled.launches += 1
+    bart_sweep_fused_batch_tiled.regrow_launches += int(cfg.p_regrow > 0)
     bart_sweep_fused_batch_tiled.last_cluster = K
     return out
 
 
 def sweep_chain_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
                      sigma2, tau2, u, zn, consts: SweepConsts,
-                     weights=None, cluster=None):
+                     weights=None, cluster=None, rg=None):
     """Launch the per-chain ``csrc/bart_sweep_chain.cu`` on the current
     stream; same contract as ``sweep_plain`` up to n = 51840 (all float
     inputs float32).  ``cluster`` forces the blocks per chain (default:
     ``cluster_size``'s rule); a K whose slice does not fit on chip
     raises."""
     C, T = feature.shape[:2]
-    K = _cluster("bart_sweep_chain", C, T, consts, cluster)
+    K = _cluster("bart_sweep_chain", C, T, consts, cluster, cfg.p_regrow > 0)
     out = _launch("bart_sweep_chain", cfg, feature, cut, lidx, tfit, resid0,
-                  sigma2, tau2, u, zn, consts, weights, K)
+                  sigma2, tau2, u, zn, consts, weights, K, rg)
     bart_sweep_fused.launches += 1
+    bart_sweep_fused.regrow_launches += int(cfg.p_regrow > 0)
     bart_sweep_fused.last_cluster = K
     return out
 
@@ -335,47 +385,85 @@ def apply_blocks(C: int, N: int) -> int:
 
 def sweep_sharded_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
                        sigma2, tau2, u, zn, consts: SweepConsts,
-                       weights=None, reduce=None, cluster=None):
+                       weights=None, reduce=None, cluster=None, rg=None):
     """The observation-sharded sweep of ``csrc/bart_sweep_sharded.cu`` on
     the current stream: per tree a stats launch (clusters of K blocks per
-    chain over this rank's observations), ``reduce`` of the (C, 2, M + 1)
+    chain over this rank's observations), ``reduce`` of the (C, 2, M + 2)
     block over the data group (None: one rank), and an apply launch; then
-    a flush launch.  Same contract as ``sweep_plain`` with the same
+    a flush launch.  With ``cfg.p_regrow > 0``, a tree whose regrow gate
+    opens in some chain (read from ``rg`` once per sweep) adds a regrow
+    stats launch, a ``reduce`` of a second (C, 2, M + 1) block and a
+    regrow apply launch.  Same contract as ``sweep_plain`` with the same
     ``reduce`` (all float inputs float32); ``cluster`` forces the stats
-    launch's blocks per chain.  ``bart_sweep_fused_sharded.launches``
-    counts tree updates (one stats and one apply launch each)."""
+    launches' blocks per chain.  ``bart_sweep_fused_sharded.launches``
+    counts tree updates (one stats and one apply launch each),
+    ``.regrow_launches`` regrow updates (one regrow stats and one regrow
+    apply launch each)."""
     from stan4bart_torch.ops.cuda_build import load
 
     C, T, M = feature.shape
     K = _cluster("bart_sweep_sharded", C, T, consts, cluster)
     nb = apply_blocks(C, consts.n_obs)
     outs, head, argtypes = _operands(cfg, feature, cut, lidx, tfit, resid0,
-                                     sigma2, tau2, u, zn, consts, weights)
+                                     sigma2, tau2, u, zn, consts, weights,
+                                     rg)
     lib = load("bart_sweep_sharded")
-    stats, apply = lib.bart_sweep_sharded_stats, lib.bart_sweep_sharded_apply
-    for fn in (stats, apply):
+    # each launcher's pointers between t and its last int (K or nb)
+    tail = ((lib.bart_sweep_sharded_stats, 2),
+            (lib.bart_sweep_sharded_apply, 2),
+            (lib.bart_sweep_sharded_regrow_stats, 3),
+            (lib.bart_sweep_sharded_regrow_apply, 2))
+    for fn, ptrs in tail:
         fn.restype = ctypes.c_int
-        fn.argtypes = argtypes + [ctypes.c_int, ctypes.c_void_p,
-                                  ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = (argtypes + [ctypes.c_int] + [ctypes.c_void_p] * ptrs
+                       + [ctypes.c_int, ctypes.c_void_p])
     stream = ctypes.c_void_p(
         torch.cuda.current_stream(feature.device).cuda_stream)
-    blk = torch.empty((C, 2, M + 1), dtype=torch.float32,
-                      device=feature.device)
-    for t in range(T + 1):
-        err = stats(*head, t, _ptr(blk), K, stream)
+    dev = feature.device
+    blk = torch.empty((C, 2, M + 2), dtype=torch.float32, device=dev)
+    rg = _regrow_variates(cfg, rg)
+    # the trees whose regrow gate opens in some chain, and their scratch:
+    # the tree's fixed-point scales and post-move sums and rows
+    opens = ([False] * T if rg is None
+             else (rg[..., 0] < cfg.p_regrow).any(0).tolist())
+    scl = post = None
+    if any(opens):
+        scl = torch.empty((C, 2), dtype=torch.int32, device=dev)
+        post = torch.empty((C, 4, M), dtype=torch.float32, device=dev)
+
+    def check(err, what):
         if err != 0:
-            raise RuntimeError(f"bart_sweep_sharded stats launch failed: "
+            raise RuntimeError(f"bart_sweep_sharded {what} launch failed: "
                                f"CUDA error {err}")
+
+    def reduced(x):
+        if reduce is None:
+            return x
+        shape = x.shape
+        x = reduce(x)
+        _check(x, "reduced block", torch.float32, shape)
+        return x
+
+    for t in range(T + 1):
+        check(lib.bart_sweep_sharded_stats(*head, t, _ptr(blk), _ptr(scl),
+                                           K, stream), "stats")
         if t == T:
             break
-        if reduce is not None:
-            blk = reduce(blk)
-            _check(blk, "reduced block", torch.float32, (C, 2, M + 1))
-        err = apply(*head, t, _ptr(blk), nb, stream)
-        if err != 0:
-            raise RuntimeError(f"bart_sweep_sharded apply launch failed: "
-                               f"CUDA error {err}")
+        blk = reduced(blk)
+        kept = post if opens[t] else None
+        check(lib.bart_sweep_sharded_apply(*head, t, _ptr(blk), _ptr(kept),
+                                           nb, stream), "apply")
         bart_sweep_fused_sharded.launches += 1
+        if not opens[t]:
+            continue
+        rblk = torch.empty((C, 2, M + 1), dtype=torch.float32, device=dev)
+        check(lib.bart_sweep_sharded_regrow_stats(
+            *head, t, _ptr(rblk), _ptr(scl), _ptr(post), K, stream),
+            "regrow stats")
+        rblk = reduced(rblk)
+        check(lib.bart_sweep_sharded_regrow_apply(
+            *head, t, _ptr(rblk), _ptr(post), nb, stream), "regrow apply")
+        bart_sweep_fused_sharded.regrow_launches += 1
     bart_sweep_fused_sharded.last_cluster = K
     return outs
 
@@ -393,7 +481,8 @@ def check_kernel_supports(consts: SweepConsts, dtype,
                           kernel: str = "bart_sweep_batch") -> None:
     """Raise for a sweep CUDA kernel ``kernel`` does not take: float32
     state only; past npad 10368 (single-pass) or 51840 (per-chain) only
-    the obs-tiled kernel."""
+    the obs-tiled kernel.  Every kernel takes the in-sweep regrow
+    (``p_regrow``)."""
     if dtype != torch.float32:
         raise ValueError("the CUDA sweep kernels require float32 state")
     limit = _MAX_NPAD[kernel]
@@ -416,7 +505,11 @@ def _fused(kernel: str, cfg: BartConfig, state: BartState, y_target,
     work = torch.float32 if on_cuda else dtype
     if variates is None:
         variates = draw_variates(gen, C, T, torch.float32, dev)
-    u, zn = (v.to(work).contiguous() for v in variates)
+        if cfg.p_regrow > 0:
+            variates += (draw_tree_regrow_variates(gen, C, cfg,
+                                                   torch.float32, dev),)
+    u, zn, *rg = (v.to(work).contiguous() for v in variates)
+    rg = rg[0] if rg else None
     resid0 = (y_target - state.allfit).to(work).contiguous()
     sigma2 = (sigma * sigma).to(work).contiguous()
     tau2 = (state.sigma_mu * state.sigma_mu).to(work).contiguous()
@@ -429,9 +522,9 @@ def _fused(kernel: str, cfg: BartConfig, state: BartState, y_target,
     if reduce is not None:
         launch_kw["reduce"] = reduce
     if on_cuda:
-        out = _LAUNCH[kernel](*args, weights=w, **launch_kw)
+        out = _LAUNCH[kernel](*args, weights=w, rg=rg, **launch_kw)
     else:
-        out = sweep_plain(*args, weights=w, reduce=reduce)
+        out = sweep_plain(*args, weights=w, reduce=reduce, rg=rg)
     feature, cut, lv, lidx, tfit, resid = out
     leaf_value = lv.to(dtype)
     k, sigma_mu = state.k, state.sigma_mu
@@ -452,9 +545,10 @@ def bart_sweep_fused_batch(cfg: BartConfig, state: BartState, y_target,
     """One sweep over all trees of a batched BartState (leading chain
     axis).  y_target (C, N), sigma (C,), weights (N,) or None, gen a
     ``torch.Generator`` on the state's device (unused when ``variates``
-    are given and k is fixed), gamma (C,) optional standard gamma draws
-    replacing those of the chi(df, scale) k update.  Returns (state,
-    varcount (C, P)).
+    are given and k is fixed), variates ``(u, zn)`` or, with
+    ``cfg.p_regrow > 0``, ``(u, zn, rg)``, gamma (C,) optional standard
+    gamma draws replacing those of the chi(df, scale) k update.  Returns
+    (state, varcount (C, P)).
 
     On a CUDA state this launches ``csrc/bart_sweep_batch.cu`` (float32
     only, n <= 10368; wider fits raise and belong to
@@ -606,10 +700,10 @@ def bart_sweep_ablate(mode: str, feature, cut, lv, lidx, tfit, resid0, u,
     return ablate_plain(mode, feature, cut, lv, lidx, tfit, resid0, weights)
 
 
-bart_sweep_fused_batch.launches = 0
-bart_sweep_fused_batch_tiled.launches = 0
-bart_sweep_fused.launches = 0
-bart_sweep_fused_sharded.launches = 0
+for _wrapper in (bart_sweep_fused_batch, bart_sweep_fused_batch_tiled,
+                 bart_sweep_fused, bart_sweep_fused_sharded):
+    _wrapper.launches = 0
+    _wrapper.regrow_launches = 0
 bart_sweep_ablate.launches = 0
 bart_sweep_fused_batch.last_cluster = None
 bart_sweep_fused_batch_tiled.last_cluster = None

@@ -5,11 +5,14 @@ its devices out as a mesh and runs one ``shard_map`` program over it; the
 port runs one process (rank) per device in a ``torch.distributed`` world
 and lays the ranks out the same way:
 
-* ``chain_data_groups(n_chain, n_data)`` splits a world of n_chain x
-  n_data ranks into chain groups of n_data ranks each, the data axis
-  innermost (rank = chain group x n_data + data index), as
+* ``chain_data_groups(n_chain, n_data)`` lays the first n_chain x n_data
+  ranks of the world out as chain groups of n_data ranks each, the data
+  axis innermost (rank = chain group x n_data + data index), as
   ``chain_data_mesh`` does: a data group's ranks are neighbours, and only
-  the final gather crosses the chain axis;
+  the final gather crosses the chain axis.  Where the world's chain
+  groups do not divide the chains, ``stan4bart`` shrinks their count as
+  the JAX package shrinks its chain mesh, and the ranks past the layout
+  sit out the run and receive the gathered draws;
 * chain sharding alone is ``multihost.run_chains_multihost``, which
   serves both of the JAX package's chain drivers (``run_chains_sharded``
   and ``run_chains_batched_sharded``): each rank runs its chains through
@@ -20,7 +23,7 @@ and lays the ranks out the same way:
   shard of the observations (``_obs_shard_inputs``) through
   ``GibbsProgram.local_view``, and every sufficient statistic is one
   all-reduce over the data group (``DataAxis``): the per-tree
-  (C, 2, M + 1) block of the sweep, the Gram anchor of the NUTS
+  (C, 2, M + 2) block of the sweep, the Gram anchor of the NUTS
   likelihood, the linear and level refreshes, the leaf draws and the
   leaf-scale range.  All ranks of a data group draw from their chain
   group's generator, so the tree structures, the NUTS states and every
@@ -53,20 +56,24 @@ from stan4bart_torch.parallel import multihost
 
 
 def chain_data_groups(n_chain: int, n_data: int):
-    """The 2-D layout of a world of n_chain x n_data ranks as process
-    groups, data innermost.  Every rank must call it, in the same order.
-    Returns (data_group, chain_group, g, d): this rank's data group (the
-    n_data ranks of its chain group), the group of the n_chain ranks that
-    hold its data shard in every chain group (the gather axis), its chain
-    group index g and its data index d."""
+    """The 2-D layout of the first n_chain x n_data ranks of the world as
+    process groups, data innermost.  Every rank must call it, in the same
+    order.  Returns (data_group, chain_group, g, d): this rank's data
+    group (the n_data ranks of its chain group), the group of the n_chain
+    ranks that hold its data shard in every chain group (the gather
+    axis), its chain group index g and its data index d; all None for a
+    rank past the layout."""
     W, r = multihost.world()
-    if W != n_chain * n_data:
-        raise ValueError(f"a {n_chain} x {n_data} layout needs "
-                         f"{n_chain * n_data} ranks, the world has {W}")
+    L = n_chain * n_data
+    if W < L:
+        raise ValueError(f"a {n_chain} x {n_data} layout needs {L} ranks, "
+                         f"the world has {W}")
     data_groups = [dist.new_group(list(range(g * n_data, (g + 1) * n_data)))
                    for g in range(n_chain)]
-    chain_groups = [dist.new_group(list(range(d, W, n_data)))
+    chain_groups = [dist.new_group(list(range(d, L, n_data)))
                     for d in range(n_data)]
+    if r >= L:
+        return None, None, None, None
     g, d = divmod(r, n_data)
     return data_groups[g], chain_groups[d], g, d
 
@@ -160,21 +167,30 @@ def run_chains_obs_sharded(prog, seed: int, chains: int, n_chain: int,
                            keep_warmup: bool = True, verbose: int = 0,
                            refresh: int | None = None, progress=None):
     """The whole fit (warmup, adaptation disengage, sampling, chunked) on
-    the chains x data layout of the world: chain group g runs chains
-    [g C / n_chain, (g + 1) C / n_chain) with the generator of
-    ``rank_seed(seed, g, n_chain)``, each of its n_data ranks on one
-    padded shard of the observations (``prog.local_view``).  The draws'
-    per-observation fits are gathered over the data group with the pad
-    rows sliced off, then every draw over the chain axis, so every rank
-    returns the full draws.  Returns (None, draws, info): the final states
-    stay on their ranks; info is the rank's ``run_chains_chunked`` info
-    with the layout, the data group's all-reduce count and the gather
-    seconds."""
+    the chains x data layout of the world's first n_chain x n_data ranks:
+    chain group g runs chains [g C / n_chain, (g + 1) C / n_chain) with
+    the generator of ``rank_seed(seed, g, n_chain)``, each of its n_data
+    ranks on one padded shard of the observations (``prog.local_view``).
+    The draws' per-observation fits are gathered over the data group with
+    the pad rows sliced off, then every draw over the chain axis, and
+    where the world has ranks past the layout, rank 0 broadcasts the
+    draws and its info to them; so every rank returns the full draws.
+    Returns (None, draws, info): the final states stay on their ranks;
+    info is the rank's ``run_chains_chunked`` info (rank 0's on a rank
+    past the layout) with the layout, the data group's all-reduce count
+    and the gather seconds."""
     if chains % n_chain != 0:
         raise ValueError(
             f"chains ({chains}) must be a multiple of the chain-mesh "
             f"size ({n_chain})")
     data_group, chain_group, g, d = chain_data_groups(n_chain, n_data)
+    W, r = multihost.world()
+    if g is None:
+        # past the layout: the run's draws and info from rank 0
+        draws, info = _from_rank0(None)
+        info.update(rank=r, chain_group=None, data_index=None,
+                    all_reduces=0)
+        return None, draws, info
     inputs, meta = _obs_shard_inputs(prog, n_data, bart_offset_init)
     local = _shard(inputs, n_data, d)
     axis = DataAxis(data_group)
@@ -194,13 +210,22 @@ def run_chains_obs_sharded(prog, seed: int, chains: int, n_chain: int,
     draws = draws._replace(bart_train=multihost.gather(
         draws.bart_train, data_group, axis=-1)[..., :prog.N])
     draws = multihost.gather(draws, chain_group)
-    W, r = multihost.world()
     info.update(world_size=W, rank=r, chain_groups=n_chain,
                 obs_shards=n_data, chain_group=g, data_index=d,
                 backend=str(dist.get_backend()), run_s=t1 - t0,
                 gather_s=time.perf_counter() - t1,
                 all_reduces=axis.calls, rng_state=gen.get_state())
+    if W > n_chain * n_data:
+        _from_rank0((draws, info) if r == 0 else None)
     return None, draws, info
+
+
+def _from_rank0(obj):
+    """``obj`` of rank 0, broadcast to every rank of the world (pickled,
+    over the host-tensor backend)."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, device=torch.device("cpu"))
+    return box[0]
 
 
 def _free_port() -> int:

@@ -138,11 +138,11 @@ def test_entry_points_need_cuda_or_explicit_cpu():
                   lambda: state_from_numpy(None)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
-    # what stays unported names its ROADMAP queue item
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        stan4bart_torch.stan4bart("y ~ bart(X1 + X2) + X4", df, iter=4,
-                                  device="cpu",
-                                  bart_args={"p_regrow": 0.2})
+    # p_regrow is ported: with device="cpu" it runs the plain sweep
+    fit = stan4bart_torch.stan4bart("y ~ bart(X1 + X2) + X4", df, iter=4,
+                                    chains=1, device="cpu", verbose=-1,
+                                    bart_args={"p_regrow": 0.2})
+    assert fit.prog.bart_cfg.p_regrow == 0.2
     # obs_shards is ported: outside a world of several ranks it is the
     # JAX package's device-count error
     with pytest.raises(ValueError, match="must divide the global device"):
@@ -166,6 +166,7 @@ def test_port_imports_without_jax():
         "import stan4bart_torch.ops.nuts_driver\n"
         "import stan4bart_torch.parallel.mesh\n"
         "import stan4bart_torch.parallel._mh_worker\n"
+        "import stan4bart_torch.utils.ihdp, stan4bart_torch.utils.profiling\n"
         "assert not any(m.split('.')[0] in ('jax', 'stan4bart_tpu') "
         "for m in sys.modules)\n"
         "print('ok')\n")

@@ -119,3 +119,19 @@ def test_test_frame_new_levels_match():
     tp = port_mf("y ~ bart(x) + (1 | g)", data).build_test_frame(new)
     _assert_terms_equal(tr.re_terms, tp.re_terms)
     assert (tp.re_terms[0].group_idx == -1).sum() == 5
+
+
+def test_verbose_initial_summary(capsys):
+    """verbose=1 prints the reference's initial summary (the JAX
+    package's tests/test_init_and_validation.py:61-69 on the port)."""
+    import stan4bart_torch
+
+    df = friedman_dataframe(generate_friedman_data(60, ranef=True))
+    stan4bart_torch.stan4bart("y ~ bart(X1+X2) + X4 + (1 | g.2)", df,
+                              chains=1, warmup=5, iter=15, seed=0,
+                              verbose=1, bart_args={"n.trees": 3},
+                              device="cpu")
+    out = capsys.readouterr().out
+    assert "stan4bart: gaussian model" in out
+    assert "trees = 3" in out
+    assert "adapt_delta = 0.8" in out

@@ -35,6 +35,9 @@ FIT3 = dict(iter=3, warmup=2, chains=2, seed=43, stan_args=OBS)
 FITS = {"gaussian": dict(n=64), "probit": dict(n=64, binary=True),
         "weighted": dict(n=64, weights=True), "padded": dict(n=61)}
 CHUNK = dict(iter=10, warmup=4, chains=2, seed=9, stan_args=OBS)
+# 3 chains, which 2 chain groups do not divide
+THREE = dict(iter=3, warmup=2, chains=3, seed=21, stan_args=OBS,
+             key="three_chains")
 
 
 def _sweep_inputs(weighted: bool, seed: int = 1):
@@ -70,6 +73,7 @@ def world():
     cases += [("fit_case", dict(FIT3, key=k, **kw)) for k, kw in FITS.items()]
     cases += [("fit_case", dict(CHUNK, key="whole")),
               ("fit_case", dict(CHUNK, key="chunked", chunk_size=3)),
+              ("fit_case", THREE),
               ("refusal_case", dict(key="refusals"))]
     return mesh.spawn(worker.run_cases, ["cpu", "cpu"], "gloo",
                       args=(cases,), timeout_s=120)
@@ -205,6 +209,29 @@ def test_obs_sharded_chunked_equals_whole(world):
     assert whole["stan"].shape[:2] == (2, 10)
 
 
+def test_obs_shards_shrink_the_chain_groups_to_divide_the_chains(world):
+    """4 ranks, 3 chains, obs_shards = 2: the 2 chain groups shrink to 1,
+    as the JAX package shrinks its chain mesh, so ranks 0-1 run a 1 x 2
+    layout and ranks 2-3 sit out and receive the gathered draws.  Every
+    rank's draws equal, to the bit, those of the 2-rank obs_shards = 2 fit
+    with the same seed (both take ``rank_seed(seed, 0, 1)``)."""
+    four = mesh.spawn(worker.run_cases, ["cpu"] * 4, "gloo",
+                      args=([("fit_case", THREE)],), timeout_s=120)
+    ref = world[0]["three_chains"]
+    assert ref["info"]["chain_groups"] == 1
+    for r, out in enumerate(four):
+        got = out["three_chains"]
+        assert got["info"]["world_size"] == 4 and got["info"]["rank"] == r
+        assert got["info"]["chain_groups"] == 1
+        assert got["info"]["obs_shards"] == 2
+        assert set(got["draws"]) == set(ref["draws"])
+        for name, arr in ref["draws"].items():
+            np.testing.assert_array_equal(got["draws"][name], arr,
+                                          err_msg=f"rank {r}: {name}")
+    assert four[0]["three_chains"]["draws"]["stan"].shape[0] == 3
+    assert four[2]["three_chains"]["all_reduces"] == 0
+
+
 def test_obs_sharded_refusals_match_the_jax_package(world):
     msgs = world[0]["refusals"]
     assert msgs == world[1]["refusals"]
@@ -252,13 +279,13 @@ def test_one_reduction_per_tree_update():
     tb.bart_sweep(cfg, st, *args, reduce=count,
                   variates=(torch.as_tensor(inp["u"]),
                             torch.as_tensor(inp["zn"])))
-    assert seen == [(C, 2, cfg.max_nodes + 1)] * T
+    assert seen == [(C, 2, cfg.max_nodes + 2)] * T
     seen.clear()
     gen = torch.Generator()
     gen.manual_seed(0)
     tb.bart_sweep(cfg._replace(regrow_per_sweep=2), st, *args, gen,
                   reduce=count)
-    assert seen == ([(C, 2, cfg.max_nodes + 1)] * T
+    assert seen == ([(C, 2, cfg.max_nodes + 2)] * T
                     + [(C, 4, cfg.max_nodes)] * 2)
 
 
