@@ -139,11 +139,37 @@ with nvcc (one process per source, started together), then:
    d. ``utils.profiling.profile_phases`` at the bench shape on phase 3's
    final states (n_iter 3, repeats 1), printing ``format_profile``'s
    lines.
+12. runs trees deeper than 6 (``bart_args max_depth 8``), whose sweeps
+   are the kernels' builds for 512-slot heaps: a. the single-pass,
+   obs-tiled and per-chain builds at the bench shape (timed at p_regrow 0
+   and 1 with the plain sweep, K, shared memory and the bound at
+   M = 511, beside the depth-6 times), at 10 000 x 128 and at 50 000 x 32
+   weighted (there also the obs-tiled build at K = 1, residual in device
+   memory), each with p_regrow 0 and 1 against the plain sweep in every
+   chain and with every regrow gate shut equal to p_regrow 0 to the bit,
+   from prior forests (power 0.5) whose deepest node and nodes at depth
+   >= 7 are printed; the builds for 1024-slot heaps (max_depth 9) the
+   same at 10 000 x 128 and at 30 000 x 32 weighted; in phase 10a's two
+   ranks the sharded build against the plain sharded sweep at p_regrow 0
+   and 1, timed; b. the phase 3 fit at 128 chains with max_depth 8, every
+   sweep a launch of the deep single-pass build: the gaussian gates, SATE
+   within 0.1 of the truth, and cor, sigma, SATE, the test frame's RMSE
+   against the truth, the share of final-forest nodes at depth >= 7 and
+   the sweep seconds beside phase 11c's (the same fit at depth 6 with
+   p_regrow 0.25).  12b's fit runs in a process of its own beside phase
+   11c's: both are host-bound, so the pair takes the wall time of one,
+   and the two compared fits run under the same load.
+
+The short option fits of phases 6, 8 and 9 run after phase 10a, in this
+process beside phase 10b's ranks (processes of their own), and phase
+12b's fit runs in a process of its own beside phase 11c's: the fits are
+host-bound, so each pair takes about the wall time of the longer, and
+the per-phase seconds of 10b, 11c and 12b are taken under that load.
 
 ``--phases 3,7,9`` runs the listed phases only (``--phases
-1,2,4,10a,11a,11b`` the kernel phases; the kernels line needs those;
-``10a`` to ``10c`` and ``11a`` to ``11d`` run one part of phase 10 or
-11).  Prints the card
+1,2,4,10a,11a,11b,12a`` the kernel phases; the kernels line needs those;
+``10a`` to ``10c``, ``11a`` to ``11d``, ``12a`` and ``12b`` run one part
+of phase 10, 11 or 12).  Prints the card
 (``nvidia-smi``), a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero.  Needs no network; imports nothing of JAX.
@@ -191,8 +217,10 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def forest_setup(n, trees, chains, seed, device):
-    """Friedman-like data, its cut ranks, and a prior-drawn forest."""
+def forest_setup(n, trees, chains, seed, device, **cfg_kw):
+    """Friedman-like data, its cut ranks, and a prior-drawn forest
+    (``cfg_kw``: BartConfig fields other than the trees, e.g. phase 12's
+    ``DEEP``)."""
     from stan4bart_torch.ops import bart as ops
     from stan4bart_torch.ops.bart_sweep_kernel import make_sweep_consts
 
@@ -200,7 +228,7 @@ def forest_setup(n, trees, chains, seed, device):
     X = rng.uniform(size=(n, P))
     y = (10 * np.sin(np.pi * X[:, 0] * X[:, 1]) + 20 * (X[:, 2] - .5) ** 2
          + 5 * X[:, 4] + rng.normal(size=n))
-    cfg = ops.BartConfig(num_trees=trees)
+    cfg = ops.BartConfig(num_trees=trees, **cfg_kw)
     ranks = ops.compute_ranks(X, ops.make_cut_grid(X, cfg.n_cuts))
     sp = np.full(P, 1.0 / P)
     gen = torch.Generator(device=device)
@@ -346,22 +374,25 @@ def copy_bandwidth(device, nbytes=2 ** 30, reps=5):
     return 2 * nbytes / (ms * 1e-3)
 
 
-def sweep_bytes(C, T, N, M):
+def sweep_bytes(C, T, N, M, pad=128):
     """Bytes one sweep must move: per (chain, tree) leaf_idx and tree_fit
     read and written (16 B per observation), the ranks table, the
-    residual in and out, the tree rows and the variates."""
+    residual in and out, the tree rows and the variates (``pad`` leaf
+    normals a tree)."""
     return (C * T * N * 16 + P * N * 4 + C * N * 8
-            + C * T * (M * 4 * 2 + M * 4 * 3 + 8 * 4 + 128 * 4))
+            + C * T * (M * 4 * 2 + M * 4 * 3 + 8 * 4 + pad * 4))
 
 
-def sweep_args(N, T, C, seed, device):
+def sweep_args(N, T, C, seed, device, **cfg_kw):
     """One sweep's kernel operands from a prior-drawn forest."""
     from stan4bart_torch.ops import bart as ops
 
-    cfg, state, yt, consts, gen = forest_setup(N, T, C, seed, device)
+    cfg, state, yt, consts, gen = forest_setup(N, T, C, seed, device,
+                                               **cfg_kw)
     state = state._replace(sigma_mu=torch.full((C,), 0.5 / (2 * np.sqrt(T)),
                                                device=device))
-    var = ops.draw_variates(gen, C, T, torch.float32, device)
+    var = ops.draw_variates(gen, C, T, torch.float32, device,
+                            consts.node_pad)
     args = (cfg, state.feature, state.cut, state.leaf_idx, state.tree_fit,
             (yt - state.allfit).contiguous(), torch.full((C,), 1.0,
                                                          device=device),
@@ -393,15 +424,17 @@ def check_sweep(name, outs, state, yt, C, N, T, min_same):
     return res
 
 
-def smem_note(name, N, T, K, regrow=False):
+def smem_note(name, N, T, K, regrow=False, pad=128):
     """One line on kernel ``name``'s shared memory per block at K (of its
-    instantiation with the regrow step when ``regrow``)."""
+    instantiation with the regrow step when ``regrow``, of its build for
+    ``pad`` heap slots)."""
     from stan4bart_torch.ops.bart_sweep_kernel import kernel_smem
 
-    m = kernel_smem(name, N, T, K, regrow)
+    m = kernel_smem(name, N, T, K, regrow, pad)
     where = ("in device memory" if not m["resid_on_chip"]
              else "on chip" if m["clusters"] else "slice does not fit")
-    return (f"{name}{' with the regrow' if regrow else ''} K={K}: "
+    return (f"{name}{' with the regrow' if regrow else ''}"
+            f"{f' ({pad}-slot heaps)' if pad != 128 else ''} K={K}: "
             f"{m['static']} B static + {m['dynamic']} B "
             f"dynamic shared memory per block of the {m['optin']} B opt-in "
             f"limit, {m['clusters']} clusters resident at once, residual "
@@ -653,11 +686,13 @@ def launch_counters():
 
 def reset_counts():
     """Every launch count set to 0 (and every count of launches that ran
-    the in-sweep regrow); returns the wrappers by kernel."""
+    the in-sweep regrow, and of the deep builds); returns the wrappers by
+    kernel."""
     counts = launch_counters()
     for fn in counts.values():
         fn.launches = 0
         fn.regrow_launches = 0
+        fn.deep_launches = 0
     return counts
 
 
@@ -1561,7 +1596,7 @@ def _same_chains(a, b, sl_a=slice(None), sl_b=slice(None)):
 
 
 def _sharded_rank(rank, world, device, N, C, T, reps, path_shape,
-                  regrow=False):
+                  regrow=False, deep=False):
     """Phase 10a in one rank: the sharded kernel on this rank's shard
     against the plain sharded sweep (both all-reducing over the world)
     and against the obs-tiled kernel over the whole n, at (N, C) and at
@@ -1569,7 +1604,10 @@ def _sharded_rank(rank, world, device, N, C, T, reps, path_shape,
     with the K and apply blocks the kernel picks there; rank 0 also times
     them and checks world size 1.  With ``regrow`` (phase 11b), the same
     at (N, C) with p_regrow = 1 against the plain sharded sweep, with its
-    regrow updates and all-reduces, and rank 0 times it."""
+    regrow updates and all-reduces, and rank 0 times it.  With ``deep``
+    (phase 12a), the kernel's build for 512-slot heaps at max_depth 8 at
+    (N, C) with p_regrow 0 and 1 against the plain sharded sweep, and
+    rank 0 times it."""
     import torch.distributed as dist
 
     from stan4bart_torch.ops.bart_sweep_kernel import (
@@ -1663,18 +1701,52 @@ def _sharded_rank(rank, world, device, N, C, T, reps, path_shape,
                  + regrow_bytes(C, T, cfg.max_nodes))
                 / HBM_BYTES_PER_S * 1e3)
         dist.barrier()
+    if deep:
+        dcfg, dstate, _, dargs = sweep_args(N, T, C, 8, device, **DEEP)
+        dl, _ = _local_args(dargs, rank, world)
+        don, drg = regrow_args(dl, 1.0, 108)
+        out["deep_start"] = depth_note(dstate.feature)[:2]
+        axis = DataAxis()
+        before = bart_sweep_fused_sharded.deep_launches
+        k0 = sweep_sharded_cuda(*dl, reduce=axis.sum)
+        k1 = sweep_sharded_cuda(*don, reduce=axis.sum, rg=drg)
+        out["deep_updates"] = (bart_sweep_fused_sharded.deep_launches
+                               - before)
+        out["deep_cluster"] = bart_sweep_fused_sharded.last_cluster
+        p0 = sweep_plain(*dl, reduce=axis.sum)
+        torch.cuda.synchronize()
+        out["deep_same0"], out["deep_err0"] = _same_chains(k0, p0)
+        del p0
+        p1 = sweep_plain(*don, reduce=axis.sum, rg=drg)
+        torch.cuda.synchronize()
+        out["deep_same1"], out["deep_err1"] = _same_chains(k1, p1)
+        out["deep_after"] = depth_note(p1[0])[:2]
+        del p1, k0, k1
+        dist.barrier()
+        if rank == 0:
+            out["deep_ms"], out["deep_all_ms"] = _time(
+                lambda: sweep_sharded_cuda(*dl), reps)
+            out["deep_ms_1"] = _time(
+                lambda: sweep_sharded_cuda(*don, rg=drg), reps)[0]
+            out["deep_plain_ms"] = _time(lambda: sweep_plain(*dl), 1)[0]
+            out["deep_bound_ms"] = (
+                sweep_bytes(C, T, N // world, dcfg.max_nodes, DEEP_PAD)
+                / HBM_BYTES_PER_S * 1e3)
+        dist.barrier()
     return out
 
 
 def phase_sharded_kernel(N=50_000, C=64, T=75, reps=7, label="phase 10a",
-                         path_shape=(10_000, 128), regrow=False):
+                         path_shape=(10_000, 128), regrow=False,
+                         deep=False):
     """The observation-sharded sweep kernel over 2 ranks on the card; with
-    ``regrow``, phase 11b in the same ranks."""
+    ``regrow``, phase 11b in the same ranks, with ``deep`` phase 12a's
+    sharded part."""
     from stan4bart_torch.parallel import mesh
 
     t0 = time.perf_counter()
     r0, r1 = mesh.spawn(_sharded_rank, ["cuda:0", "cuda:0"], RANK_BACKEND,
-                        args=(N, C, T, reps, path_shape, regrow),
+                        args=(N, C, T, reps, path_shape, regrow, deep),
                         timeout_s=600)
     same_p = r0["same_plain"] & r1["same_plain"]
     same_t = r0["same_tiled"] & r1["same_tiled"]
@@ -1737,10 +1809,37 @@ def phase_sharded_kernel(N=50_000, C=64, T=75, reps=7, label="phase 10a",
                 or r0["rg_reductions"] != T + r0["rg_updates"]):
             raise AssertionError("phase 11b: the sharded kernel with the "
                                  "regrow disagrees")
+    deep_err = 0.0
+    if deep:
+        deep_err = max(r[k] for r in (r0, r1)
+                       for k in ("deep_err0", "deep_err1"))
+        same0 = r0["deep_same0"] & r1["deep_same0"]
+        same1 = r0["deep_same1"] & r1["deep_same1"]
+        print(f"phase 12a: the sharded kernel's 512-slot build at max_depth "
+              f"8, n={N} over 2 ranks, chains={C}, trees={T}, stats K="
+              f"{r0['deep_cluster']}, from a forest whose deepest node is "
+              f"at depth {r0['deep_start'][0]} ({r0['deep_start'][1]} nodes "
+              f"at depth >= 7; after the p_regrow 1 sweep "
+              f"{r0['deep_after'][1]}): {int(same0.sum())}/{C} and "
+              f"{int(same1.sum())}/{C} chains identical to the plain sharded "
+              "sweep at p_regrow 0 and 1 (max |kernel - plain| "
+              f"{deep_err:.3g}); "
+              f"{r0['deep_updates']} deep tree updates per rank (rank 1 "
+              f"{r1['deep_updates']}); kernels alone median "
+              f"{r0['deep_ms']:.4f} ms "
+              f"{[round(x, 4) for x in r0['deep_all_ms']]} at p_regrow 0 "
+              f"({r0['ms']:.4f} ms at depth 6), {r0['deep_ms_1']:.4f} ms at "
+              f"1; plain sharded sweep {r0['deep_plain_ms']:.4f} ms; bound "
+              f"{r0['deep_bound_ms']:.4f} ms; {card()}", flush=True)
+        if (same0.sum() < C or same1.sum() < C
+                or r0["deep_updates"] != 2 * T
+                or r1["deep_updates"] != 2 * T):
+            raise AssertionError("phase 12a: the sharded kernel's deep "
+                                 "build disagrees")
     return dict(r0, max_abs_err=max(
         r0["err_w1"], *(r[k] for r in (r0, r1) for k in (
             "err_plain", "err_tiled", "path_err_plain", "path_err_tiled"))),
-        share=share)
+        share=share, deep_err=deep_err)
 
 
 def _digest(fit):
@@ -2084,7 +2183,8 @@ def phase_regrow_fit(device, label="phase 11c", n=10_000, chains=128,
                      iters=150, warmup=75, trees=75, p_regrow=0.25):
     """Phase 11c: the phase 3 fit (at 128 chains) with the in-sweep
     regrow, every sweep through the single-pass kernel with the move: the
-    gaussian gates and SATE."""
+    gaussian gates and SATE.  Returns the launches and its
+    ``fit_quality`` (12b's depth-6 numbers)."""
     from stan4bart_torch.ops.bart_sweep_kernel import bart_sweep_fused_batch
 
     d, fit, launches = run_fit(label, device, n, chains, "bart_sweep_batch",
@@ -2096,17 +2196,14 @@ def phase_regrow_fit(device, label="phase 11c", n=10_000, chains=128,
     if fit.prog.bart_cfg.p_regrow != p_regrow or regrown != launches:
         raise AssertionError(f"{label}: {regrown} of {launches} launches "
                              "ran the regrow")
-    cor = centered_cor(fit.fitted("indiv.bart"), d["mu_bart"])
-    check_gates(label, cor, float(fit.fitted("sigma")), "bart_sweep_batch",
-                launches, iters)
-    z = d["z"]
-    sate = float(np.mean((fit.fitted("ev") - fit.fitted("ev", sample="test"))
-                         * (2 * z - 1)))
+    q = fit_quality(d, fit)
+    check_gates(label, q["cor"], q["sigma"], "bart_sweep_batch", launches,
+                iters)
     print(f"{label}: p_regrow {p_regrow}, {regrown} launches with the move; "
-          f"SATE {sate:.4f} (truth {d['tau']}, within 1)", flush=True)
-    if abs(sate - d["tau"]) >= 1.0:
+          f"SATE {q['sate']:.4f} (truth {d['tau']}, within 1)", flush=True)
+    if abs(q["sate"] - d["tau"]) >= 1.0:
         raise AssertionError(f"{label}: SATE gate failed")
-    return launches
+    return launches, q
 
 
 def phase_profile(device, fit3=None, label="phase 11d", n=10_000,
@@ -2127,19 +2224,383 @@ def phase_profile(device, fit3=None, label="phase 11d", n=10_000,
     return p
 
 
+# phase 12's trees: max_depth 8, the deep builds' 512-slot heaps (and
+# max_depth 9, the 1024-slot ones).  12a's sweeps start from prior forests
+# drawn with power 0.5 (p_split 0.95 / sqrt(1 + d)), under which a tree of
+# 75 reaches depth 7 or 8 in most chains, and sweep under that prior
+DEEP = dict(max_depth=8, power=0.5)
+DEEP9 = dict(max_depth=9, power=0.5)
+DEEP_PAD = 512
+
+
+def depth_note(feature):
+    """(the deepest active node's depth, the active nodes at depth >= 7,
+    their share of the active nodes) of a (C, T, M) forest."""
+    from stan4bart_torch.ops.bart import INACTIVE
+
+    act = feature != INACTIVE
+    used = act.flatten(0, 1).any(0).nonzero()[:, 0]
+    deepest = int(used.max() + 1).bit_length() - 1
+    deep = int(act[..., 127:].sum())
+    return deepest, deep, deep / max(int(act.sum()), 1)
+
+
+def deep_at_shape(device, label, N, C, kernels, seed, T=75, weighted=False,
+                  times=False, reps=7, cfg_kw=DEEP):
+    """Phase 12a at N x C chains: each kernel of ``kernels`` (name ->
+    (launcher, wrapper)) in its deep build (512-slot heaps at max_depth
+    8, 1024-slot at 9: ``cfg_kw``) at the K it picks, with p_regrow 0 and 1 against the plain sweep on the same
+    variates (identical forests and leaf indices in all chains but at
+    most one, as phase 2: the plain sweep's float32 leaf sums on the card
+    are atomics in no fixed order, so a decision on a near tie may go
+    either way between runs), the kernels at equal K equal to the bit;
+    every regrow gate shut equal to p_regrow 0 to the bit; from a prior
+    forest that reaches depth 7 (its deepest node and nodes at depth >= 7
+    printed).  ``weighted``: observation weights in [0.5, 2).  With
+    ``times`` the kernels' CUDA-event times at p_regrow 0 and 1 and the
+    plain sweep's at 0.  Returns the largest error, the Ks and times."""
+    from stan4bart_torch.ops.bart import node_pad
+    from stan4bart_torch.ops.bart_sweep_kernel import sweep_plain
+
+    cfg, state, yt, args = sweep_args(N, T, C, seed, device, **cfg_kw)
+    if args[-1].node_pad != node_pad(cfg) or node_pad(cfg) <= 128:
+        raise AssertionError(f"{label}: heap {args[-1].node_pad} slots")
+    deepest, n7, share = depth_note(state.feature)
+    tag = (f"{label} max_depth {cfg.max_depth} ({args[-1].node_pad}-slot "
+           f"heaps) n={N} chains={C}" + (" weighted" if weighted else ""))
+    print(f"{tag}: the starting forest's deepest node at depth {deepest}, "
+          f"{n7} nodes at depth >= 7 ({100 * share:.2f} % of its active "
+          "nodes)", flush=True)
+    if deepest < 7:
+        raise AssertionError(f"{tag}: the starting forest stops at depth "
+                             f"{deepest}")
+    w = None
+    if weighted:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed + 200)
+        w = 0.5 + 1.5 * torch.rand(N, generator=gen, device=device)
+    on, rg = regrow_args(args, 1.0, seed + 100)
+    shut, rg_shut = regrow_args(args, 0.5, seed + 100, shut=True)
+    out, ks, err, after = {}, {}, 0.0, {}
+    for p, a, r in (("0", args, None), ("1", on, rg)):
+        outs = {}
+        for name, (launch, wrapper) in kernels.items():
+            outs[name] = launch(*a, weights=w, rg=r)
+            ks[name] = wrapper.last_cluster
+            if p == "0":
+                closed = launch(*shut, weights=w, rg=rg_shut)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y)
+                           for x, y in zip(outs[name], closed)):
+                    raise AssertionError(f"{tag}: {name} with every regrow "
+                                         "gate shut differs from p_regrow 0")
+        outs["plain"] = sweep_plain(*a, weights=w, rg=r)
+        torch.cuda.synchronize()
+        res = check_sweep(f"{tag} p_regrow {p}", outs, state, yt, C, N, T,
+                          C - 1)
+        names = list(kernels)
+        for x, y in zip(names, names[1:]):
+            if ks[x] == ks[y] and not all(
+                    torch.equal(i, j) for i, j in zip(outs[x], outs[y])):
+                raise AssertionError(f"{tag} p_regrow {p}: {x} and {y} at "
+                                     f"K={ks[x]} not equal to the bit")
+        err = max(err, *(v[1] for v in res.values()))
+        after[p] = depth_note(outs["plain"][0])
+        del outs
+    print(f"{tag}: "
+          + ", ".join(f"{k} (K={v})" for k, v in ks.items())
+          + " against the plain sweep at p_regrow 0 and 1 as above (at "
+          "equal K equal to each other to the bit), and with every gate "
+          "shut equal to p_regrow 0 to the bit; after the sweep "
+          f"the deepest node at depth {after['0'][0]} / {after['1'][0]}, "
+          f"{after['0'][1]} / {after['1'][1]} nodes at depth >= 7 (p_regrow "
+          "0 / 1)", flush=True)
+    out.update(err=err, clusters=ks, start_deep=n7, deepest=deepest)
+    if times:
+        for name, (launch, _) in kernels.items():
+            for p, a, r in (("0", args, None), ("1", on, rg)):
+                ms, all_ms = _time(lambda: launch(*a, weights=w, rg=r), reps)
+                out[f"{name}_ms_{p}"] = ms
+                out[f"{name}_all_{p}"] = all_ms
+        out["plain_ms"] = _time(lambda: sweep_plain(*args, weights=w), 3)[0]
+    return out
+
+
+def phase_deep_kernels(device, full=None, regrow=None, reps=7):
+    """Phase 12a: the one-launch kernels' builds for 512-slot heaps at
+    max_depth 8 against the plain sweep at the bench shape (timed, with
+    the bound at M = 511, beside the depth-6 times of phases 2 and 11a
+    when they ran: ``full``, ``regrow``) and at the main paths' shapes
+    (10 000 x 128; 50 000 x 32, weighted, where the obs-tiled kernel also
+    runs at K = 1 with its residual in device memory), and the builds for
+    1024-slot heaps at max_depth 9 at 10 000 x 128 and 30 000 x 32."""
+    from functools import partial
+
+    from stan4bart_torch.ops.bart_sweep_kernel import (
+        bart_sweep_fused, bart_sweep_fused_batch,
+        bart_sweep_fused_batch_tiled, kernel_smem, sweep_chain_cuda,
+        sweep_cuda, sweep_tiled_cuda)
+
+    C, N, T, M = 256, 10_000, 75, 511
+    three = {"batch": (sweep_cuda, bart_sweep_fused_batch),
+             "tiled": (sweep_tiled_cuda, bart_sweep_fused_batch_tiled),
+             "chain": (sweep_chain_cuda, bart_sweep_fused)}
+    bench = deep_at_shape(device, "phase 12a", N, C, three, 3, T,
+                          times=True, reps=reps)
+    at128 = deep_at_shape(device, "phase 12a", N, 128,
+                          {k: three[k] for k in ("batch", "chain")}, 6, T)
+    if kernel_smem("bart_sweep_tiled", 50_000, T, 1, True,
+                   DEEP_PAD)["resid_on_chip"]:
+        raise AssertionError("phase 12a: the deep obs-tiled kernel at "
+                             "50 000 rows a block keeps the residual on "
+                             "chip; its streaming kernel would go "
+                             "unchecked")
+    at50k = deep_at_shape(
+        device, "phase 12a", 50_000, 32,
+        {"tiled": three["tiled"], "chain": three["chain"],
+         "tiled streamed": (partial(sweep_tiled_cuda, cluster=1),
+                            bart_sweep_fused_batch_tiled)},
+        7, T, weighted=True)
+    # the 1024-slot build (max_depth 9): at phases 6-9's shape, and
+    # weighted at 30 000 x 32, on chip and at K = 1 streamed
+    if kernel_smem("bart_sweep_tiled", 30_000, T, 1, True,
+                   1024)["resid_on_chip"]:
+        raise AssertionError("phase 12a: the depth-9 obs-tiled kernel at "
+                             "30 000 rows a block keeps the residual on "
+                             "chip")
+    at9 = [deep_at_shape(device, "phase 12a", N, 128,
+                         {k: three[k] for k in ("batch", "chain")}, 12, T,
+                         cfg_kw=DEEP9),
+           deep_at_shape(device, "phase 12a", 30_000, 32,
+                         {"tiled": three["tiled"],
+                          "tiled streamed": (partial(sweep_tiled_cuda,
+                                                     cluster=1),
+                                             bart_sweep_fused_batch_tiled)},
+                         13, T, weighted=True, cfg_kw=DEEP9)]
+    print("phase 12a " + "; ".join(
+        smem_note(f"bart_sweep_{k}", N, T, at9[0]["clusters"][k], r, 1024)
+        for k in ("batch", "chain") for r in (False, True)), flush=True)
+    for name in ("bart_sweep_tiled", "bart_sweep_chain"):
+        print("phase 12a " + smem_note(name, 50_000, T,
+                                       at50k["clusters"][name[11:]], True,
+                                       DEEP_PAD), flush=True)
+    print("phase 12a " + smem_note("bart_sweep_tiled", 50_000, T, 1, True,
+                                   DEEP_PAD), flush=True)
+    print("phase 12a " + "; ".join(
+        smem_note(f"bart_sweep_{k}", N, T, bench["clusters"][k], r,
+                  DEEP_PAD) for k in three for r in (False, True)),
+        flush=True)
+    nbytes = sweep_bytes(C, T, N, M, DEEP_PAD)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound1_ms = (nbytes + regrow_bytes(C, T, M)) / HBM_BYTES_PER_S * 1e3
+    depth6 = {"batch": (full or {}).get("ms"),
+              "tiled": (full or {}).get("tiled_ms"),
+              "chain": (full or {}).get("chain_ms")}
+    lines = "; ".join(
+        f"{k} (K={bench['clusters'][k]}) p_regrow 0 / 1: "
+        f"{bench[k + '_ms_0']:.4f} / {bench[k + '_ms_1']:.4f} ms"
+        + ("" if depth6[k] is None else
+           f" (depth 6: {depth6[k]:.4f}"
+           + ("" if regrow is None else
+              f" / {regrow[k + '_ms_1']:.4f}") + " ms)")
+        for k in three)
+    print(f"phase 12a times at max_depth 8, n={N} chains={C} trees={T}, "
+          f"median of {reps}: {lines}; plain sweep at p_regrow 0 "
+          f"{bench['plain_ms']:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({nbytes / 1e9:.4f} GB at {HBM_BYTES_PER_S / 1e12} TB/s, "
+          f"M = {M}, {DEEP_PAD} leaf normals a tree), with the move "
+          f"{bound1_ms:.4f} ms; {card()}", flush=True)
+    return dict(bench, bound_ms=bound_ms, bound1_ms=bound1_ms,
+                max_abs_err=max(bench["err"], at128["err"], at50k["err"],
+                                *(r["err"] for r in at9)))
+
+
+def fit_quality(d, fit):
+    """The numbers phase 12b compares at depth 8 and 6: cor(indiv.bart,
+    truth), sigma, SATE, the test frame's RMSE against the truth (the
+    counterfactual means), the final forests' share of active nodes at
+    depth >= 7 and the sweep seconds."""
+    z = d["z"]
+    ev_test = fit.fitted("ev", sample="test")
+    truth = np.where(z == 1, d["mu_0"], d["mu_1"])
+    return dict(
+        cor=centered_cor(fit.fitted("indiv.bart"), d["mu_bart"]),
+        sigma=float(fit.fitted("sigma")),
+        sate=float(np.mean((fit.fitted("ev") - ev_test) * (2 * z - 1))),
+        rmse=float(np.sqrt(np.mean((ev_test - truth) ** 2))),
+        deep_share=depth_note(fit.final_states.bart.feature)[2],
+        sweep_s=fit.timings["sweep"])
+
+
+def quality_line(q):
+    return (f"cor {q['cor']:.4f}, sigma {q['sigma']:.4f}, SATE "
+            f"{q['sate']:.4f}, test-frame RMSE {q['rmse']:.4f}, nodes at "
+            f"depth >= 7 {100 * q['deep_share']:.3f} %, sweep "
+            f"{q['sweep_s']:.2f} s")
+
+
+def phase_deep_fit(device, label="phase 12b", n=10_000, chains=128,
+                   iters=150, warmup=75, trees=75):
+    """Phase 12b: the phase 3 fit (at 128 chains) with max_depth 8, every
+    sweep through the single-pass kernel's build for 512-slot heaps: the
+    gaussian gates and SATE within 0.1 of the truth.  Returns the
+    launches and its ``fit_quality``."""
+    from stan4bart_torch.ops.bart_sweep_kernel import bart_sweep_fused_batch
+
+    d, fit, launches = run_fit(label, device, n, chains, "bart_sweep_batch",
+                               iters, warmup, trees,
+                               bart_args={"n_trees": trees, "max_depth": 8})
+    deep = bart_sweep_fused_batch.deep_launches
+    finite_draws(label, fit)
+    if fit.prog.sweep_consts.node_pad != DEEP_PAD or deep != launches:
+        raise AssertionError(f"{label}: {deep} of {launches} launches ran "
+                             "the deep build")
+    q = fit_quality(d, fit)
+    check_gates(label, q["cor"], q["sigma"], "bart_sweep_batch", launches,
+                iters)
+    print(f"{label}: max_depth 8, {deep} launches of the 512-slot build "
+          f"(the plain sweep none: every sweep is a kernel launch); "
+          f"{quality_line(q)}; SATE truth {d['tau']}, within 0.1",
+          flush=True)
+    if abs(q["sate"] - d["tau"]) >= 0.1:
+        raise AssertionError(f"{label}: SATE gate failed")
+    return launches, q
+
+
+def _deep_fit_child(out_q):
+    """Phase 12b in a process of its own (``start_deep_fit``): puts
+    ("ok", (launches, fit_quality)) or ("error", traceback) on out_q."""
+    import traceback
+
+    from stan4bart_torch.utils.device import resolve_device
+
+    try:
+        out_q.put(("ok", phase_deep_fit(resolve_device("cuda"))))
+    except BaseException:
+        out_q.put(("error", traceback.format_exc()))
+
+
+def start_deep_fit():
+    """Phase 12b started in a child process, so that its host-bound fit
+    runs beside phase 11c's (the same fit at depth 6, its comparator:
+    both run under the same load); ``join_deep_fit`` collects it."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    out_q = ctx.Queue()
+    proc = ctx.Process(target=_deep_fit_child, args=(out_q,), daemon=True)
+    proc.start()
+    return proc, out_q
+
+
+def join_deep_fit(child, timeout_s=900):
+    """Phase 12b's (launches, fit_quality); raises with the child's
+    traceback when it failed.  The child is stopped either way."""
+    import queue
+
+    proc, out_q = child
+    try:
+        status, value = out_q.get(timeout=timeout_s)
+    except queue.Empty:
+        raise TimeoutError(f"phase 12b did not finish in {timeout_s} s")
+    finally:
+        proc.join(30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(5)
+    if status != "ok":
+        raise RuntimeError(f"phase 12b failed:\n{value}")
+    return value
+
+
+def deep_entries(deep, sharded, launches, paths):
+    """The kernels line's entries of the builds for 512-slot heaps
+    (phase 12a's numbers at max_depth 8; launches of the deep builds on
+    the main paths: phase 12b's fit)."""
+    bench = sweep_bytes(256, 75, 10_000, 511, DEEP_PAD)
+    out = []
+    for k, src, line in (("batch", "bart_sweep_batch", 859),
+                         ("tiled", "bart_sweep_tiled", 1495),
+                         ("chain", "bart_sweep_chain", 596)):
+        out.append({
+            "name": f"{src}_deep",
+            "route": "cuda",
+            "source": f"stan4bart_torch/csrc/{src}.cu",
+            # the 512-slot build of the port of this TPU kernel; the JAX
+            # package sweeps such trees with XLA (ops/bart.py:717)
+            "replaces": f"stan4bart_tpu/ops/bart_sweep_kernel.py:{line}",
+            "launches": launches.get(f"{src}_deep", 0),
+            "launches_by_path": paths.get(f"{src}_deep", {}),
+            "max_abs_err": deep["max_abs_err"],
+            "ms": deep[f"{k}_ms_0"],
+            "kernel_ms": deep[f"{k}_ms_0"],
+            "ms_p_regrow_1": deep[f"{k}_ms_1"],
+            "plain_ms": deep["plain_ms"],
+            "bound_ms": deep["bound_ms"],
+            "bound_ms_p_regrow_1": deep["bound1_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "cluster": deep["clusters"][k],
+            "bound_bytes": bench,
+        })
+    out.append({
+        "name": "bart_sweep_sharded_deep",
+        "route": "cuda",
+        "source": "stan4bart_torch/csrc/bart_sweep_sharded.cu",
+        "replaces": "stan4bart_tpu/ops/bart.py:717",
+        "launches": launches.get("bart_sweep_sharded_deep", 0),
+        "launches_by_path": paths.get("bart_sweep_sharded_deep", {}),
+        "max_abs_err": sharded["deep_err"],
+        "ms": sharded["deep_ms"],
+        "kernel_ms": sharded["deep_ms"],
+        "ms_p_regrow_1": sharded["deep_ms_1"],
+        "plain_ms": sharded["deep_plain_ms"],
+        "bound_ms": sharded["deep_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "cluster": sharded["deep_cluster"],
+    })
+    return out
+
+
+class Beside:
+    """``fn()`` in a thread of this process, for a phase whose work runs
+    in processes of its own, so that this process can run another phase
+    meanwhile; ``join`` returns its result or raises its exception."""
+
+    def __init__(self, fn):
+        self.out = {}
+        self.thread = threading.Thread(target=self._run, args=(fn,),
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self, fn):
+        try:
+            self.out["value"] = fn()
+        except BaseException as e:     # re-raised by join
+            self.out["error"] = e
+
+    def join(self):
+        self.thread.join()
+        if "error" in self.out:
+            raise self.out["error"]
+        return self.out["value"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default all); "
-                    "1, 2, 4, 10a, 11a and 11b are the kernel phases, "
-                    "which the kernels line needs; 10a, 10b, 10c and 11a "
-                    "to 11d run one part of phase 10 or 11")
+                    "1, 2, 4, 10a, 11a, 11b and 12a are the kernel "
+                    "phases, which the kernels line needs; 10a, 10b, 10c, "
+                    "11a to 11d, 12a and 12b run one part of phase 10, 11 "
+                    "or 12")
     args = ap.parse_args()
     run = set(args.phases.split(","))
     if "10" in run:
         run |= {"10a", "10b", "10c"}
     if "11" in run:
         run |= {"11a", "11b", "11c", "11d"}
+    if "12" in run:
+        run |= {"12a", "12b"}
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2203,26 +2664,16 @@ def main():
     if "6" in run:
         paths["bart_sweep_chain"]["phase 6"] = phase_chain(device)
         lap("phase 6")
-        paths["bart_sweep_chain"]["phase 6 options"] = phase_options(device)
-        paths["bart_sweep_batch"]["phase 6 offset types"] = \
-            phase_offset_types(device)
-        lap("phase 6 options")
     if "7" in run:
         paths["bart_sweep_batch"]["phase 7"], ev7 = phase_probit(device)
         lap("phase 7")
     if "8" in run:
         paths["bart_sweep_batch"]["phase 8"] = phase_all_options(device, t3)
         lap("phase 8")
-        for k, v in phase_option_fits(device).items():
-            paths[k]["phase 8 options"] = v
-        lap("phase 8 options")
     if "9" in run:
         paths["bart_sweep_batch"]["phase 9"] = phase_algorithms(
             device, t3, fit3, ev7)
         lap("phase 9")
-        for k, v in phase_algorithm_options(device).items():
-            paths[k]["phase 9 options"] = v
-        lap("phase 9 options")
     p11 = None     # phase 3's fit, profiled by 11d
     if "11d" in run and fit3 is not None:
         p11 = fit3
@@ -2231,12 +2682,28 @@ def main():
     # in 10a's
     torch.cuda.empty_cache()
     sharded = None
-    if "10a" in run or "11b" in run:
-        sharded = phase_sharded_kernel(regrow="11b" in run)
-        lap("phase 10a" + (" and 11b" if "11b" in run else ""))
-    if "10b" in run:
-        paths["bart_sweep_sharded"]["phase 10b"] = phase_composed()
-        lap("phase 10b")
+    if {"10a", "11b", "12a"} & run:
+        sharded = phase_sharded_kernel(regrow="11b" in run,
+                                       deep="12a" in run)
+        lap("phase 10a" + (" and 11b" if "11b" in run else "")
+            + (" and 12a sharded" if "12a" in run else ""))
+    # 10b's ranks are processes of their own, waited on by a thread; the
+    # short option fits of phases 6, 8 and 9 run beside them in this
+    # process, each with its own launch counts (the ranks count theirs)
+    composed = Beside(phase_composed) if "10b" in run else None
+    if "6" in run:
+        paths["bart_sweep_chain"]["phase 6 options"] = phase_options(device)
+        paths["bart_sweep_batch"]["phase 6 offset types"] = \
+            phase_offset_types(device)
+    if "8" in run:
+        for k, v in phase_option_fits(device).items():
+            paths[k]["phase 8 options"] = v
+    if "9" in run:
+        for k, v in phase_algorithm_options(device).items():
+            paths[k]["phase 9 options"] = v
+    if composed is not None:
+        paths["bart_sweep_sharded"]["phase 10b"] = composed.join()
+    lap("phase 10b and the option fits of 6, 8 and 9 beside it")
     if "10c" in run:
         for k, v in phase_contracts(device).items():
             paths[k]["phase 10c"] = v
@@ -2245,23 +2712,40 @@ def main():
     if "11a" in run:
         regrow = phase_regrow_kernels(device)
         lap("phase 11a")
+    # 12b's fit runs in a child process beside 11c's, its comparator
+    deep_child = start_deep_fit() if "12b" in run else None
+    q6 = None     # 11c's fit_quality, printed beside 12b's
     if "11c" in run:
-        n11 = phase_regrow_fit(device)
+        n11, q6 = phase_regrow_fit(device)
         paths["bart_sweep_batch"]["phase 11c"] = n11
         paths["bart_sweep_regrow"] = {"phase 11c": n11}
-        lap("phase 11c")
+        lap("phase 11c" + (" and 12b beside it" if deep_child else ""))
+    if deep_child is not None:
+        n12, q8 = join_deep_fit(deep_child)
+        # launches of the deep build, counted in its own entry
+        paths["bart_sweep_batch_deep"] = {"phase 12b": n12}
+        print("phase 12b, depth 8 against depth 6: " + quality_line(q8)
+              + ("" if q6 is None else
+                 "; depth 6 (phase 11c, the same fit with p_regrow 0.25, "
+                 f"run beside it): {quality_line(q6)}") + f"; {card()}",
+              flush=True)
+        lap("phase 12b (joined)")
     if "11d" in run:
         phase_profile(device, p11)
         del p11
         lap("phase 11d")
+    deep = None
+    if "12a" in run:
+        deep = phase_deep_kernels(device, full if "2" in run else None,
+                                  regrow)
+        lap("phase 12a")
     print("wall seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; {sum(walls.values()):.1f} in all", flush=True)
-    launches = {k: (sum(v.values()) if run - {"1", "2", "4", "10a", "11a",
-                                              "11b"}
-                    else None)
+    kernel_phases = {"1", "2", "4", "10a", "11a", "11b", "12a"}
+    launches = {k: (sum(v.values()) if run - kernel_phases else None)
                 for k, v in paths.items()}
-    if not {"1", "2", "4", "11a", "11b"} <= run or sharded is None:
+    if not kernel_phases - {"10a"} <= run or sharded is None:
         print(card(), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2395,7 +2879,7 @@ def main():
         "sharded_plain_ms": sharded["rg_plain_ms"],
         "sharded_bound_ms": sharded["rg_bound_ms"],
         "sharded_regrow_updates": sharded["rg_updates"],
-    }]}), flush=True)
+    }] + deep_entries(deep, sharded, launches, paths)}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

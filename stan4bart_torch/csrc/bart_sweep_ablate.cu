@@ -20,7 +20,8 @@
 //
 // full - obs is then the node math (move choice, decision, leaf draw),
 // obs - copy the per-observation work and copy the streaming floor.  What
-// bounds them: bytes, as the sweep (16 B per observation and tree).
+// bounds them: bytes, as the sweep (16 B per observation and tree).  They
+// are built for 128-slot heaps (max_depth <= 6) only: no fit runs them.
 
 #include "sweep_cluster.cuh"
 
@@ -32,7 +33,7 @@ template <Body kBody>
 __global__ void __launch_bounds__(kThreads)
 bart_sweep_ablate_kernel(SweepArgs a, int K) {
   extern __shared__ float4 smem4[];
-  __shared__ TreeShared s;
+  __shared__ TreeShared<kPadShallow> s;
   sweep_on_chip<kBody>(a, s, reinterpret_cast<unsigned char*>(smem4), K);
 }
 
@@ -72,7 +73,7 @@ extern "C" int bart_sweep_ablate_launch(
   a.M = M;
   a.lv_in = lv_in;
   a.stats_out = stats_out;
-  const size_t dyn = on_chip_bytes(N, T, K);
+  const size_t dyn = on_chip_bytes<kPadShallow>(N, T, K);
   if (mode == 0)
     return launch_clusters(bart_sweep_ablate_kernel<Body::kCopy>, a, C, K,
                            dyn, stream);

@@ -32,7 +32,11 @@
 // operands that spans trees, and the exact leaf histograms.  No streaming
 // pass is needed: the per-chain limit, npad 51 840, fits a block's shared
 // memory at K >= 2 (on_chip_bytes(51 840, 75, 2) is about 171 KB), and
-// the launcher refuses a K whose slice does not fit.
+// the launcher refuses a K whose slice does not fit.  The builds for
+// 512-slot (max_depth 7 and 8) and 1024-slot heaps (max_depth 9) hold
+// fewer observations a block (23 520 and 14 592 with 75 trees), so their
+// ceilings are what a cluster of 8 blocks holds (npad 188 160 and
+// 116 736; ops/bart_sweep_kernel.py:on_chip_ceilings).
 
 #include "sweep_cluster.cuh"
 
@@ -40,36 +44,68 @@ namespace {
 
 using namespace s4b;
 
-template <bool kRegrow>
+template <int kPad, bool kRegrow>
 __global__ void __launch_bounds__(kThreads)
 bart_sweep_chain_kernel(SweepArgs a, int K) {
   extern __shared__ float4 smem4[];
-  on_chip_kernel<kRegrow>(a, K, reinterpret_cast<unsigned char*>(smem4));
+  on_chip_kernel<kRegrow, kPad>(a, K,
+                                reinterpret_cast<unsigned char*>(smem4));
+}
+
+template <int kPad>
+int info(int N, int T, int K, int regrow, long long* static_b,
+         long long* dynamic_b, int* optin, int* clusters) {
+  const size_t dyn =
+      on_chip_bytes<kPad>(N, T, K) + state_bytes<kPad>(regrow);
+  *dynamic_b = (long long)dyn;
+  return regrow ? cluster_info(bart_sweep_chain_kernel<kPad, true>, K, dyn,
+                               static_b, optin, clusters)
+                : cluster_info(bart_sweep_chain_kernel<kPad, false>, K, dyn,
+                               static_b, optin, clusters);
+}
+
+template <int kPad>
+int launch(const SweepArgs& a, int C, int K, void* stream) {
+  const size_t dyn =
+      on_chip_bytes<kPad>(a.N, a.T, K) + state_bytes<kPad>(with_regrow(a));
+  return with_regrow(a)
+      ? launch_clusters(bart_sweep_chain_kernel<kPad, true>, a, C, K, dyn,
+                        stream)
+      : launch_clusters(bart_sweep_chain_kernel<kPad, false>, a, C, K, dyn,
+                        stream);
 }
 
 }  // namespace
 
 // Writes the kernel's static and dynamic shared memory per block at N, T
-// and K (with the regrow step when ``regrow``), the device's opt-in limit
-// per block and the number of clusters of K blocks that can be resident
-// at once (0 where a block's slice does not
-// fit); returns the CUDA error code.
-extern "C" int bart_sweep_chain_info(int N, int T, int K, int regrow,
-                                     long long* static_b,
+// and K (the build for heaps of ``pad`` slots, 128, 512 or 1024; with
+// the regrow step when ``regrow``), the device's opt-in limit per block and
+// the number of clusters of K blocks that can be resident at once (0
+// where a block's slice does not fit); returns the CUDA error code.
+extern "C" int bart_sweep_chain_info(int N, int T, int K, int pad,
+                                     int regrow, long long* static_b,
                                      long long* dynamic_b, int* optin,
                                      int* clusters) {
-  const size_t dyn = on_chip_bytes(N, T, K);
-  *dynamic_b = (long long)dyn;
-  return regrow ? cluster_info(bart_sweep_chain_kernel<true>, K, dyn,
-                               static_b, optin, clusters)
-                : cluster_info(bart_sweep_chain_kernel<false>, K, dyn,
-                               static_b, optin, clusters);
+  switch (pad) {
+    case kPadShallow:
+      return info<kPadShallow>(N, T, K, regrow, static_b, dynamic_b, optin,
+                               clusters);
+    case kPadDeep:
+      return info<kPadDeep>(N, T, K, regrow, static_b, dynamic_b, optin,
+                            clusters);
+    case kPadDeepest:
+      return info<kPadDeepest>(N, T, K, regrow, static_b, dynamic_b, optin,
+                               clusters);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// Launches one sweep over C chains in clusters of K blocks on ``stream``;
-// returns the CUDA error code of the launch (0 on success), and an error
-// code without launching for a K outside 1..8 or one with no resident
-// cluster (a slice that does not fit in shared memory).
+// Launches one sweep over C chains in clusters of K blocks on ``stream``,
+// the build for heaps of ``pad`` slots (128, 512 or 1024, at least M + 1;
+// zn rows of pad normals); returns the CUDA error code of the launch (0 on
+// success), and an error code without launching for a K outside 1..8 or
+// one with no resident cluster (a slice that does not fit in shared
+// memory).
 extern "C" int bart_sweep_chain_launch(
     const int32_t* feature_in, const int32_t* cut_in, const int32_t* lidx_in,
     const float* tfit_in, const float* resid0, const float* sigma2,
@@ -79,15 +115,18 @@ extern "C" int bart_sweep_chain_launch(
     float* lv_out, int32_t* lidx_out, float* tfit_out, float* resid_out,
     int C, int T, int N, int P, int M, int max_depth, int n_cuts,
     float p_grow, float p_prune, float trans_grow0, float trans_prune0,
-    float p_regrow, const float* rg, int K, void* stream) {
+    float p_regrow, const float* rg, int pad, int K, void* stream) {
   SweepArgs a{feature_in, cut_in, lidx_in, tfit_in, resid0, sigma2, tau2,
               u, zn, ranks_t, spcum, psplit, weights, feature_out, cut_out,
               lv_out, lidx_out, tfit_out, resid_out, T, N, P, M, max_depth,
               n_cuts, p_grow, p_prune, trans_grow0, trans_prune0};
   a.p_regrow = p_regrow;
   a.rg = rg;
-  const size_t dyn = on_chip_bytes(N, T, K);
-  return with_regrow(a)
-      ? launch_clusters(bart_sweep_chain_kernel<true>, a, C, K, dyn, stream)
-      : launch_clusters(bart_sweep_chain_kernel<false>, a, C, K, dyn, stream);
+  if (M + 1 > pad) return (int)cudaErrorInvalidValue;
+  switch (pad) {
+    case kPadShallow: return launch<kPadShallow>(a, C, K, stream);
+    case kPadDeep: return launch<kPadDeep>(a, C, K, stream);
+    case kPadDeepest: return launch<kPadDeepest>(a, C, K, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -61,6 +61,12 @@
 // flips a decision.  Weight-0 pad rows (parallel/mesh.py) take the
 // weighted path and add nothing to any sum.
 //
+// Every kernel is built for heaps of 128 slots (max_depth <= 6), 512
+// (max_depth 7 and 8) and 1024 (max_depth 9); at 512 the blocks are (C,
+// 2, 513) and (C, 2, 512), and the static shared memory 22 976 B (stats)
+// and 35 520 B (the regrow launches); at 1024 the per-tree state is
+// dynamic shared memory (45 552 B, 70 656 B with the regrow step).
+//
 // What bounds it: bytes.  Per observation and tree pass A moves 20 B
 // (residual in and out, the previous leaf index, the old fit in and the
 // previous fit out), pass B 12 B (leaf index, residual, cut rank) and the
@@ -80,9 +86,12 @@ using namespace s4b;
 // The right pair is summed (into rn), not taken as the move's total less
 // the left pair: with weights that difference can leave a rounding
 // residue where no observation goes right.
+template <int kPad>
 __global__ void __launch_bounds__(kThreads)
 sharded_stats_kernel(SweepArgs a, int K, int t, float* blk, int* scl) {
-  __shared__ TreeShared s;
+  extern __shared__ float4 smem4[];
+  TreeShared<kPad>& s =
+      tree_state<kPad>(reinterpret_cast<unsigned char*>(smem4));
   // the proposed-right pair's fixed-point sums
   __shared__ unsigned long long rn[2];
 
@@ -105,7 +114,7 @@ sharded_stats_kernel(SweepArgs a, int K, int t, float* blk, int* scl) {
       s.lv[m] = a.lv_out[(ct - 1) * M + m];
   Move mv{};
   if (!flush) {
-    mv = begin_tree(a, s, global_rows(a, ct));   // ends on a barrier
+    mv = begin_tree(a, s, global_rows<kPad>(a, ct));   // ends on a barrier
   } else {
     __syncthreads();
   }
@@ -223,15 +232,18 @@ sharded_stats_kernel(SweepArgs a, int K, int t, float* blk, int* scl) {
 // post-move partition's sums and rows into post (C, 4, M): weight sums,
 // weighted residual sums, feature, cut), and the new leaf indices of the
 // block's observations.
+template <int kPad>
 __global__ void __launch_bounds__(kThreads)
 sharded_apply_kernel(SweepArgs a, int nb, int t, const float* blk,
                      float* post) {
-  __shared__ TreeShared s;
+  extern __shared__ float4 smem4[];
+  TreeShared<kPad>& s =
+      tree_state<kPad>(reinterpret_cast<unsigned char*>(smem4));
 
   const int N = a.N, T = a.T, M = a.M;
   const int c = blockIdx.x / nb, b = blockIdx.x - c * nb;
   const size_t ct = (size_t)c * T + t;
-  const TreeRows rows = global_rows(a, ct);
+  const TreeRows rows = global_rows<kPad>(a, ct);
   const Move mv = begin_tree(a, s, rows);
   const float* cnt = blk + (size_t)c * 2 * (M + 2);
   const float* sm = cnt + (M + 2);
@@ -300,10 +312,11 @@ sharded_apply_kernel(SweepArgs a, int nb, int t, const float* blk,
 
 // The post-move rows of chain c's tree from post (C, 4, M) into s.feat
 // and s.cut.  Called by every thread; ends on a block barrier.
-__device__ inline void load_post_tree(TreeShared& s, const float* post,
+template <int kPad>
+__device__ inline void load_post_tree(TreeShared<kPad>& s, const float* post,
                                       int c, int M) {
   const float* p = post + (size_t)c * 4 * M;
-  for (int m = threadIdx.x; m < kNodePad; m += kThreads) {
+  for (int m = threadIdx.x; m < kPad; m += kThreads) {
     s.feat[m] = m < M ? (int)p[2 * M + m] : kInactive;
     s.cut[m] = m < M ? (int)p[3 * M + m] : 0;
   }
@@ -317,11 +330,14 @@ __device__ inline void load_post_tree(TreeShared& s, const float* post,
 // M + 1): row 0 the weight sums, row 1 the weighted residual sums, 0
 // outside eta's subtree and in slot M; a chain whose gate stays shut
 // writes zeros.
+template <int kPad>
 __global__ void __launch_bounds__(kThreads)
 sharded_regrow_stats_kernel(SweepArgs a, int K, int t, float* rblk,
                             const int* scl, const float* post) {
-  __shared__ TreeShared s;
-  __shared__ RegrowShared r;
+  extern __shared__ float4 smem4[];
+  unsigned char* dyn = reinterpret_cast<unsigned char*>(smem4);
+  TreeShared<kPad>& s = tree_state<kPad>(dyn);
+  RegrowShared<kPad>& r = regrow_state<kPad>(dyn);
 
   const int N = a.N, T = a.T, M = a.M;
   const int tid = threadIdx.x;
@@ -369,11 +385,14 @@ sharded_regrow_stats_kernel(SweepArgs a, int K, int t, float* rblk,
 // (the leaves of eta's subtree drawn from the proposal's sums, the others
 // from the post-move ones, with the tree's normals) and every block
 // rewrites the leaf indices of its observations under eta.
+template <int kPad>
 __global__ void __launch_bounds__(kThreads)
 sharded_regrow_apply_kernel(SweepArgs a, int nb, int t, const float* rblk,
                             const float* post) {
-  __shared__ TreeShared s;
-  __shared__ RegrowShared r;
+  extern __shared__ float4 smem4[];
+  unsigned char* dyn = reinterpret_cast<unsigned char*>(smem4);
+  TreeShared<kPad>& s = tree_state<kPad>(dyn);
+  RegrowShared<kPad>& r = regrow_state<kPad>(dyn);
 
   const int N = a.N, T = a.T, M = a.M;
   const int c = blockIdx.x / nb, b = blockIdx.x - c * nb;
@@ -409,7 +428,7 @@ sharded_regrow_apply_kernel(SweepArgs a, int nb, int t, const float* rblk,
       li_out[i] = regrow_leaf(a, r, eta, start + i);
   if (b != 0) return;
   regrow_accept(s, r);
-  const float* zn = a.zn + ct * kNodePad;
+  const float* zn = a.zn + ct * kPad;
   for (int m = threadIdx.x; m < M; m += kThreads) {
     const bool sub = bit(r.sub_bits, m);
     const float n_m = sub ? nc[m] : oc[m], s_m = sub ? ns[m] : os[m];
@@ -452,7 +471,7 @@ SweepArgs make_args(
     int32_t *cut_out, float *lv_out, int32_t *lidx_out, float *tfit_out,    \
     float *resid_out, int C, int T, int N, int P, int M, int max_depth,     \
     int n_cuts, float p_grow, float p_prune, float trans_grow0,             \
-    float trans_prune0, float p_regrow, const float *rg
+    float trans_prune0, float p_regrow, const float *rg, int pad
 #define SHARDED_ARGS                                                        \
   make_args(feature_in, cut_in, lidx_in, tfit_in, resid0, sigma2, tau2, u,  \
             zn, ranks_t, spcum, psplit, weights, feature_out, cut_out,      \
@@ -460,20 +479,80 @@ SweepArgs make_args(
             n_cuts, p_grow, p_prune, trans_grow0, trans_prune0, p_regrow,   \
             rg)
 
+// The launches of each build (heaps of kPad slots, the per-tree state's
+// dynamic shared memory state_bytes, 0 up to 512 slots).
+template <int kPad>
+int info(int K, long long* static_b, int* optin, int* clusters) {
+  return cluster_info(sharded_stats_kernel<kPad>, K, state_bytes<kPad>(false),
+                      static_b, optin, clusters);
+}
+
+template <int kPad>
+int stats(const SweepArgs& a, int C, int K, int t, float* blk, int* scl,
+          void* stream) {
+  return launch_clusters(sharded_stats_kernel<kPad>, a, C, K,
+                         state_bytes<kPad>(false), stream, t, blk, scl);
+}
+
+template <int kPad>
+int apply(const SweepArgs& a, int C, int nb, int t, const float* blk,
+          float* post, void* stream) {
+  const size_t dyn = state_bytes<kPad>(false);
+  sharded_apply_kernel<kPad>
+      <<<C * nb, kThreads, dyn, (cudaStream_t)stream>>>(a, nb, t, blk, post);
+  return (int)cudaGetLastError();
+}
+
+template <int kPad>
+int regrow_stats(const SweepArgs& a, int C, int K, int t, float* rblk,
+                 const int* scl, const float* post, void* stream) {
+  return launch_clusters(sharded_regrow_stats_kernel<kPad>, a, C, K,
+                         state_bytes<kPad>(true), stream, t, rblk, scl, post);
+}
+
+template <int kPad>
+int regrow_apply(const SweepArgs& a, int C, int nb, int t, const float* rblk,
+                 const float* post, void* stream) {
+  const size_t dyn = state_bytes<kPad>(true);
+  cudaError_t err = cudaFuncSetAttribute(
+      sharded_regrow_apply_kernel<kPad>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return refused(err);
+  sharded_regrow_apply_kernel<kPad>
+      <<<C * nb, kThreads, dyn, (cudaStream_t)stream>>>(a, nb, t, rblk, post);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// The stats kernel's shared memory per block (static; no dynamic), the
-// device's opt-in limit per block and the number of clusters of K blocks
-// that can be resident at once; returns the CUDA error code.
-extern "C" int bart_sweep_sharded_info(int N, int T, int K,
+// The stats kernel's shared memory per block (static, and dynamic for the
+// per-tree state above 512 slots) in the build for heaps of ``pad`` slots
+// (128, 512 or 1024), the device's opt-in limit per block and the number
+// of clusters of K blocks that can be resident at once; returns the CUDA
+// error code.
+extern "C" int bart_sweep_sharded_info(int N, int T, int K, int pad,
                                        long long* static_b,
                                        long long* dynamic_b, int* optin,
                                        int* clusters) {
   (void)N;
   (void)T;
-  *dynamic_b = 0;
-  return cluster_info(sharded_stats_kernel, K, 0, static_b, optin, clusters);
+  switch (pad) {
+    case kPadShallow:
+      *dynamic_b = (long long)state_bytes<kPadShallow>(false);
+      return info<kPadShallow>(K, static_b, optin, clusters);
+    case kPadDeep:
+      *dynamic_b = (long long)state_bytes<kPadDeep>(false);
+      return info<kPadDeep>(K, static_b, optin, clusters);
+    case kPadDeepest:
+      *dynamic_b = (long long)state_bytes<kPadDeepest>(false);
+      return info<kPadDeepest>(K, static_b, optin, clusters);
+  }
+  return (int)cudaErrorInvalidValue;
 }
+
+// Every launcher takes the build for heaps of ``pad`` slots (128, 512 or
+// 1024, at least M + 1: the stats launch's histograms keep the
+// proposed-left pair in slot M; zn rows of pad normals).
 
 // Launches the stats pass of tree t (t == T: the flush) over C chains in
 // clusters of K blocks on ``stream``, writing blk (C, 2, M + 2) and, when
@@ -482,9 +561,13 @@ extern "C" int bart_sweep_sharded_info(int N, int T, int K,
 extern "C" int bart_sweep_sharded_stats(SHARDED_HEAD, int t, float* blk,
                                         int* scl, int K, void* stream) {
   const SweepArgs a = SHARDED_ARGS;
-  if (t < 0 || t > T) return (int)cudaErrorInvalidValue;
-  return launch_clusters(sharded_stats_kernel, a, C, K, 0, stream, t, blk,
-                         scl);
+  if (t < 0 || t > T || M + 1 > pad) return (int)cudaErrorInvalidValue;
+  switch (pad) {
+    case kPadShallow: return stats<kPadShallow>(a, C, K, t, blk, scl, stream);
+    case kPadDeep: return stats<kPadDeep>(a, C, K, t, blk, scl, stream);
+    case kPadDeepest: return stats<kPadDeepest>(a, C, K, t, blk, scl, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launches the apply pass of tree t over C chains, nb blocks each, on
@@ -494,10 +577,17 @@ extern "C" int bart_sweep_sharded_stats(SHARDED_HEAD, int t, float* blk,
 extern "C" int bart_sweep_sharded_apply(SHARDED_HEAD, int t, const float* blk,
                                         float* post, int nb, void* stream) {
   const SweepArgs a = SHARDED_ARGS;
-  if (t < 0 || t >= T || nb < 1) return (int)cudaErrorInvalidValue;
-  sharded_apply_kernel<<<C * nb, kThreads, 0, (cudaStream_t)stream>>>(
-      a, nb, t, blk, post);
-  return (int)cudaGetLastError();
+  if (t < 0 || t >= T || nb < 1 || M + 1 > pad)
+    return (int)cudaErrorInvalidValue;
+  switch (pad) {
+    case kPadShallow:
+      return apply<kPadShallow>(a, C, nb, t, blk, post, stream);
+    case kPadDeep:
+      return apply<kPadDeep>(a, C, nb, t, blk, post, stream);
+    case kPadDeepest:
+      return apply<kPadDeepest>(a, C, nb, t, blk, post, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launches the regrow stats pass of tree t over C chains in clusters of K
@@ -508,9 +598,17 @@ extern "C" int bart_sweep_sharded_regrow_stats(SHARDED_HEAD, int t,
                                                const float* post, int K,
                                                void* stream) {
   const SweepArgs a = SHARDED_ARGS;
-  if (t < 0 || t >= T || rg == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_clusters(sharded_regrow_stats_kernel, a, C, K, 0, stream, t,
-                         rblk, scl, post);
+  if (t < 0 || t >= T || rg == nullptr || M + 1 > pad)
+    return (int)cudaErrorInvalidValue;
+  switch (pad) {
+    case kPadShallow:
+      return regrow_stats<kPadShallow>(a, C, K, t, rblk, scl, post, stream);
+    case kPadDeep:
+      return regrow_stats<kPadDeep>(a, C, K, t, rblk, scl, post, stream);
+    case kPadDeepest:
+      return regrow_stats<kPadDeepest>(a, C, K, t, rblk, scl, post, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launches the regrow apply pass of tree t over C chains, nb blocks each,
@@ -521,9 +619,15 @@ extern "C" int bart_sweep_sharded_regrow_apply(SHARDED_HEAD, int t,
                                                const float* post, int nb,
                                                void* stream) {
   const SweepArgs a = SHARDED_ARGS;
-  if (t < 0 || t >= T || nb < 1 || rg == nullptr)
+  if (t < 0 || t >= T || nb < 1 || rg == nullptr || M + 1 > pad)
     return (int)cudaErrorInvalidValue;
-  sharded_regrow_apply_kernel<<<C * nb, kThreads, 0, (cudaStream_t)stream>>>(
-      a, nb, t, rblk, post);
-  return (int)cudaGetLastError();
+  switch (pad) {
+    case kPadShallow:
+      return regrow_apply<kPadShallow>(a, C, nb, t, rblk, post, stream);
+    case kPadDeep:
+      return regrow_apply<kPadDeep>(a, C, nb, t, rblk, post, stream);
+    case kPadDeepest:
+      return regrow_apply<kPadDeepest>(a, C, nb, t, rblk, post, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -40,6 +40,14 @@
 //   observation and tree, and the residual and the cut ranks of the
 //   observations under eta.
 //
+// Both are built for heaps of 128 slots (max_depth <= 6), 512 (max_depth
+// 7 and 8) and 1024 (max_depth 9).  The deep builds' on-chip kernel keeps
+// a two-byte leaf index copy and a 4x or 8x larger per-tree state, so its
+// slice fits to about 23 500 (512) or 14 600 (1024) observations a block
+// (38 000 at 128); the streaming kernel holds TreeShared and
+// RegrowShared in 35 520 B of static shared memory at 512 and in 70 656 B
+// of dynamic shared memory at 1024.
+//
 // Both take every sum in the order of sweep_common.cuh over the same
 // observation ranges and per-thread order (tid + j * kThreads within a
 // block's range), so the two kernels, and bart_sweep_batch.cu at the same
@@ -57,11 +65,12 @@ using namespace s4b;
 constexpr int kStreamPer = 8;                    // per thread per tile
 constexpr int kStreamTile = kThreads * kStreamPer;
 
-template <bool kRegrow>
+template <int kPad, bool kRegrow>
 __global__ void __launch_bounds__(kThreads)
 bart_sweep_tiled_on_chip_kernel(SweepArgs a, int K) {
   extern __shared__ float4 smem4[];
-  on_chip_kernel<kRegrow>(a, K, reinterpret_cast<unsigned char*>(smem4));
+  on_chip_kernel<kRegrow, kPad>(a, K,
+                                reinterpret_cast<unsigned char*>(smem4));
 }
 
 // The regrow step of tree ct of a block of the streaming kernel, whose
@@ -73,8 +82,11 @@ bart_sweep_tiled_on_chip_kernel(SweepArgs a, int K) {
 // decision and, if accepted, the rows and those leaf indices rewritten.
 // Called by every thread after a block barrier; ends on one.  Not
 // inlined, as regrow_on_chip.
-__device__ __noinline__ Regrow regrow_streamed(RegrowArgs ra, TreeShared& s,
-                                               RegrowShared& r, size_t ct,
+template <int kPad>
+__device__ __noinline__ Regrow regrow_streamed(RegrowArgs ra,
+                                               TreeShared<kPad>& s,
+                                               RegrowShared<kPad>& r,
+                                               size_t ct,
                                                int start, int n,
                                                int32_t* li_out,
                                                const float* R,
@@ -97,16 +109,16 @@ __device__ __noinline__ Regrow regrow_streamed(RegrowArgs ra, TreeShared& s,
   return Regrow::kAccepted;
 }
 
-template <bool kRegrow>
+template <int kPad, bool kRegrow>
 __global__ void __launch_bounds__(kThreads)
 bart_sweep_tiled_stream_kernel(SweepArgs a, int K) {
-  __shared__ TreeShared s;
-  // the regrow step's state, in the kernel that runs it
-  RegrowShared* rs = nullptr;
-  if constexpr (kRegrow) {
-    __shared__ RegrowShared r;
-    rs = &r;
-  }
+  // the per-tree state (dynamic shared memory above 512 heap slots) and
+  // the regrow step's, in the kernel that runs it
+  extern __shared__ float4 smem4[];
+  unsigned char* dyn = reinterpret_cast<unsigned char*>(smem4);
+  TreeShared<kPad>& s = tree_state<kPad>(dyn);
+  RegrowShared<kPad>* rs = nullptr;
+  if constexpr (kRegrow) rs = &regrow_state<kPad>(dyn);
 
   const int N = a.N, T = a.T;
   const int rank = block_rank(K);
@@ -122,7 +134,7 @@ bart_sweep_tiled_stream_kernel(SweepArgs a, int K) {
   for (int t = 0; t <= T; ++t) {
     const bool flush = t == T;
     const size_t ct = (size_t)c * T + t;
-    const TreeRows rows = global_rows(a, ct);
+    const TreeRows rows = global_rows<kPad>(a, ct);
     const bool regrow = kRegrow && !flush && regrow_gate(a, ct);
     Move mv{};
     if (!flush) mv = begin_tree(a, s, rows);
@@ -213,9 +225,9 @@ bart_sweep_tiled_stream_kernel(SweepArgs a, int K) {
       hist_add<kStreamPer>(s, in, li, w, wr, wts != nullptr);
     }
     __syncthreads();
-    const Regrow rg = regrow ? regrow_streamed(RegrowArgs(a), s, *rs, ct,
-                                               start, n, li_out, R, wts, s2,
-                                               t2, K)
+    const Regrow rg = regrow ? regrow_streamed<kPad>(RegrowArgs(a), s, *rs,
+                                                     ct, start, n, li_out, R,
+                                                     wts, s2, t2, K)
                              : Regrow::kNone;
     draw_leaves(a, s, ct, rows, s2, t2, K, rank == 0, rg, rs);
   }
@@ -225,12 +237,13 @@ bart_sweep_tiled_stream_kernel(SweepArgs a, int K) {
 
 // The kernel that runs at N, T and K, with the regrow step or without
 // (on chip where its shared memory fits the device's opt-in limit per
-// block) and its dynamic shared memory.
+// block) and its dynamic shared memory, for heaps of kPad slots.
+template <int kPad>
 int pick(int N, int T, int K, bool regrow, bool* on_chip, size_t* dyn) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(
-      &attr, regrow ? bart_sweep_tiled_on_chip_kernel<true>
-                    : bart_sweep_tiled_on_chip_kernel<false>);
+      &attr, regrow ? bart_sweep_tiled_on_chip_kernel<kPad, true>
+                    : bart_sweep_tiled_on_chip_kernel<kPad, false>);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, optin = 0;
   err = cudaGetDevice(&dev);
@@ -238,59 +251,88 @@ int pick(int N, int T, int K, bool regrow, bool* on_chip, size_t* dyn) {
   err = cudaDeviceGetAttribute(&optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  *dyn = on_chip_bytes(N, T, K);
+  *dyn = on_chip_bytes<kPad>(N, T, K) + state_bytes<kPad>(regrow);
   *on_chip = attr.sharedSizeBytes + *dyn <= (size_t)optin;
-  if (!*on_chip) *dyn = 0;
+  if (!*on_chip) *dyn = state_bytes<kPad>(regrow);
   return 0;
 }
 
-}  // namespace
-
-// The kernel that runs at N, T and K with the regrow step or without.
-template <bool kRegrow>
+// The kernel that runs at N, T and K with the regrow step or without,
+// for heaps of kPad slots.
+template <bool kRegrow, int kPad>
 int info(int N, int T, int K, long long* static_b, long long* dynamic_b,
          int* optin, int* clusters, int* resid_on_chip) {
   bool on_chip = false;
   size_t dyn = 0;
-  int e = pick(N, T, K, kRegrow, &on_chip, &dyn);
+  int e = pick<kPad>(N, T, K, kRegrow, &on_chip, &dyn);
   if (e != 0) return e;
   *dynamic_b = (long long)dyn;
   *resid_on_chip = on_chip ? 1 : 0;
-  return on_chip ? cluster_info(bart_sweep_tiled_on_chip_kernel<kRegrow>, K,
-                                dyn, static_b, optin, clusters)
-                 : cluster_info(bart_sweep_tiled_stream_kernel<kRegrow>, K,
-                                dyn, static_b, optin, clusters);
+  return on_chip
+      ? cluster_info(bart_sweep_tiled_on_chip_kernel<kPad, kRegrow>, K, dyn,
+                     static_b, optin, clusters)
+      : cluster_info(bart_sweep_tiled_stream_kernel<kPad, kRegrow>, K, dyn,
+                     static_b, optin, clusters);
 }
 
-template <bool kRegrow>
+template <bool kRegrow, int kPad>
 int launch(const SweepArgs& a, int C, int K, void* stream) {
   bool on_chip = false;
   size_t dyn = 0;
-  int e = pick(a.N, a.T, K, kRegrow, &on_chip, &dyn);
+  int e = pick<kPad>(a.N, a.T, K, kRegrow, &on_chip, &dyn);
   if (e != 0) return e;
-  return on_chip ? launch_clusters(bart_sweep_tiled_on_chip_kernel<kRegrow>,
-                                   a, C, K, dyn, stream)
-                 : launch_clusters(bart_sweep_tiled_stream_kernel<kRegrow>,
-                                   a, C, K, dyn, stream);
+  return on_chip
+      ? launch_clusters(bart_sweep_tiled_on_chip_kernel<kPad, kRegrow>, a, C,
+                        K, dyn, stream)
+      : launch_clusters(bart_sweep_tiled_stream_kernel<kPad, kRegrow>, a, C,
+                        K, dyn, stream);
 }
+
+template <int kPad>
+int info_pad(int N, int T, int K, int regrow, long long* static_b,
+             long long* dynamic_b, int* optin, int* clusters,
+             int* resid_on_chip) {
+  return regrow ? info<true, kPad>(N, T, K, static_b, dynamic_b, optin,
+                                   clusters, resid_on_chip)
+                : info<false, kPad>(N, T, K, static_b, dynamic_b, optin,
+                                    clusters, resid_on_chip);
+}
+
+template <int kPad>
+int launch_pad(const SweepArgs& a, int C, int K, void* stream) {
+  return with_regrow(a) ? launch<true, kPad>(a, C, K, stream)
+                        : launch<false, kPad>(a, C, K, stream);
+}
+
+}  // namespace
 
 // Writes the shared memory per block (static, dynamic) of the kernel that
-// runs at N, T and K (with the regrow step when ``regrow``), the device's
-// opt-in limit per block, the number of clusters of K blocks that can be
-// resident at once, and whether the residual stays on chip; returns the
-// CUDA error code.
-extern "C" int bart_sweep_tiled_info(int N, int T, int K, int regrow,
-                                     long long* static_b,
+// runs at N, T and K (the build for heaps of ``pad`` slots, 128, 512 or
+// 1024; with the regrow step when ``regrow``), the device's opt-in limit per
+// block, the number of clusters of K blocks that can be resident at once,
+// and whether the residual stays on chip; returns the CUDA error code.
+extern "C" int bart_sweep_tiled_info(int N, int T, int K, int pad,
+                                     int regrow, long long* static_b,
                                      long long* dynamic_b, int* optin,
                                      int* clusters, int* resid_on_chip) {
-  return regrow ? info<true>(N, T, K, static_b, dynamic_b, optin, clusters,
-                             resid_on_chip)
-                : info<false>(N, T, K, static_b, dynamic_b, optin, clusters,
-                              resid_on_chip);
+  switch (pad) {
+    case kPadShallow:
+      return info_pad<kPadShallow>(N, T, K, regrow, static_b, dynamic_b,
+                                   optin, clusters, resid_on_chip);
+    case kPadDeep:
+      return info_pad<kPadDeep>(N, T, K, regrow, static_b, dynamic_b, optin,
+                                clusters, resid_on_chip);
+    case kPadDeepest:
+      return info_pad<kPadDeepest>(N, T, K, regrow, static_b, dynamic_b,
+                                   optin, clusters, resid_on_chip);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// Launches one sweep over C chains in clusters of K blocks on ``stream``;
-// returns the CUDA error code of the launch (0 on success).  resid_out
+// Launches one sweep over C chains in clusters of K blocks on ``stream``,
+// the build for heaps of ``pad`` slots (128, 512 or 1024, at least M + 1;
+// zn rows of pad normals); returns the CUDA error code of the launch (0 on
+// success).  resid_out
 // holds the final residual when the kernel ends (and, where the residual
 // does not fit on chip, serves as the running residual throughout).
 extern "C" int bart_sweep_tiled_launch(
@@ -302,13 +344,18 @@ extern "C" int bart_sweep_tiled_launch(
     float* lv_out, int32_t* lidx_out, float* tfit_out, float* resid_out,
     int C, int T, int N, int P, int M, int max_depth, int n_cuts,
     float p_grow, float p_prune, float trans_grow0, float trans_prune0,
-    float p_regrow, const float* rg, int K, void* stream) {
+    float p_regrow, const float* rg, int pad, int K, void* stream) {
   SweepArgs a{feature_in, cut_in, lidx_in, tfit_in, resid0, sigma2, tau2,
               u, zn, ranks_t, spcum, psplit, weights, feature_out, cut_out,
               lv_out, lidx_out, tfit_out, resid_out, T, N, P, M, max_depth,
               n_cuts, p_grow, p_prune, trans_grow0, trans_prune0};
   a.p_regrow = p_regrow;
   a.rg = rg;
-  return with_regrow(a) ? launch<true>(a, C, K, stream)
-                        : launch<false>(a, C, K, stream);
+  if (M + 1 > pad) return (int)cudaErrorInvalidValue;
+  switch (pad) {
+    case kPadShallow: return launch_pad<kPadShallow>(a, C, K, stream);
+    case kPadDeep: return launch_pad<kPadDeep>(a, C, K, stream);
+    case kPadDeepest: return launch_pad<kPadDeepest>(a, C, K, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

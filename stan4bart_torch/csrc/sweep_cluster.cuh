@@ -20,14 +20,18 @@
 // is decided and its leaves drawn.  Only the residual depends on earlier
 // trees; it stays in shared memory (sweep_on_chip).
 //
-// sweep_on_chip is the sweep with a block's residual slice and a byte copy
-// of its leaf indices in shared memory: bart_sweep_batch.cu and
+// sweep_on_chip is the sweep with a block's residual slice and a copy of
+// its leaf indices in shared memory (one byte an observation at 128 heap
+// slots, two above: LeafCopy): bart_sweep_batch.cu and
 // bart_sweep_chain.cu at any K, and bart_sweep_tiled.cu wherever the slice
-// fits, so the three are bit-identical at equal K.  Its ``kBody`` selects the ablation stubs of
-// bart_sweep_ablate.cu, which keep the grid, cluster, shared memory and
-// streaming and drop the node math (kObs) or all arithmetic (kCopy).
+// fits, so the three are bit-identical at equal K.  Its ``kBody`` selects
+// the ablation stubs of bart_sweep_ablate.cu, which keep the grid,
+// cluster, shared memory and streaming and drop the node math (kObs) or
+// all arithmetic (kCopy).
 
 #pragma once
+
+#include <type_traits>
 
 #include "sweep_common.cuh"
 
@@ -45,11 +49,22 @@ struct Ring {
 };
 
 // the input rows of the kStages trees that can be in flight at once
+template <int kPad>
 struct Heads {
-  int32_t feat[kStages][kNodePad];
-  int32_t cut[kStages][kNodePad];
-  float zn[kStages][kNodePad];
+  int32_t feat[kStages][kPad];
+  int32_t cut[kStages][kPad];
+  float zn[kStages][kPad];
   float u[kStages][8];
+};
+
+// The byte copy of a block's leaf indices in sweep_on_chip: per
+// observation its leaf and, between pass 1 and pass 2, whether it goes
+// left of the proposed split (the top bit, kLeft).  One byte at 128 heap
+// slots (7 bits of node), two above (15 bits).
+template <int kPad>
+struct LeafCopy {
+  using T = typename std::conditional<(kPad <= 128), uint8_t, uint16_t>::type;
+  static constexpr int kLeft = 1 << (8 * sizeof(T) - 1);
 };
 
 // Observations per block of a K-block cluster: ceil(N / K), rounded up to
@@ -70,13 +85,14 @@ __device__ inline void obs_range(int N, int K, int rank, int& start,
   n = min(N, start + chunk) - start;
 }
 
-// Dynamic shared memory of sweep_on_chip at N, T and K: the ring, the
-// tree rows in flight, the residual slice, its byte copy of the leaf
-// indices, the trees' variables.
+// Dynamic shared memory of sweep_on_chip at N, T and K with heaps of
+// kPad slots: the ring, the tree rows in flight, the residual slice, its
+// copy of the leaf indices, the trees' variables.
+template <int kPad>
 __host__ __device__ inline size_t on_chip_bytes(int N, int T, int K) {
   const size_t chunk = (size_t)obs_chunk(N, K);
-  return sizeof(Ring) + sizeof(Heads) + chunk * 4
-      + ((chunk + 15) & ~(size_t)15)
+  return sizeof(Ring) + sizeof(Heads<kPad>) + chunk * 4
+      + ((chunk * sizeof(typename LeafCopy<kPad>::T) + 15) & ~(size_t)15)
       + (((size_t)T * 4 + 15) & ~(size_t)15);
 }
 
@@ -101,10 +117,11 @@ __device__ __forceinline__ void cp_async_wait() {
 // brings the tree's input rows (heap rows, uniforms, leaf normals) into
 // heads[t % kStages], each thread the elements it reads itself (unless
 // heads is null: the ablation stubs read no tree rows).
+template <int kPad>
 struct TileStream {
   const SweepArgs* a;
   Ring* ring;
-  Heads* heads;
+  Heads<kPad>* heads;
   const int* vsel;       // (T,) each tree's split variable
   size_t row0;           // c * T: the chain's first (chain, tree) row
   int start, n, nt, total;
@@ -126,14 +143,20 @@ struct TileStream {
         }
       }
       if (heads != nullptr && j == 0) {
-        const int m = threadIdx.x, h = t % kStages;
+        const int h = t % kStages;
         const size_t ct = row0 + t;
-        if (m < a->M) {
-          cp_async4(&heads->feat[h][m], a->feature_in + ct * a->M + m);
-          cp_async4(&heads->cut[h][m], a->cut_in + ct * a->M + m);
-          cp_async4(&heads->zn[h][m], a->zn + ct * kNodePad + m);
+#pragma unroll
+        for (int k = 0; k < (kPad + kThreads - 1) / kThreads; ++k) {
+          const int m = k * kThreads + threadIdx.x;
+          if (m < a->M) {
+            cp_async4(&heads->feat[h][m], a->feature_in + ct * a->M + m);
+            cp_async4(&heads->cut[h][m], a->cut_in + ct * a->M + m);
+            cp_async4(&heads->zn[h][m], a->zn + ct * kPad + m);
+          }
         }
-        if (m < 8) cp_async4(&heads->u[h][m], a->u + ct * 8 + m);
+        if (threadIdx.x < 8)
+          cp_async4(&heads->u[h][threadIdx.x],
+                    a->u + ct * 8 + threadIdx.x);
       }
     }
     cp_async_commit();
@@ -144,20 +167,21 @@ enum class Body { kFull, kCopy, kObs };
 
 // The regrow step of tree ct of a block of sweep_on_chip, whose
 // observations [start, start + n) hold their post-move leaves in lidx_s
-// and their partial residuals in R: the post-move sums gathered, the
-// proposal, a pass that walks the observations under eta down the
-// proposed subtree into r.hist2 (regrow_pass), the decision and, if
-// accepted, the rows and the leaf indices rewritten (each observation
-// under eta walked again: only accepted moves pay for the rewrite).
+// (LeafCopy) and their partial residuals in R: the post-move sums
+// gathered, the proposal, a pass that walks the observations under eta
+// down the proposed subtree into r.hist2 (regrow_pass), the decision
+// and, if accepted, the rows and the leaf indices rewritten (each
+// observation under eta walked again: only accepted moves pay for the
+// rewrite).
 // Each thread reads the leaf indices it wrote.  Called by every thread
 // after a block barrier; ends on one.  Not inlined, its operands a small
 // RegrowArgs by value: the loop around it keeps its own registers (the
 // step inlined made the loop spill).
-__device__ __noinline__ Regrow regrow_on_chip(RegrowArgs ra, TreeShared& s,
-                                              RegrowShared& r, size_t ct,
-                                              int start, int n,
-                                              uint8_t* lidx_s, const float* R,
-                                              float s2, float t2, int K) {
+template <int kPad>
+__device__ __noinline__ Regrow regrow_on_chip(
+    RegrowArgs ra, TreeShared<kPad>& s, RegrowShared<kPad>& r, size_t ct,
+    int start, int n, typename LeafCopy<kPad>::T* lidx_s, const float* R,
+    float s2, float t2, int K) {
   const SweepArgs a = ra.args();
   const int tid = threadIdx.x;
   const float* row = regrow_row(a, ct);
@@ -173,7 +197,7 @@ __device__ __noinline__ Regrow regrow_on_chip(RegrowArgs ra, TreeShared& s,
   for (int i = tid; i < n; i += kThreads) {
     if (bit(r.sub_bits, lidx_s[i])) {
       const int li = regrow_leaf(a, r, eta, start + i);
-      lidx_s[i] = (uint8_t)li;
+      lidx_s[i] = (typename LeafCopy<kPad>::T)li;
       a.lidx_out[obs0 + i] = li;
     }
   }
@@ -194,10 +218,13 @@ __device__ __noinline__ Regrow regrow_on_chip(RegrowArgs ra, TreeShared& s,
 // regrow step (its state in rs); the kernels instantiate both and launch
 // this one only where p_regrow > 0, so the sweep without the move is the
 // code it was before the move existed, registers and shared memory alike.
-template <Body kBody, bool kRegrow = false>
-__device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared& s,
+// kPad: the heap slots of the build (LeafCopy, Heads).
+template <Body kBody, bool kRegrow = false, int kPad = kPadShallow>
+__device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared<kPad>& s,
                                      unsigned char* smem, int K,
-                                     RegrowShared* rs = nullptr) {
+                                     RegrowShared<kPad>* rs = nullptr) {
+  using LeafT = typename LeafCopy<kPad>::T;
+  constexpr int kLeft = LeafCopy<kPad>::kLeft;
   const int N = a.N, T = a.T, M = a.M;
   const int tid = threadIdx.x;
   const int rank = block_rank(K);
@@ -206,11 +233,13 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared& s,
   obs_range(N, K, rank, start, n);
   const int chunk = obs_chunk(N, K);
   Ring* ring = reinterpret_cast<Ring*>(smem);
-  Heads* heads = reinterpret_cast<Heads*>(smem + sizeof(Ring));
+  Heads<kPad>* heads = reinterpret_cast<Heads<kPad>*>(smem + sizeof(Ring));
   float* R = reinterpret_cast<float*>(smem + sizeof(Ring)
-                                      + sizeof(Heads));           // (chunk,)
-  uint8_t* lidx_s = reinterpret_cast<uint8_t*>(R + chunk);        // (chunk,)
-  int* vsel = reinterpret_cast<int*>(lidx_s + ((chunk + 15) & ~15));
+                                      + sizeof(Heads<kPad>));     // (chunk,)
+  LeafT* lidx_s = reinterpret_cast<LeafT*>(R + chunk);            // (chunk,)
+  int* vsel = reinterpret_cast<int*>(
+      reinterpret_cast<unsigned char*>(lidx_s)
+      + ((chunk * sizeof(LeafT) + 15) & ~15));
   const bool full = kBody == Body::kFull;
   const float s2 = full ? a.sigma2[c] : 0.0f, t2 = full ? a.tau2[c] : 0.0f;
   const float* __restrict__ wts = a.weights;
@@ -223,8 +252,8 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared& s,
   __syncthreads();
 
   const int nt = max((n + kTile - 1) / kTile, 1);
-  TileStream ts{&a, ring, full ? heads : nullptr, vsel, (size_t)c * T,
-                start, n, nt, nt * T};
+  TileStream<kPad> ts{&a, ring, full ? heads : nullptr, vsel,
+                      (size_t)c * T, start, n, nt, nt * T};
   for (int q = 0; q < kStages - 1; ++q) ts.issue(q);
 
   for (int t = 0; t < T; ++t) {
@@ -249,7 +278,7 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared& s,
           a.lv_out[ct * M + m] = a.lv_in[ct * M + m];
         }
       }
-      for (int j = tid; j < 2 * kNodePad; j += kThreads)
+      for (int j = tid; j < 2 * kPad; j += kThreads)
         (&s.hist[0][0])[j] = 0;
       __syncthreads();
     }
@@ -285,13 +314,13 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared& s,
           float w = wts ? wts[start + i] : 1.0f;
           float wr = wts ? w * r : r;
           if (kBody == Body::kObs) {
-            lidx_s[i] = (uint8_t)li;
+            lidx_s[i] = (LeafT)li;
             acc[6] = fmaxf(acc[6], fabsf(wr));
             acc[7] = fmaxf(acc[7], w);
             continue;
           }
           bool gl = ring->rk[st][e] <= mv.cn;
-          lidx_s[i] = (uint8_t)(li | (gl ? 0x80 : 0));
+          lidx_s[i] = (LeafT)(li | (gl ? kLeft : 0));
           add_move_stats(acc, mv, li, gl, w, wr);
         }
       }
@@ -323,9 +352,9 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared& s,
         if (in[k]) {
           const int packed = lidx_s[i];
           if (kBody == Body::kFull) {
-            li[k] = moved_leaf(mv, accept, packed & 0x7f,
-                               (packed & 0x80) != 0);
-            lidx_s[i] = (uint8_t)li[k];
+            li[k] = moved_leaf(mv, accept, packed & (kLeft - 1),
+                               (packed & kLeft) != 0);
+            lidx_s[i] = (LeafT)li[k];
           } else {
             li[k] = packed;
           }
@@ -338,9 +367,9 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared& s,
     }
     __syncthreads();
     if (kBody == Body::kFull) {
-      const Regrow rg = regrow ? regrow_on_chip(RegrowArgs(a), s, *rs, ct,
-                                                start, n, lidx_s, R, s2, t2,
-                                                K)
+      const Regrow rg = regrow ? regrow_on_chip<kPad>(RegrowArgs(a), s, *rs,
+                                                      ct, start, n, lidx_s, R,
+                                                      s2, t2, K)
                                : Regrow::kNone;
       draw_leaves(a, s, ct, rows, s2, t2, K, writer, rg, rs);
     } else {
@@ -374,17 +403,32 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared& s,
   if (K > 1) cluster_sync();
 }
 
-// The body of an on-chip sweep kernel: the sweep with the regrow step
-// (kRegrow, its state in a second static shared block) or without.
-template <bool kRegrow>
+// The body of an on-chip sweep kernel with heaps of kPad slots: the sweep
+// with the regrow step (kRegrow, its state in a second shared block) or
+// without.  The per-tree state is static up to 512 slots; above, it
+// takes the head of ``smem`` (state_bytes) and the sweep's buffers
+// follow it.
+template <bool kRegrow, int kPad>
 __device__ inline void on_chip_kernel(const SweepArgs& a, int K,
                                       unsigned char* smem) {
-  __shared__ TreeShared s;
-  if constexpr (kRegrow) {
-    __shared__ RegrowShared r;
-    sweep_on_chip<Body::kFull, true>(a, s, smem, K, &r);
+  if constexpr (static_state<kPad>()) {
+    __shared__ TreeShared<kPad> s;
+    if constexpr (kRegrow) {
+      __shared__ RegrowShared<kPad> r;
+      sweep_on_chip<Body::kFull, true, kPad>(a, s, smem, K, &r);
+    } else {
+      sweep_on_chip<Body::kFull, false, kPad>(a, s, smem, K);
+    }
   } else {
-    sweep_on_chip<Body::kFull, false>(a, s, smem, K);
+    auto* s = reinterpret_cast<TreeShared<kPad>*>(smem);
+    unsigned char* rest = smem + sizeof(TreeShared<kPad>);
+    if constexpr (kRegrow) {
+      auto* r = reinterpret_cast<RegrowShared<kPad>*>(rest);
+      sweep_on_chip<Body::kFull, true, kPad>(
+          a, *s, rest + sizeof(RegrowShared<kPad>), K, r);
+    } else {
+      sweep_on_chip<Body::kFull, false, kPad>(a, *s, rest, K);
+    }
   }
 }
 

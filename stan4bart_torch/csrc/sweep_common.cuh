@@ -30,6 +30,19 @@
 // in every kernel, at every cluster size and on every run, and they are
 // exact but for the rounding of each value to 2^-scale and of the total
 // back to float.
+//
+// The tree heap's size is a template parameter kPad of every per-tree
+// structure and step: each kernel is built for kPadShallow = 128 slots
+// (max_depth <= 6, the build the sweep had before deeper trees),
+// kPadDeep = 512 slots (max_depth 7 and 8) and kPadDeepest = 1024
+// (max_depth 9).  Node masks are kPad / 32 words, and the
+// one-thread-per-node steps take kPad / kThreads nodes a thread.  A
+// 512-slot heap's TreeShared and RegrowShared take 35 520 B of static
+// shared memory (9 168 B at 128), within the 48 KB a kernel may declare
+// statically; a 1024-slot heap's take 70 656 B, so that build keeps them
+// at the head of the block's dynamic shared memory (static_state,
+// state_bytes).  A 2048-slot heap's would leave no room for a tile of
+// observations in a block's 227 KB.
 
 #pragma once
 
@@ -41,7 +54,11 @@ namespace s4b {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kNodePad = 128;   // heap slots; max_nodes <= 127
+// heap slots of the three builds; a heap of kPad slots holds max_nodes + 1
+// <= kPad (the sharded stats launch keeps a pair in slot M)
+constexpr int kPadShallow = 128;
+constexpr int kPadDeep = 512;
+constexpr int kPadDeepest = 1024;
 constexpr int kLeaf = -1;
 constexpr int kInactive = -2;
 constexpr unsigned kFull = 0xffffffffu;
@@ -55,7 +72,7 @@ struct SweepArgs {
   const float* sigma2;         // (C,)
   const float* tau2;           // (C,)
   const float* u;              // (C, T, 8) proposal uniforms
-  const float* zn;             // (C, T, 128) leaf normals
+  const float* zn;             // (C, T, kPad) leaf normals
   const int32_t* ranks_t;      // (P, N) cut ranks
   const float* spcum;          // (P,) split-probability cumsum
   const float* psplit;         // (max_depth + 2,) p_split by depth
@@ -82,19 +99,20 @@ struct SweepArgs {
 };
 
 // The block's per-tree state, in shared memory.
+template <int kPad>
 struct TreeShared {
-  int feat[kNodePad];
-  int cut[kNodePad];
-  float lv[kNodePad];          // leaf values of the last drawn tree
+  int feat[kPad];
+  int cut[kPad];
+  float lv[kPad];              // leaf values of the last drawn tree
   // per-node sums of the fixed-point weights and weighted residuals
-  unsigned long long hist[2][kNodePad];
+  unsigned long long hist[2][kPad];
   float red[kWarps][8];
   // the chain's move statistics (0-5) and largest |w r| and w (6, 7)
   float tot[8];
   // the block's sums, read by the other blocks of its cluster (K > 1)
   float part[8];
-  unsigned long long hsum[2][kNodePad];
-  unsigned nog_bits[4];
+  unsigned long long hsum[2][kPad];
+  unsigned nog_bits[kPad / 32];
   // eta, lft, rgt, move (0 grow, 1 prune, 2 change), accept, v, c,
   // n_leaf, n_nog, the fixed-point scales of w and of w r
   int sc[11];
@@ -107,19 +125,68 @@ struct TreeShared {
 // masks of eta's subtree, of the post-move tree's active nodes, of the
 // proposal's active nodes and of the nodes whose split uniform falls
 // under p_split; eta, the decision, n_active.
+template <int kPad>
 struct RegrowShared {
-  int rfeat[kNodePad];
-  int rcut[kNodePad];
-  unsigned long long hist2[2][kNodePad];
-  unsigned sub_bits[4], act_bits[4], new_bits[4], want_bits[4];
+  int rfeat[kPad];
+  int rcut[kPad];
+  unsigned long long hist2[2][kPad];
+  unsigned sub_bits[kPad / 32], act_bits[kPad / 32], new_bits[kPad / 32],
+      want_bits[kPad / 32];
   int rsc[3];
 };
+
+// Whether a build keeps its per-tree state (TreeShared and, with the
+// regrow step, RegrowShared) in static shared memory: up to kPadDeep
+// slots; a larger heap's state is past the 48 KB a kernel may declare
+// statically and lives at the head of the block's dynamic shared memory.
+template <int kPad>
+__host__ __device__ constexpr bool static_state() {
+  return kPad <= kPadDeep;
+}
+
+// The dynamic shared memory a build's per-tree state takes (0 when
+// static), with the regrow step's when ``regrow``.
+template <int kPad>
+__host__ __device__ constexpr size_t state_bytes(bool regrow) {
+  return static_state<kPad>()
+      ? 0
+      : sizeof(TreeShared<kPad>) + (regrow ? sizeof(RegrowShared<kPad>) : 0);
+}
+
+static_assert(sizeof(TreeShared<kPadDeepest>) % 16 == 0 &&
+                  sizeof(RegrowShared<kPadDeepest>) % 16 == 0,
+              "the dynamic shared memory after the state stays 16-aligned");
+
+// The block's per-tree state in a kernel whose dynamic shared memory
+// ``dyn`` holds nothing else: a static shared block up to kPadDeep slots,
+// else the head of ``dyn``.
+template <int kPad>
+__device__ inline TreeShared<kPad>& tree_state(unsigned char* dyn) {
+  if constexpr (static_state<kPad>()) {
+    __shared__ TreeShared<kPad> s;
+    return s;
+  } else {
+    return *reinterpret_cast<TreeShared<kPad>*>(dyn);
+  }
+}
+
+// The block's regrow state beside tree_state's.
+template <int kPad>
+__device__ inline RegrowShared<kPad>& regrow_state(unsigned char* dyn) {
+  if constexpr (static_state<kPad>()) {
+    __shared__ RegrowShared<kPad> r;
+    return r;
+  } else {
+    return *reinterpret_cast<RegrowShared<kPad>*>(
+        dyn + sizeof(TreeShared<kPad>));
+  }
+}
 
 // What the regrow step of a tree did: not run (its gate shut or the move
 // off), run and refused, run and accepted.
 enum class Regrow { kNone, kRefused, kAccepted };
 
-// bit m of a 128-bit mask
+// bit m of a node mask
 __device__ inline bool bit(const unsigned* bits, int m) {
   return (bits[m >> 5] >> (m & 31)) & 1u;
 }
@@ -130,12 +197,13 @@ struct TreeRows {
   const int32_t* feat;         // (M,)
   const int32_t* cut;          // (M,)
   const float* u;              // (8,) proposal uniforms
-  const float* zn;             // (128,) leaf normals
+  const float* zn;             // (kPad,) leaf normals
 };
 
+template <int kPad>
 __device__ inline TreeRows global_rows(const SweepArgs& a, size_t ct) {
   return {a.feature_in + ct * a.M, a.cut_in + ct * a.M, a.u + ct * 8,
-          a.zn + ct * kNodePad};
+          a.zn + ct * kPad};
 }
 
 // The proposed move of the current tree, as every thread reads it.
@@ -145,13 +213,14 @@ struct Move {
   const int32_t* rank_row;     // cut ranks of the proposed variable
 };
 
-// index of the target-th set bit (0-based, from node 0 up) of a 128-bit
-// mask; 0 when there is none
+// index of the target-th set bit (0-based, from node 0 up) of a node mask
+// of kWords words; 0 when there is none
+template <int kWords>
 __device__ inline int pick_marked(const unsigned* bits, int count, float u) {
   int target = (int)floorf(u * (float)count);
   target = min(target, count - 1);
   if (target < 0) return 0;
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < kWords; ++k) {
     int pc = __popc(bits[k]);
     if (target < pc) {
       unsigned b = bits[k];
@@ -190,21 +259,23 @@ __device__ inline float leaf_marginal(float n, float s, float s2, float t2) {
 // Loads the tree's heap rows, clears the leaf histograms and picks the
 // move: node picks by warp ballots over the leaf and NOG masks, the
 // variable by inverse CDF, the cut uniformly.  Ends on a block barrier.
-__device__ inline Move begin_tree(const SweepArgs& a, TreeShared& s,
+template <int kPad>
+__device__ inline Move begin_tree(const SweepArgs& a, TreeShared<kPad>& s,
                                   const TreeRows& rows) {
+  constexpr int kWords = kPad / 32;
   const int M = a.M;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* u = rows.u;
-  for (int m = tid; m < kNodePad; m += kThreads) {
+  for (int m = tid; m < kPad; m += kThreads) {
     s.feat[m] = m < M ? rows.feat[m] : kInactive;
     s.cut[m] = m < M ? rows.cut[m] : 0;
   }
-  for (int j = tid; j < 2 * kNodePad; j += kThreads) (&s.hist[0][0])[j] = 0;
+  for (int j = tid; j < 2 * kPad; j += kThreads) (&s.hist[0][0])[j] = 0;
   __syncthreads();
 
   if (warp == 0) {
-    unsigned leaf_bits[4], nog_bits[4];
-    for (int k = 0; k < 4; ++k) {
+    unsigned leaf_bits[kWords], nog_bits[kWords];
+    for (int k = 0; k < kWords; ++k) {
       int node = 32 * k + lane;
       int f = s.feat[node];
       int lc = 2 * node + 1, rc = 2 * node + 2;
@@ -216,7 +287,7 @@ __device__ inline Move begin_tree(const SweepArgs& a, TreeShared& s,
     }
     if (lane == 0) {
       int n_leaf = 0, n_nog = 0;
-      for (int k = 0; k < 4; ++k) {
+      for (int k = 0; k < kWords; ++k) {
         n_leaf += __popc(leaf_bits[k]);
         n_nog += __popc(nog_bits[k]);
         s.nog_bits[k] = nog_bits[k];
@@ -226,8 +297,8 @@ __device__ inline Move begin_tree(const SweepArgs& a, TreeShared& s,
       bool prune = !grow && u_move < a.p_grow + a.p_prune;
       int v = pick_var(a, u[3]);
       int cn = min((int)floorf(u[4] * (float)a.n_cuts), a.n_cuts - 1);
-      int eta = grow ? pick_marked(leaf_bits, n_leaf, u[1])
-                     : pick_marked(nog_bits, max(n_nog, 1), u[2]);
+      int eta = grow ? pick_marked<kWords>(leaf_bits, n_leaf, u[1])
+                     : pick_marked<kWords>(nog_bits, max(n_nog, 1), u[2]);
       s.sc[0] = eta;
       s.sc[1] = min(2 * eta + 1, M - 1);
       s.sc[2] = min(2 * eta + 2, M - 1);
@@ -305,8 +376,9 @@ __device__ inline float from_fixed(unsigned long long v, int S) {
 // s.sc[9] (w) and s.sc[10] (w r).  Called by every thread; contains block
 // barriers and, in a cluster of K > 1 blocks, one cluster barrier, after
 // which every block adds the blocks' sums in rank order.
-__device__ inline void chain_stats(TreeShared& s, const float acc[8], int N,
-                                   int K) {
+template <int kPad>
+__device__ inline void chain_stats(TreeShared<kPad>& s, const float acc[8],
+                                   int N, int K) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int k = 0; k < 8; ++k) {
     float x = acc[k];
@@ -350,7 +422,8 @@ __device__ inline void chain_stats(TreeShared& s, const float acc[8], int N,
 // right (else the move's total less the left pair); on acceptance
 // rewrites the tree rows in shared memory and sets s.sc[4].  Run by one
 // thread.
-__device__ inline void mh_decide(const SweepArgs& a, TreeShared& s,
+template <int kPad>
+__device__ inline void mh_decide(const SweepArgs& a, TreeShared<kPad>& s,
                                  const Move& mv, const float* st,
                                  const TreeRows& rows, float s2, float t2,
                                  const float* rn = nullptr) {
@@ -411,7 +484,8 @@ __device__ inline void mh_decide(const SweepArgs& a, TreeShared& s,
 // Metropolis-Hastings decision (mh_decide).  Returns whether the move was
 // accepted.  Called by every thread; every block of a cluster makes the
 // same decision from the same numbers.
-__device__ inline bool decide(const SweepArgs& a, TreeShared& s,
+template <int kPad>
+__device__ inline bool decide(const SweepArgs& a, TreeShared<kPad>& s,
                               const Move& mv, const float acc[8],
                               const TreeRows& rows, float s2, float t2,
                               int K = 1) {
@@ -451,9 +525,10 @@ __device__ inline long long group_sum(unsigned grp, long long v) {
 // Every lane of the warp calls it together.  The W observations are
 // independent, so their warp reductions overlap.  Unweighted (every w 1),
 // the weights' sum is the group's size times 2^scale, exactly.
-template <int W>
-__device__ inline void hist_add(unsigned long long (&h)[2][kNodePad],
-                                const TreeShared& s, const bool (&in)[W],
+template <int W, int kPad>
+__device__ inline void hist_add(unsigned long long (&h)[2][kPad],
+                                const TreeShared<kPad>& s,
+                                const bool (&in)[W],
                                 const int (&li)[W], const float (&w)[W],
                                 const float (&wr)[W], bool weighted) {
   const int lane = threadIdx.x & 31;
@@ -479,8 +554,8 @@ __device__ inline void hist_add(unsigned long long (&h)[2][kNodePad],
 }
 
 // hist_add into the block's leaf histograms
-template <int W>
-__device__ inline void hist_add(TreeShared& s, const bool (&in)[W],
+template <int W, int kPad>
+__device__ inline void hist_add(TreeShared<kPad>& s, const bool (&in)[W],
                                 const int (&li)[W], const float (&w)[W],
                                 const float (&wr)[W], bool weighted) {
   hist_add<W>(s.hist, s, in, li, w, wr, weighted);
@@ -489,7 +564,8 @@ __device__ inline void hist_add(TreeShared& s, const bool (&in)[W],
 // In a cluster of K > 1 blocks, publishes the block's leaf histograms and
 // waits on a cluster barrier.  Called by every thread after a block
 // barrier.
-__device__ inline void gather_hist(TreeShared& s, int M, int K) {
+template <int kPad>
+__device__ inline void gather_hist(TreeShared<kPad>& s, int M, int K) {
   if (K == 1) return;
   for (int m = threadIdx.x; m < M; m += kThreads) {
     s.hsum[0][m] = s.hist[0][m];
@@ -501,8 +577,9 @@ __device__ inline void gather_hist(TreeShared& s, int M, int K) {
 // Node m's sums (weight and weighted residual) in the histogram pair h
 // over the chain: this block's (K = 1) or, in a cluster, every block's in
 // rank order, in the fixed-point scales of chain_stats.
-__device__ inline void hist_sums(TreeShared& s,
-                                 unsigned long long (&h)[2][kNodePad], int m,
+template <int kPad>
+__device__ inline void hist_sums(TreeShared<kPad>& s,
+                                 unsigned long long (&h)[2][kPad], int m,
                                  int K, float& cnt, float& sm) {
   unsigned long long c = 0, r = 0;
   if (K == 1) {
@@ -521,8 +598,10 @@ __device__ inline void hist_sums(TreeShared& s,
 // Node m's leaf statistics (weight and weighted residual sums) over the
 // chain, after gather_hist; after an accepted regrow (r not null), those
 // of the proposed partition on eta's subtree.
-__device__ inline void leaf_sums(TreeShared& s, int m, int K, float& cnt,
-                                 float& sm, RegrowShared* r = nullptr) {
+template <int kPad>
+__device__ inline void leaf_sums(TreeShared<kPad>& s, int m, int K,
+                                 float& cnt, float& sm,
+                                 RegrowShared<kPad>* r = nullptr) {
   if (r != nullptr && bit(r->sub_bits, m))
     hist_sums(s, r->hist2, m, K, cnt, sm);
   else if (K == 1)
@@ -537,14 +616,15 @@ __device__ inline void leaf_sums(TreeShared& s, int m, int K, float& cnt,
 // from the same sums.  ``rg``: what the tree's regrow step did (which
 // gathered the histograms already when it ran), with its state r.
 // Called by every thread after a block barrier; ends on one.
-__device__ inline void draw_leaves(const SweepArgs& a, TreeShared& s,
+template <int kPad>
+__device__ inline void draw_leaves(const SweepArgs& a, TreeShared<kPad>& s,
                                    size_t ct, const TreeRows& rows, float s2,
                                    float t2, int K = 1, bool write = true,
                                    Regrow rg = Regrow::kNone,
-                                   RegrowShared* r = nullptr) {
+                                   RegrowShared<kPad>* r = nullptr) {
   const int M = a.M;
   if (rg == Regrow::kNone) gather_hist(s, M, K);
-  RegrowShared* accepted = rg == Regrow::kAccepted ? r : nullptr;
+  RegrowShared<kPad>* accepted = rg == Regrow::kAccepted ? r : nullptr;
   for (int m = threadIdx.x; m < M; m += kThreads) {
     float cnt, sm;
     leaf_sums(s, m, K, cnt, sm, accepted);
@@ -616,74 +696,92 @@ __device__ inline bool regrow_gate(const SweepArgs& a, size_t ct) {
 // by pick_var, the cut uniformly), active where every node from eta down
 // to its parent splits.  Leaves the proposal in r.rfeat / r.rcut, the
 // masks in r.sub_bits, r.act_bits and r.new_bits, eta in r.rsc[0] and
-// n_active in r.rsc[2], and r.hist2 zeroed.  Called by every thread;
-// ends on a block barrier.
+// n_active in r.rsc[2], and r.hist2 zeroed.  One thread per node, kNodes
+// nodes a thread (node j * kThreads + tid), a warp's 32 nodes one mask
+// word.  Called by every thread; ends on a block barrier.
+template <int kPad>
 __device__ inline void regrow_propose(const SweepArgs& a,
-                                      const TreeShared& s, RegrowShared& r,
+                                      const TreeShared<kPad>& s,
+                                      RegrowShared<kPad>& r,
                                       const float* row) {
+  constexpr int kWords = kPad / 32;
+  constexpr int kNodes = (kPad + kThreads - 1) / kThreads;
   const int M = a.M;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* u3 = row + 3;
-  for (int j = tid; j < 2 * kNodePad; j += kThreads) (&r.hist2[0][0])[j] = 0;
+  for (int j = tid; j < 2 * kPad; j += kThreads) (&r.hist2[0][0])[j] = 0;
   if (warp == 0) {
     int n = 0;
-    for (int k = 0; k < 4; ++k) {
+    for (int k = 0; k < kWords; ++k) {
       const unsigned b = __ballot_sync(kFull, s.feat[32 * k + lane] !=
                                                   kInactive);
       n += __popc(b);
       if (lane == 0) r.act_bits[k] = b;
     }
     if (lane == 0) {
-      r.rsc[0] = pick_marked(r.act_bits, n, row[1]);
+      r.rsc[0] = pick_marked<kWords>(r.act_bits, n, row[1]);
       r.rsc[2] = n;
     }
   }
   __syncthreads();
   const int eta = r.rsc[0];
-  bool in = false, want = false;
-  int v = 0, cn = 0;
-  if (tid < kNodePad) {
-    const int m = tid;
-    if (m < M) {
-      for (int x = m;; x = (x - 1) >> 1) {
-        if (x == eta) {
-          in = true;
-          break;
+  bool in[kNodes], want[kNodes];
+  int v[kNodes], cn[kNodes];
+#pragma unroll
+  for (int j = 0; j < kNodes; ++j) {
+    const int m = j * kThreads + tid;
+    in[j] = false;
+    want[j] = false;
+    v[j] = 0;
+    cn[j] = 0;
+    if (m < kPad) {
+      if (m < M) {
+        for (int x = m;; x = (x - 1) >> 1) {
+          if (x == eta) {
+            in[j] = true;
+            break;
+          }
+          if (x == 0) break;
         }
-        if (x == 0) break;
+        want[j] = u3[m] < a.psplit[31 - __clz(m + 1)];
+        v[j] = pick_var(a, u3[M + m]);
+        cn[j] = min((int)floorf(u3[2 * M + m] * (float)a.n_cuts),
+                    a.n_cuts - 1);
       }
-      want = u3[m] < a.psplit[31 - __clz(m + 1)];
-      v = pick_var(a, u3[M + m]);
-      cn = min((int)floorf(u3[2 * M + m] * (float)a.n_cuts), a.n_cuts - 1);
-    }
-    const unsigned wb = __ballot_sync(kFull, want);
-    const unsigned sb = __ballot_sync(kFull, in);
-    if (lane == 0) {
-      r.want_bits[warp] = wb;
-      r.sub_bits[warp] = sb;
+      const unsigned wb = __ballot_sync(kFull, want[j]);
+      const unsigned sb = __ballot_sync(kFull, in[j]);
+      if (lane == 0) {
+        r.want_bits[m >> 5] = wb;
+        r.sub_bits[m >> 5] = sb;
+      }
     }
   }
   __syncthreads();
-  if (tid < kNodePad) {
-    const int m = tid;
-    bool act = in;
-    for (int x = m; act && x != eta;) {
-      x = (x - 1) >> 1;
-      act = bit(r.want_bits, x);
+#pragma unroll
+  for (int j = 0; j < kNodes; ++j) {
+    const int m = j * kThreads + tid;
+    if (m < kPad) {
+      bool act = in[j];
+      for (int x = m; act && x != eta;) {
+        x = (x - 1) >> 1;
+        act = bit(r.want_bits, x);
+      }
+      const int f = act ? (want[j] ? v[j] : kLeaf) : kInactive;
+      r.rfeat[m] = f;
+      r.rcut[m] = f >= 0 ? cn[j] : 0;
+      const unsigned nb = __ballot_sync(kFull, act);
+      if (lane == 0) r.new_bits[m >> 5] = nb;
     }
-    const int f = act ? (want ? v : kLeaf) : kInactive;
-    r.rfeat[m] = f;
-    r.rcut[m] = f >= 0 ? cn : 0;
-    const unsigned nb = __ballot_sync(kFull, act);
-    if (lane == 0) r.new_bits[warp] = nb;
   }
   __syncthreads();
 }
 
 // The leaf of the proposed subtree that observation ``obs`` (of the N),
 // whose post-move leaf lies under eta, lands in: the walk down from eta.
-__device__ inline int regrow_leaf(const SweepArgs& a, const RegrowShared& r,
-                                  int eta, int obs) {
+template <int kPad>
+__device__ inline int regrow_leaf(const SweepArgs& a,
+                                  const RegrowShared<kPad>& r, int eta,
+                                  int obs) {
   int node = eta;
   for (int f = r.rfeat[node]; f >= 0; f = r.rfeat[node])
     node = 2 * node + (a.ranks_t[(size_t)f * a.N + obs] <= r.rcut[node]
@@ -698,9 +796,10 @@ __device__ inline int regrow_leaf(const SweepArgs& a, const RegrowShared& r,
 // resid(i).  One observation per thread at a time, so that the step adds
 // few registers to the sweep it runs in; the sums are integers, so their
 // order does not matter.  Every thread calls it; no barrier.
-template <typename Leaf, typename Resid>
-__device__ inline void regrow_pass(const SweepArgs& a, const TreeShared& s,
-                                   RegrowShared& r, int start, int n,
+template <int kPad, typename Leaf, typename Resid>
+__device__ inline void regrow_pass(const SweepArgs& a,
+                                   const TreeShared<kPad>& s,
+                                   RegrowShared<kPad>& r, int start, int n,
                                    const float* wts, Leaf leaf,
                                    Resid resid) {
   const int eta = r.rsc[0];
@@ -725,14 +824,16 @@ __device__ inline void regrow_pass(const SweepArgs& a, const TreeShared& s,
 // subtree in node order; a proposal with an empty leaf (weights
 // included) is refused.  The gate has opened.  Run by warp 0; leaves the
 // decision in r.rsc[1].
-template <typename Old, typename Prop>
-__device__ inline void regrow_mh(const TreeShared& s, RegrowShared& r,
-                                 const float* row, int M, float s2, float t2,
-                                 Old old, Prop prop) {
+template <int kPad, typename Old, typename Prop>
+__device__ inline void regrow_mh(const TreeShared<kPad>& s,
+                                 RegrowShared<kPad>& r, const float* row,
+                                 int M, float s2, float t2, Old old,
+                                 Prop prop) {
+  constexpr int kWords = kPad / 32;
   const int lane = threadIdx.x & 31;
   float m_old = 0.0f, m_new = 0.0f;
   bool empty = false;
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < kWords; ++k) {
     const int m = 32 * k + lane;
     float to = 0.0f, tn = 0.0f;
     if (m < M && bit(r.sub_bits, m)) {
@@ -755,7 +856,7 @@ __device__ inline void regrow_mh(const TreeShared& s, RegrowShared& r,
   empty = __any_sync(kFull, empty);
   if (lane == 0) {
     int n_sub = 0, n_new = 0;
-    for (int k = 0; k < 4; ++k) {
+    for (int k = 0; k < kWords; ++k) {
       n_sub += __popc(r.act_bits[k] & r.sub_bits[k]);
       n_new += __popc(r.new_bits[k]);
     }
@@ -772,8 +873,9 @@ __device__ inline void regrow_mh(const TreeShared& s, RegrowShared& r,
 // the proposed partition's pass; in a cluster of K > 1 blocks it waits on
 // a cluster barrier first.  Returns the decision, the same in every
 // block.
-__device__ inline bool regrow_decide(const SweepArgs& a, TreeShared& s,
-                                     RegrowShared& r, const float* row,
+template <int kPad>
+__device__ inline bool regrow_decide(const SweepArgs& a, TreeShared<kPad>& s,
+                                     RegrowShared<kPad>& r, const float* row,
                                      float s2, float t2, int K) {
   if (K > 1) cluster_sync();
   if (threadIdx.x < 32) {
@@ -791,8 +893,10 @@ __device__ inline bool regrow_decide(const SweepArgs& a, TreeShared& s,
 
 // An accepted regrow's rows: eta's subtree set from the proposal.  Called
 // by every thread; ends on a block barrier.
-__device__ inline void regrow_accept(TreeShared& s, const RegrowShared& r) {
-  for (int m = threadIdx.x; m < kNodePad; m += kThreads) {
+template <int kPad>
+__device__ inline void regrow_accept(TreeShared<kPad>& s,
+                                     const RegrowShared<kPad>& r) {
+  for (int m = threadIdx.x; m < kPad; m += kThreads) {
     if (bit(r.sub_bits, m)) {
       s.feat[m] = r.rfeat[m];
       s.cut[m] = r.rcut[m];

@@ -59,11 +59,13 @@ from stan4bart_torch.ops.bart import BartConfig, BartState
 from stan4bart_torch.ops.bart_sweep_kernel import (
     MAX_N_CHAIN,
     MAX_NPAD,
+    NODE_PAD,
     bart_sweep_fused,
     bart_sweep_fused_batch,
     bart_sweep_fused_batch_tiled,
     bart_sweep_fused_sharded,
     make_sweep_consts,
+    on_chip_ceilings,
 )
 from stan4bart_torch.ops.nuts import (
     NutsConfig,
@@ -231,11 +233,14 @@ class GibbsProgram:
         self.sweep_consts = make_sweep_consts(
             bart_cfg, ranks, self.split_probs, device=self.device)
         # the obs-tiled sweep kernel past the single-pass kernel's shared
-        # memory, on the JAX package's boundary (npad 10368)
-        self.sweep_tiled = self.sweep_consts.npad > MAX_NPAD
-        # the per-chain step's kernel up to its shared-memory ceiling, the
-        # JAX package's per-chain limit (npad 51840)
-        self.sweep_single_ok = self.sweep_consts.npad <= MAX_N_CHAIN
+        # memory, and the per-chain step's kernel up to its ceiling: at
+        # depth <= 6 the JAX package's boundaries (npad 10368 and 51840),
+        # deeper what the deep builds hold on chip (``on_chip_ceilings``)
+        pad = self.sweep_consts.node_pad
+        single, chain = ((MAX_NPAD, MAX_N_CHAIN) if pad == NODE_PAD
+                         else on_chip_ceilings(pad, bart_cfg.num_trees))
+        self.sweep_tiled = self.sweep_consts.npad > single
+        self.sweep_single_ok = self.sweep_consts.npad <= chain
 
         D = pm.cfg.K + pm.cfg.q
         if gram_lik is None:
@@ -385,7 +390,8 @@ class GibbsProgram:
     def _sweep(self, bart_state, y_target, sigma, gen, per_chain):
         """One sweep of every chain.  ``step_batched`` (not per_chain)
         takes the single-pass kernel, the obs-tiled one past npad 10368;
-        ``step`` (per_chain) the per-chain kernel up to npad 51840.  Past
+        ``step`` (per_chain) the per-chain kernel up to npad 51840 (past
+        max_depth 6 the deep builds' own ceilings).  Past
         that the JAX package's ``step`` runs its XLA sweep; the port must
         not run its plain sweep on the card, so it takes the obs-tiled
         kernel, which computes the same function.  The three kernels run

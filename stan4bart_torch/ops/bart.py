@@ -69,6 +69,21 @@ class BartConfig(NamedTuple):
 LEAF = -1
 INACTIVE = -2
 
+# heap slots of the CUDA sweep kernels' builds: 128 (max_depth <= 6,
+# max_nodes <= 127), 512 (max_depth 7 and 8) and 1024 (max_depth 9); a
+# heap of pad slots holds max_nodes + 1 <= pad (the sharded kernel keeps
+# a pair in slot M)
+HEAP_PADS = (128, 512, 1024)
+
+
+def node_pad(cfg: BartConfig) -> int:
+    """Heap slots per tree row of the sweep's variates and kernels: 128
+    up to max_depth 6, the smallest of ``HEAP_PADS`` that holds
+    ``max_nodes + 1`` above that, and ``max_nodes + 1`` past the deepest
+    (a depth only the plain sweep takes)."""
+    need = cfg.max_nodes + 1
+    return next((p for p in HEAP_PADS if p >= need), need)
+
 
 class BartState(NamedTuple):
     """Forest state of C chains; every leading dimension is the chain."""
@@ -651,12 +666,14 @@ def regrow_refresh(cfg: BartConfig, state: BartState, y_target, ranks,
                           allfit=allfit)
 
 
-def draw_variates(gen, n_chains: int, num_trees: int, dtype, device):
-    """Per (chain, tree): 8 proposal uniforms (6 used) and 128 leaf
-    normals — the variate layout the sweep kernels consume."""
+def draw_variates(gen, n_chains: int, num_trees: int, dtype, device,
+                  pad: int = 128):
+    """Per (chain, tree): 8 proposal uniforms (6 used) and ``pad`` leaf
+    normals (``node_pad(cfg)``: 128 up to max_depth 6) — the variate
+    layout the sweep kernels consume."""
     u = torch.rand((n_chains, num_trees, 8), generator=gen, dtype=dtype,
                    device=device)
-    zn = torch.randn((n_chains, num_trees, 128), generator=gen, dtype=dtype,
+    zn = torch.randn((n_chains, num_trees, pad), generator=gen, dtype=dtype,
                      device=device)
     return u, zn
 
@@ -745,7 +762,7 @@ def bart_sweep(cfg: BartConfig, state: BartState, y_target, ranks,
     w = None if weights is None else torch.as_tensor(weights, dtype=dtype,
                                                      device=dev)
     if variates is None:
-        variates = draw_variates(gen, C, T, dtype, dev)
+        variates = draw_variates(gen, C, T, dtype, dev, node_pad(cfg))
         if cfg.p_regrow > 0:
             variates += (draw_tree_regrow_variates(gen, C, cfg, dtype, dev),)
     u, zn, *rg = (v.to(dtype) for v in variates)

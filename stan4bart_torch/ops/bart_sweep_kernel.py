@@ -22,9 +22,11 @@ of every chain:
   residual carried as the kernels carry it), for every wrapper.
 
 All consume the same pre-drawn variates ``(u (C, T, 8), zn (C, T,
-128))`` and, with ``cfg.p_regrow > 0``, the in-sweep regrow's ``rg (C, T,
-3 + 3 M)`` (``ops/bart.py:draw_tree_regrow_variates``), drawn here from
-the caller's generator in that order when not supplied, so they compare
+pad))`` (``pad = ops/bart.py:node_pad(cfg)``: 128 up to max_depth 6, 512
+at depth 7 and 8, 1024 at 9) and, with ``cfg.p_regrow > 0``, the
+in-sweep regrow's ``rg (C, T, 3 + 3 M)``
+(``ops/bart.py:draw_tree_regrow_variates``), drawn here from the
+caller's generator in that order when not supplied, so they compare
 chain for chain, and all end with the chi(df, scale) k update
 (``ops/bart.py:chi_k_update``) when ``cfg.k_df > 0``.  The varcount is
 counted outside the kernel.  The regrow runs inside every kernel, after
@@ -32,9 +34,10 @@ each tree's move, where the tree's gate opens (``csrc/sweep_common.cuh``
 ``regrow_propose`` / ``regrow_mh``); with ``p_regrow == 0`` the kernels
 get no regrow variates and run as without the move.
 
-Each wrapper's ``launches`` counts its kernel's launches, and
-``regrow_launches`` those that ran the in-sweep regrow (for the sharded
-sweep: tree updates and regrow updates).
+Each wrapper's ``launches`` counts its kernel's launches,
+``regrow_launches`` those that ran the in-sweep regrow and
+``deep_launches`` those of the deep builds, 512 or 1024 heap slots (for
+the sharded sweep: tree updates and regrow updates).
 
 The cluster size K of every sweep kernel is ``cluster_size``'s choice
 from the clusters the device holds at once, unless the caller forces it
@@ -42,7 +45,14 @@ with ``cluster=``; the K of the last launch is the wrapper's
 ``last_cluster``.  Each one-launch kernel is built twice, with the regrow
 step and without: a launch with ``p_regrow == 0`` runs the one without,
 the code and the shared memory of the sweep before the move existed, and
-``kernel_smem`` (so the K) is the instantiation's.  Every K gives a
+``kernel_smem`` (so the K) is the instantiation's.  Every kernel is also
+built for three heap sizes (``HEAP_PADS``): 128 slots up to max_depth 6,
+512 for max_depth 7 and 8 and 1024 for max_depth 9, whose per-tree state
+and copy of the leaf indices (two bytes) take more shared memory, so
+their ceilings on n (``on_chip_ceilings``) and their K come from their
+own shared memory.  Deeper trees run on the CPU only (a 2048-slot heap's
+state would leave no room for observations in a block); on the card
+``make_sweep_consts`` refuses them.  Every K gives a
 deterministic forest, and the three sweep kernels are bit-identical at
 equal K.  A K whose slice does not fit on chip has no resident cluster
 and is never chosen; forced, its launch raises.
@@ -70,6 +80,7 @@ import numpy as np
 import torch
 
 from stan4bart_torch.ops.bart import (
+    HEAP_PADS,
     BartConfig,
     BartState,
     chi_k_update,
@@ -77,18 +88,27 @@ from stan4bart_torch.ops.bart import (
     draw_tree_regrow_variates,
     draw_variates,
     node_depths,
+    node_pad,
     split_prob_by_depth,
     sweep_trees,
 )
 from stan4bart_torch.utils.device import resolve_device
 
-NODE_PAD = 128
-# widest observation row the single-pass kernel takes (the JAX package's
-# single-pass limit); wider fits go to the obs-tiled kernel
+# heap slots of the depth <= 6 builds; the deep builds have 512 and 1024
+NODE_PAD = HEAP_PADS[0]
+# the deepest tree the card takes (the deep builds' heap)
+MAX_KERNEL_DEPTH = HEAP_PADS[-1].bit_length() - 2
+# widest observation row the single-pass kernel takes at depth <= 6 (the
+# JAX package's single-pass limit); wider fits go to the obs-tiled kernel
 MAX_NPAD = 10_368
-# widest observation row the per-chain kernel takes (the JAX package's
-# per-chain limit, ``sweep_single_ok``); it always fits on chip at K >= 2
+# widest observation row the per-chain kernel takes at depth <= 6 (the JAX
+# package's per-chain limit, ``sweep_single_ok``); it always fits on chip
+# at K >= 2
 MAX_N_CHAIN = 51_840
+# the opt-in shared memory limit of a block on an H100 (227 KB); the
+# deep builds' ceilings are computed against it, and every launch checks
+# the device's own
+SMEM_OPTIN = 232_448
 # cluster sizes the tests and chip_smoke.py hold the kernels at; the
 # kernels take any K in 1..8 (the portable cluster sizes)
 CLUSTERS = (1, 2, 4, 8)
@@ -110,16 +130,18 @@ class SweepConsts(NamedTuple):
     depths: torch.Tensor    # (M,) int64 node depth by heap index
     n_obs: int
     npad: int               # n rounded up to the TPU kernel's 128 lanes
+    node_pad: int = NODE_PAD  # heap slots (``ops/bart.py:node_pad``)
+    num_trees: int = 0      # T, which the deep builds' ceilings read
 
 
 def make_sweep_consts(cfg: BartConfig, ranks, split_probs,
                       device="cuda") -> SweepConsts:
-    """Static operands of the sweep from the model data (ranks (N, P))."""
-    if cfg.max_nodes > NODE_PAD - 1:
-        raise ValueError(
-            f"the sweep kernel supports max_depth <= 6 "
-            f"(max_nodes {cfg.max_nodes} > {NODE_PAD - 1})")
+    """Static operands of the sweep from the model data (ranks (N, P)).
+    The plain sweep takes any depth; on the card the kernels' heaps go
+    to max_depth ``MAX_KERNEL_DEPTH``, and a deeper tree raises."""
     device = resolve_device(device)
+    if device.type == "cuda":
+        check_kernel_depth(cfg)
     ranks = np.asarray(ranks)
     n = ranks.shape[0]
     return SweepConsts(
@@ -134,7 +156,60 @@ def make_sweep_consts(cfg: BartConfig, ranks, split_probs,
                                device=device),
         n_obs=n,
         npad=-(-max(n, 128) // 128) * 128,
+        node_pad=node_pad(cfg),
+        num_trees=cfg.num_trees,
     )
+
+
+def check_kernel_depth(cfg: BartConfig) -> None:
+    """Raise for trees deeper than the CUDA kernels' heaps hold."""
+    if node_pad(cfg) not in HEAP_PADS:
+        raise ValueError(
+            f"the CUDA sweep kernels hold trees up to max_depth "
+            f"{MAX_KERNEL_DEPTH} ({HEAP_PADS[-1]}-slot heaps in shared "
+            f"memory); max_depth {cfg.max_depth} runs on the CPU only")
+
+
+def _round(x: int, k: int) -> int:
+    return -(-x // k) * k
+
+
+def on_chip_state(pad: int) -> int:
+    """Shared memory per block of the per-tree state of a sweep kernel
+    built for ``pad`` heap slots with the regrow step (static up to 512
+    slots, dynamic above): ``sizeof`` of ``csrc/sweep_common.cuh``'s
+    TreeShared (three int/float rows, two fixed-point histograms, the
+    warp sums, the NOG mask, the scalars) and RegrowShared (two rows, a
+    histogram, four masks, three ints)."""
+    return (_round(44 * pad + pad // 8 + 364, 8)
+            + _round(24 * pad + pad // 2 + 12, 8))
+
+
+def on_chip_block_obs(pad: int, T: int) -> int:
+    """Observations one block of ``csrc/sweep_cluster.cuh:sweep_on_chip``
+    (the build with the regrow step, the larger) holds within
+    ``SMEM_OPTIN`` bytes, a multiple of 32: what is left after the
+    per-tree state, the ring (3 tiles of 1024 observations x 12 B), the
+    tree rows in flight (3 x 12 B x pad + 96 B) and the trees' variables
+    (4 B x T), at 4 B of residual and 1 (pad 128) or 2 B of leaf index
+    copy per observation (``on_chip_bytes``)."""
+    left = (SMEM_OPTIN - on_chip_state(pad) - 36_864 - (36 * pad + 96)
+            - _round(4 * T, 16))
+    # a multiple of 32 observations needs no padding of its copy
+    return max(left // (4 + (1 if pad <= 128 else 2)) // 32 * 32, 0)
+
+
+def on_chip_ceilings(pad: int, T: int) -> tuple[int, int]:
+    """The widest padded observation rows (multiples of 128) of the
+    single-pass and per-chain kernels at ``pad`` heap slots and T trees:
+    at 128 the JAX package's limits (``MAX_NPAD``, ``MAX_N_CHAIN``), which
+    fit on chip; above, what the build with the regrow (the larger) holds
+    in one block (single-pass, K = 1) and in a cluster of
+    ``MAX_CLUSTER`` blocks (per-chain)."""
+    if pad == NODE_PAD:
+        return MAX_NPAD, MAX_N_CHAIN
+    block = on_chip_block_obs(pad, T)
+    return block // 128 * 128, MAX_CLUSTER * block // 128 * 128
 
 
 def _regrow_variates(cfg: BartConfig, rg):
@@ -217,7 +292,7 @@ def _operands(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
     _check(sigma2, "sigma2", f32, (C,))
     _check(tau2, "tau2", f32, (C,))
     _check(u, "u", f32, (C, T, 8))
-    _check(zn, "zn", f32, (C, T, NODE_PAD))
+    _check(zn, "zn", f32, (C, T, consts.node_pad))
     _check(consts.ranks_t, "ranks", i32, (P, N))
     _check(consts.spcum, "spcum", f32, (P,))
     _check(consts.psplit, "psplit", f32, (cfg.max_depth + 2,))
@@ -242,9 +317,9 @@ def _operands(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
                cfg.p_grow, cfg.p_prune,
                math.log(cfg.p_prune) - math.log(cfg.p_grow),
                math.log(cfg.p_grow) - math.log(cfg.p_prune),
-               cfg.p_regrow, _ptr(rg)])
+               cfg.p_regrow, _ptr(rg), consts.node_pad])
     argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
-                + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+                + [ctypes.c_float] * 5 + [ctypes.c_void_p, ctypes.c_int])
     return outs, head, argtypes
 
 
@@ -273,18 +348,18 @@ _info_cache: dict = {}
 
 
 def kernel_smem(name: str, N: int, T: int, K: int,
-                regrow: bool = False) -> dict:
+                regrow: bool = False, pad: int = NODE_PAD) -> dict:
     """Shared memory per block of the sweep kernel ``name``
     (``bart_sweep_batch``, ``bart_sweep_tiled``, ``bart_sweep_chain`` or,
     its stats launch, ``bart_sweep_sharded``)
     at N observations, T trees and clusters of K blocks, on the current
-    CUDA device, for the one-launch kernels the instantiation with the
-    in-sweep regrow when ``regrow``: static and dynamic bytes, the
-    device's opt-in limit, how many clusters can be resident at once (0
-    where the on-chip kernels' slice does not fit), and whether the
-    residual stays on chip."""
+    CUDA device, for the build with ``pad`` heap slots and, for the
+    one-launch kernels, the instantiation with the in-sweep regrow when
+    ``regrow``: static and dynamic bytes, the device's opt-in limit, how
+    many clusters can be resident at once (0 where the on-chip kernels'
+    slice does not fit), and whether the residual stays on chip."""
     regrow = bool(regrow) and name != "bart_sweep_sharded"
-    key = (name, N, T, K, regrow, torch.cuda.current_device())
+    key = (name, N, T, K, regrow, pad, torch.cuda.current_device())
     if key not in _info_cache:
         from stan4bart_torch.ops.cuda_build import load
 
@@ -293,8 +368,8 @@ def kernel_smem(name: str, N: int, T: int, K: int,
         st, dy = ctypes.c_longlong(), ctypes.c_longlong()
         optin, clusters, on_chip = ctypes.c_int(), ctypes.c_int(), \
             ctypes.c_int(1)
-        args = [N, T, K] + ([int(regrow)] if name != "bart_sweep_sharded"
-                            else []) + [
+        args = [N, T, K, pad] + ([int(regrow)]
+                                 if name != "bart_sweep_sharded" else []) + [
             ctypes.byref(st), ctypes.byref(dy), ctypes.byref(optin),
             ctypes.byref(clusters)]
         if name == "bart_sweep_tiled":
@@ -319,10 +394,19 @@ def _cluster(name: str, C: int, T: int, consts: SweepConsts, cluster,
                              f"{cluster}")
         return cluster
     N = consts.n_obs
-    resident = [kernel_smem(name, N, T, K, regrow)["clusters"]
+    pad = consts.node_pad
+    resident = [kernel_smem(name, N, T, K, regrow, pad)["clusters"]
                 if K == 1 or N / K >= MIN_OBS_PER_BLOCK else 0
                 for K in range(1, MAX_CLUSTER + 1)]
     return cluster_size(C, N, resident)
+
+
+def _counted(wrapper, cfg: BartConfig, consts: SweepConsts, K: int):
+    """One launch of ``wrapper``'s kernel in clusters of K: its counts."""
+    wrapper.launches += 1
+    wrapper.regrow_launches += int(cfg.p_regrow > 0)
+    wrapper.deep_launches += int(consts.node_pad > NODE_PAD)
+    wrapper.last_cluster = K
 
 
 def sweep_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
@@ -335,9 +419,7 @@ def sweep_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
     K = _cluster("bart_sweep_batch", C, T, consts, cluster, cfg.p_regrow > 0)
     out = _launch("bart_sweep_batch", cfg, feature, cut, lidx, tfit, resid0,
                   sigma2, tau2, u, zn, consts, weights, K, rg)
-    bart_sweep_fused_batch.launches += 1
-    bart_sweep_fused_batch.regrow_launches += int(cfg.p_regrow > 0)
-    bart_sweep_fused_batch.last_cluster = K
+    _counted(bart_sweep_fused_batch, cfg, consts, K)
     return out
 
 
@@ -352,9 +434,7 @@ def sweep_tiled_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
     K = _cluster("bart_sweep_tiled", C, T, consts, cluster, cfg.p_regrow > 0)
     out = _launch("bart_sweep_tiled", cfg, feature, cut, lidx, tfit, resid0,
                   sigma2, tau2, u, zn, consts, weights, K, rg)
-    bart_sweep_fused_batch_tiled.launches += 1
-    bart_sweep_fused_batch_tiled.regrow_launches += int(cfg.p_regrow > 0)
-    bart_sweep_fused_batch_tiled.last_cluster = K
+    _counted(bart_sweep_fused_batch_tiled, cfg, consts, K)
     return out
 
 
@@ -370,9 +450,7 @@ def sweep_chain_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
     K = _cluster("bart_sweep_chain", C, T, consts, cluster, cfg.p_regrow > 0)
     out = _launch("bart_sweep_chain", cfg, feature, cut, lidx, tfit, resid0,
                   sigma2, tau2, u, zn, consts, weights, K, rg)
-    bart_sweep_fused.launches += 1
-    bart_sweep_fused.regrow_launches += int(cfg.p_regrow > 0)
-    bart_sweep_fused.last_cluster = K
+    _counted(bart_sweep_fused, cfg, consts, K)
     return out
 
 
@@ -454,6 +532,8 @@ def sweep_sharded_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
         check(lib.bart_sweep_sharded_apply(*head, t, _ptr(blk), _ptr(kept),
                                            nb, stream), "apply")
         bart_sweep_fused_sharded.launches += 1
+        bart_sweep_fused_sharded.deep_launches += int(
+            consts.node_pad > NODE_PAD)
         if not opens[t]:
             continue
         rblk = torch.empty((C, 2, M + 1), dtype=torch.float32, device=dev)
@@ -468,9 +548,6 @@ def sweep_sharded_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
     return outs
 
 
-# each kernel's widest padded observation row (None: any n)
-_MAX_NPAD = {"bart_sweep_batch": MAX_NPAD, "bart_sweep_tiled": None,
-             "bart_sweep_chain": MAX_N_CHAIN, "bart_sweep_sharded": None}
 _LAUNCH = {"bart_sweep_batch": sweep_cuda,
            "bart_sweep_tiled": sweep_tiled_cuda,
            "bart_sweep_chain": sweep_chain_cuda,
@@ -480,12 +557,15 @@ _LAUNCH = {"bart_sweep_batch": sweep_cuda,
 def check_kernel_supports(consts: SweepConsts, dtype,
                           kernel: str = "bart_sweep_batch") -> None:
     """Raise for a sweep CUDA kernel ``kernel`` does not take: float32
-    state only; past npad 10368 (single-pass) or 51840 (per-chain) only
-    the obs-tiled kernel.  Every kernel takes the in-sweep regrow
+    state only; past the single-pass or per-chain kernel's ceiling
+    (``on_chip_ceilings``: npad 10368 and 51840 at depth <= 6) only the
+    obs-tiled kernel.  Every kernel takes the in-sweep regrow
     (``p_regrow``)."""
     if dtype != torch.float32:
         raise ValueError("the CUDA sweep kernels require float32 state")
-    limit = _MAX_NPAD[kernel]
+    single, chain = on_chip_ceilings(consts.node_pad, consts.num_trees)
+    limit = {"bart_sweep_batch": single,
+             "bart_sweep_chain": chain}.get(kernel)
     if limit is not None and consts.npad > limit:
         raise ValueError(
             f"n = {consts.n_obs} (npad {consts.npad} > {limit}) is past "
@@ -504,7 +584,8 @@ def _fused(kernel: str, cfg: BartConfig, state: BartState, y_target,
         check_kernel_supports(consts, dtype, kernel)
     work = torch.float32 if on_cuda else dtype
     if variates is None:
-        variates = draw_variates(gen, C, T, torch.float32, dev)
+        variates = draw_variates(gen, C, T, torch.float32, dev,
+                                 consts.node_pad)
         if cfg.p_regrow > 0:
             variates += (draw_tree_regrow_variates(gen, C, cfg,
                                                    torch.float32, dev),)
@@ -704,6 +785,7 @@ for _wrapper in (bart_sweep_fused_batch, bart_sweep_fused_batch_tiled,
                  bart_sweep_fused, bart_sweep_fused_sharded):
     _wrapper.launches = 0
     _wrapper.regrow_launches = 0
+    _wrapper.deep_launches = 0
 bart_sweep_ablate.launches = 0
 bart_sweep_fused_batch.last_cluster = None
 bart_sweep_fused_batch_tiled.last_cluster = None

@@ -11,7 +11,8 @@ the same model gives the layout the port's must have (iteration counts,
 every stored field, forests included, appended along the iteration
 axis); the two samplers share no random stream, so that comparison is of
 shapes and of the untouched old draws.  One fit per package: n = 80, 2
-chains, 30 iterations (15 warmup), 5 trees, on the CPU."""
+chains, 30 iterations (15 warmup), 5 trees, treedepth capped at 4, on
+the CPU."""
 
 import pickle
 from dataclasses import replace
@@ -32,7 +33,8 @@ torch.set_num_threads(2)
 
 FORMULA = "y ~ bart(X1 + X2) + X4 + (1 | g.2)"
 KW = dict(chains=2, warmup=15, iter=30, seed=4, verbose=-1,
-          bart_args={"n.trees": 5, "keep_trees": True})
+          bart_args={"n.trees": 5, "keep_trees": True},
+          stan_args={"max_treedepth": 4})
 FIELDS = ("stan", "bart_train", "bart_test", "varcount", "k",
           "tree_feature", "tree_cut", "tree_leaf_value")
 

@@ -12,7 +12,7 @@ the family) to 1e-9 relative in float64.  Then the tests of
 tests/test_loo.py:90-170 on the port's own fits.
 
 One fit per package per module: n = 120, 2 chains, 60 iterations (30
-warmup), 10 trees, on the CPU."""
+warmup), 10 trees, treedepth capped at 4, on the CPU."""
 
 from dataclasses import replace
 
@@ -41,7 +41,7 @@ torch.set_num_threads(2)
 FORMULA = "y ~ bart(X1 + X2 + X3 + X5) + X4 + (1 | g.2)"
 N = 120
 KW = dict(chains=2, iter=60, warmup=30, seed=11, verbose=-1,
-          bart_args={"n.trees": 10})
+          bart_args={"n.trees": 10}, stan_args={"max_treedepth": 4})
 EXACT = dict(rtol=1e-12, atol=1e-12)
 F64 = dict(rtol=1e-9, atol=1e-12)
 

@@ -6,9 +6,10 @@ both packages on the same float64 model, user offset, parameter vectors
 and BART fits: equal to 1e-12 (the same sums). The linear / level
 interweave flags equal the reference's for every type, with its warning
 on an explicit ``level_gibbs=True``. Then one small fit of the port per
-type (n = 120, 2 chains, 30 iterations, 10 trees, on the CPU): finite
-draws, the level interweave off (asked off for the default type), and
-the last iteration's offsets replaced as the type says
+type (n = 120, 2 chains, 30 iterations, 10 trees, treedepth capped at
+4, on the CPU): finite draws, the level interweave off (asked off for
+the default type), and the last iteration's offsets replaced as the
+type says
 (tests/test_offset_types.py's replacement semantics, held exactly on the
 sampler's own state rather than by the reference's statistical gates,
 which need 250 iterations)."""
@@ -138,8 +139,9 @@ def fits(data):
             warmup=15, iter=30, seed=13, verbose=-1, device="cpu",
             dtype=torch.float64, bart_args={"n.trees": 10},
             # the interweave moves b after the offset is formed; off for
-            # the default type too, so the last draw row is the offset's
-            stan_args={"level_gibbs": False}))
+            # the default type too, so the last draw row is the offset's;
+            # the replacement holds at any NUTS treedepth
+            stan_args={"level_gibbs": False, "max_treedepth": 4}))
     return out
 
 

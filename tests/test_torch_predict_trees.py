@@ -14,7 +14,8 @@ chain and chain-batched drivers store the same forests to the bit, every
 spelling of the option is accepted, a fit without it refuses to predict,
 and Z b (which ev and predict add) is the same from the dense design and
 from the per-row gather, new levels included. One fit per package: n =
-120, 2 chains, 60 iterations (30 warmup), 10 trees, on the CPU; a
+120, 2 chains, 60 iterations (30 warmup), 10 trees, treedepth capped at
+4, on the CPU; a
 ``cuda``-marked test holds ``predict`` on the card against the CPU."""
 
 from dataclasses import replace
@@ -40,7 +41,8 @@ torch.set_num_threads(2)
 FORMULA = "y ~ bart(X1 + X2 + X3 + X5) + X4 + z + (1 | g.2)"
 N = 120
 KW = dict(treatment="z", chains=2, iter=60, warmup=30, seed=3, verbose=-1,
-          bart_args={"n.trees": 10, "keep_trees": True})
+          bart_args={"n.trees": 10, "keep_trees": True},
+          stan_args={"max_treedepth": 4})
 
 
 @pytest.fixture(scope="module")
