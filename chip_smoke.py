@@ -4,7 +4,9 @@
     python3 chip_smoke.py --phases 1,2,4  # build + the kernel phases only
 
 Builds the port's five CUDA kernel sources from ``stan4bart_torch/csrc``
-with nvcc (one process per source, started together), then:
+with nvcc, and the four sweep sources again as their float64 builds (one
+process per library, nine started together, each build's seconds
+printed), then:
 
 1. holds every sweep kernel against their plain PyTorch version at small
    sizes (20 trees, 16 chains, 3 chained sweeps, unweighted, weighted and
@@ -119,8 +121,10 @@ with nvcc (one process per source, started together), then:
    gates and SATE, per-phase seconds and peak memory per rank; c. at
    n = 2 000 x 16 chains x 20 iterations: a 2-rank chain-sharded fit
    equal to the bit, rank by rank, to single-process fits of the same
-   chains with the ranks' seeds, and a 2-rank obs-sharded fit whose first
-   forests equal the unsharded fit's in all but at most one chain.
+   chains with the ranks' seeds, and 2-rank obs-sharded fits, in float32
+   and in float64 (every tree update a launch of the sharded kernel's
+   float64 build), whose first forests equal the unsharded fit's of
+   their dtype in all but at most one chain.
 11. runs the in-sweep subtree regrow (``bart_args p_regrow``): a. the
    single-pass, obs-tiled and per-chain kernels with p_regrow = 1 against
    the plain sweep on the same (u, zn, rg) variates at the bench shape,
@@ -147,6 +151,7 @@ with nvcc (one process per source, started together), then:
    weighted (there also the obs-tiled build at K = 1, residual in device
    memory), each with p_regrow 0 and 1 against the plain sweep in every
    chain and with every regrow gate shut equal to p_regrow 0 to the bit,
+   the builds at each shape equal to the bit at the largest K they pick,
    from prior forests (power 0.5) whose deepest node and nodes at depth
    >= 7 are printed; the builds for 1024-slot heaps (max_depth 9) the
    same at 10 000 x 128 and at 30 000 x 32 weighted; in phase 10a's two
@@ -159,17 +164,47 @@ with nvcc (one process per source, started together), then:
    p_regrow 0.25).  12b's fit runs in a process of its own beside phase
    11c's: both are host-bound, so the pair takes the wall time of one,
    and the two compared fits run under the same load.
+13. runs float64 state (``dtype=torch.float64``), whose sweeps are the
+   kernels' double-precision builds (``<name>_f64``): a. each float64 build
+   against the plain float64 sweep on the card on shared variates (drawn in
+   float32 and widened, as the wrappers draw them), at p_regrow 0 and 1
+   with every gate shut equal to p_regrow 0 to the bit: the single-pass,
+   obs-tiled and per-chain builds at the bench shape (timed, with K, shared
+   memory and the bound at 24 B an observation and tree, beside phases 2
+   and 11a's float32 times), the single-pass and per-chain ones at
+   10 000 x 128, the per-chain one at 2000 x 16 and the obs-tiled one at
+   20 000 x 8 (20 trees: phase b's small fits), the obs-tiled and per-chain
+   ones at 50 000 x 32 weighted with the obs-tiled one also at K = 1
+   streamed, the 512-slot builds at max_depth 8 (10 000 x 128) and the
+   1024-slot obs-tiled and per-chain builds at max_depth 9; in phase 10a's
+   two ranks the sharded float64 build against the plain float64 sharded
+   sweep, timed; identical forests and leaf indices in all chains but at
+   most one (the plain sweep's sums on the card are atomics), values within
+   1e-9, and the builds at each shape equal to the bit at the largest K
+   they pick (a build that picks a smaller one runs again at it, as in
+   phase 12a); b. the phase 3 fit at 128 chains with
+   ``dtype=torch.float64``, every sweep a launch of the float64 single-pass
+   build: the gaussian gates, SATE within 1, Sigma positive definite, and
+   cor, sigma, SATE, the test-frame RMSE and the sweep seconds beside phase
+   11c's float32 fit; then a float64 fit at n = 2000 x 16 chains on the
+   per-chain path (a callback) saved, loaded on the card and resumed (the
+   loaded fit's ``continue_sampling(10)``, whole and in chunks of 4, equal
+   to the bit to the original's), and a short float64 fit at n = 20 000
+   through the obs-tiled build.  13b runs in a process of its own beside
+   11c's fit, as 12b does.
 
 The short option fits of phases 6, 8 and 9 run after phase 10a, in this
 process beside phase 10b's ranks (processes of their own), and phase
-12b's fit runs in a process of its own beside phase 11c's: the fits are
-host-bound, so each pair takes about the wall time of the longer, and
-the per-phase seconds of 10b, 11c and 12b are taken under that load.
+12b's and 13b's fits run in processes of their own beside phase 11c's:
+the fits are host-bound, so each group takes about the wall time of the
+longest, and the per-phase seconds of 10b, 11c, 12b and 13b are taken
+under that load.
 
 ``--phases 3,7,9`` runs the listed phases only (``--phases
-1,2,4,10a,11a,11b,12a`` the kernel phases; the kernels line needs those;
-``10a`` to ``10c``, ``11a`` to ``11d``, ``12a`` and ``12b`` run one part
-of phase 10, 11 or 12).  Prints the card
+1,2,4,10a,11a,11b,12a,13a`` the kernel phases; the kernels line needs
+those; ``10a`` to ``10c``, ``11a`` to ``11d``, ``12a``, ``12b``,
+``13a`` and ``13b`` run one part of phase 10, 11, 12 or 13).  Prints the
+card
 (``nvidia-smi``), a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero.  Needs no network; imports nothing of JAX.
@@ -197,11 +232,18 @@ FIT_TOL = dict(rtol=5e-4, atol=5e-4)
 # the obs stub's per-node sums of up to 10^4 residuals of magnitude up to
 # ~20, summed in another order: float32 rounding of up to ~n eps max|r|
 STATS_TOL = dict(rtol=5e-4, atol=1e-2)
+# float64 sweeps, kernel vs plain (phase 13): the same double arithmetic
+# with the sums taken in another order (the kernels' fixed-point sums
+# round each value to about 2^-48 of the chain's largest magnitude)
+F64_TOL = dict(rtol=0.0, atol=1e-9)
 # HBM rate of the H100 SXM (NVIDIA data sheet) for the memory bound
 HBM_BYTES_PER_S = 3.35e12
 P = 9
 KERNELS = ("bart_sweep_batch", "bart_sweep_tiled", "bart_sweep_chain",
            "bart_sweep_ablate", "bart_sweep_sharded")
+# the double-precision builds of the sweep sources (phase 13), built
+# beside the float32 ones (ops/cuda_build.py)
+F64_KERNELS = tuple(f"{k}_f64" for k in KERNELS if k != "bart_sweep_ablate")
 # phase 10's ranks share the card; NCCL refuses two ranks on one card
 RANK_BACKEND = "gloo"
 
@@ -217,10 +259,11 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def forest_setup(n, trees, chains, seed, device, **cfg_kw):
-    """Friedman-like data, its cut ranks, and a prior-drawn forest
-    (``cfg_kw``: BartConfig fields other than the trees, e.g. phase 12's
-    ``DEEP``)."""
+def forest_setup(n, trees, chains, seed, device, dtype=torch.float32,
+                 **cfg_kw):
+    """Friedman-like data, its cut ranks, and a prior-drawn forest, in
+    ``dtype`` (``cfg_kw``: BartConfig fields other than the trees, e.g.
+    phase 12's ``DEEP``)."""
     from stan4bart_torch.ops import bart as ops
     from stan4bart_torch.ops.bart_sweep_kernel import make_sweep_consts
 
@@ -235,29 +278,33 @@ def forest_setup(n, trees, chains, seed, device, **cfg_kw):
     gen.manual_seed(seed)
     state = ops.sample_trees_from_prior(
         cfg, gen, torch.as_tensor(ranks, device=device), sp, chains,
-        dtype=torch.float32)
-    consts = make_sweep_consts(cfg, ranks, sp, device=device)
-    yt = torch.as_tensor(y - y.mean(), dtype=torch.float32, device=device)
+        dtype=dtype)
+    consts = make_sweep_consts(cfg, ranks, sp, device=device, dtype=dtype)
+    yt = torch.as_tensor(y - y.mean(), dtype=dtype, device=device)
     return cfg, state, yt, consts, gen
 
 
 def compare(name, sk, sp_, vk, vp):
-    """Per-chain structural identity and value agreement of two sweeps."""
+    """Per-chain structural identity and value agreement of two sweeps
+    (float64 ones within ``F64_TOL``)."""
     same = ((sk.feature == sp_.feature).flatten(1).all(1)
             & (sk.cut == sp_.cut).flatten(1).all(1)
             & (sk.leaf_idx == sp_.leaf_idx).flatten(1).all(1)
             & (vk == vp).all(1))
     ok = same.nonzero()[:, 0]
     err = 0.0
+    f64 = sk.leaf_value.dtype == torch.float64
+    lv_tol, fit_tol = (F64_TOL, F64_TOL) if f64 else (LV_TOL, FIT_TOL)
     if len(ok):
         err = max(float((sk.leaf_value[ok] - sp_.leaf_value[ok]).abs().max()),
-                  float((sk.allfit[ok] - sp_.allfit[ok]).abs().max()))
+                  float((sk.allfit[ok] - sp_.allfit[ok]).abs().max()),
+                  float((sk.tree_fit[ok] - sp_.tree_fit[ok]).abs().max()))
         torch.testing.assert_close(sk.leaf_value[ok], sp_.leaf_value[ok],
-                                   **LV_TOL, msg=f"{name}: leaf values")
-        torch.testing.assert_close(sk.allfit[ok], sp_.allfit[ok], **FIT_TOL,
+                                   **lv_tol, msg=f"{name}: leaf values")
+        torch.testing.assert_close(sk.allfit[ok], sp_.allfit[ok], **fit_tol,
                                    msg=f"{name}: allfit")
         torch.testing.assert_close(sk.tree_fit[ok], sp_.tree_fit[ok],
-                                   **FIT_TOL, msg=f"{name}: tree_fit")
+                                   **fit_tol, msg=f"{name}: tree_fit")
     return int(same.sum()), err
 
 
@@ -374,30 +421,34 @@ def copy_bandwidth(device, nbytes=2 ** 30, reps=5):
     return 2 * nbytes / (ms * 1e-3)
 
 
-def sweep_bytes(C, T, N, M, pad=128):
+def sweep_bytes(C, T, N, M, pad=128, dtype=torch.float32):
     """Bytes one sweep must move: per (chain, tree) leaf_idx and tree_fit
-    read and written (16 B per observation), the ranks table, the
-    residual in and out, the tree rows and the variates (``pad`` leaf
-    normals a tree)."""
-    return (C * T * N * 16 + P * N * 4 + C * N * 8
-            + C * T * (M * 4 * 2 + M * 4 * 3 + 8 * 4 + pad * 4))
+    read and written (16 B per observation; 24 B with float64 tree
+    fits), the ranks table, the residual in and out, the tree rows and
+    the variates (``pad`` leaf normals a tree), every real in ``dtype``."""
+    b = dtype.itemsize
+    return (C * T * N * (8 + 2 * b) + P * N * 4 + C * N * 2 * b
+            + C * T * (M * 4 * 2 + M * (8 + b) + 8 * b + pad * b))
 
 
-def sweep_args(N, T, C, seed, device, **cfg_kw):
-    """One sweep's kernel operands from a prior-drawn forest."""
+def sweep_args(N, T, C, seed, device, dtype=torch.float32, **cfg_kw):
+    """One sweep's kernel operands from a prior-drawn forest, in
+    ``dtype`` (the variates drawn in float32 and widened, as the
+    wrappers draw them)."""
     from stan4bart_torch.ops import bart as ops
 
-    cfg, state, yt, consts, gen = forest_setup(N, T, C, seed, device,
+    cfg, state, yt, consts, gen = forest_setup(N, T, C, seed, device, dtype,
                                                **cfg_kw)
     state = state._replace(sigma_mu=torch.full((C,), 0.5 / (2 * np.sqrt(T)),
-                                               device=device))
+                                               dtype=dtype, device=device))
     var = ops.draw_variates(gen, C, T, torch.float32, device,
                             consts.node_pad)
     args = (cfg, state.feature, state.cut, state.leaf_idx, state.tree_fit,
-            (yt - state.allfit).contiguous(), torch.full((C,), 1.0,
-                                                         device=device),
-            (state.sigma_mu ** 2).contiguous(), var[0].contiguous(),
-            var[1].contiguous(), consts)
+            (yt - state.allfit).contiguous(),
+            torch.full((C,), 1.0, dtype=dtype, device=device),
+            (state.sigma_mu ** 2).contiguous(),
+            var[0].to(dtype).contiguous(), var[1].to(dtype).contiguous(),
+            consts)
     return cfg, state, yt, args
 
 
@@ -424,16 +475,17 @@ def check_sweep(name, outs, state, yt, C, N, T, min_same):
     return res
 
 
-def smem_note(name, N, T, K, regrow=False, pad=128):
+def smem_note(name, N, T, K, regrow=False, pad=128, dtype=torch.float32):
     """One line on kernel ``name``'s shared memory per block at K (of its
     instantiation with the regrow step when ``regrow``, of its build for
-    ``pad`` heap slots)."""
+    ``pad`` heap slots and ``dtype``)."""
     from stan4bart_torch.ops.bart_sweep_kernel import kernel_smem
 
-    m = kernel_smem(name, N, T, K, regrow, pad)
+    m = kernel_smem(name, N, T, K, regrow, pad, dtype)
     where = ("in device memory" if not m["resid_on_chip"]
              else "on chip" if m["clusters"] else "slice does not fit")
-    return (f"{name}{' with the regrow' if regrow else ''}"
+    return (f"{name}{' float64' if dtype == torch.float64 else ''}"
+            f"{' with the regrow' if regrow else ''}"
             f"{f' ({pad}-slot heaps)' if pad != 128 else ''} K={K}: "
             f"{m['static']} B static + {m['dynamic']} B "
             f"dynamic shared memory per block of the {m['optin']} B opt-in "
@@ -686,13 +738,14 @@ def launch_counters():
 
 def reset_counts():
     """Every launch count set to 0 (and every count of launches that ran
-    the in-sweep regrow, and of the deep builds); returns the wrappers by
-    kernel."""
+    the in-sweep regrow, of the deep builds and of the float64 builds);
+    returns the wrappers by kernel."""
     counts = launch_counters()
     for fn in counts.values():
         fn.launches = 0
         fn.regrow_launches = 0
         fn.deep_launches = 0
+        fn.f64_launches = 0
     return counts
 
 
@@ -1585,18 +1638,21 @@ def _same_chains(a, b, sl_a=slice(None), sl_b=slice(None)):
             & (a[3][..., sl_a] == b[3][..., sl_b]).flatten(1).all(1))
     ok = same.nonzero()[:, 0]
     lv = fit = 0.0
+    f64 = a[2].dtype == torch.float64
     if len(ok):
-        torch.testing.assert_close(a[2][ok], b[2][ok], **LV_TOL,
+        torch.testing.assert_close(a[2][ok], b[2][ok],
+                                   **(F64_TOL if f64 else LV_TOL),
                                    msg="leaf values")
         torch.testing.assert_close(a[4][ok][..., sl_a], b[4][ok][..., sl_b],
-                                   **FIT_TOL, msg="tree fits")
+                                   **(F64_TOL if f64 else FIT_TOL),
+                                   msg="tree fits")
         lv = float((a[2][ok] - b[2][ok]).abs().max())
         fit = float((a[4][ok][..., sl_a] - b[4][ok][..., sl_b]).abs().max())
     return same.cpu().numpy(), max(lv, fit)
 
 
 def _sharded_rank(rank, world, device, N, C, T, reps, path_shape,
-                  regrow=False, deep=False):
+                  regrow=False, deep=False, f64=False):
     """Phase 10a in one rank: the sharded kernel on this rank's shard
     against the plain sharded sweep (both all-reducing over the world)
     and against the obs-tiled kernel over the whole n, at (N, C) and at
@@ -1607,7 +1663,8 @@ def _sharded_rank(rank, world, device, N, C, T, reps, path_shape,
     regrow updates and all-reduces, and rank 0 times it.  With ``deep``
     (phase 12a), the kernel's build for 512-slot heaps at max_depth 8 at
     (N, C) with p_regrow 0 and 1 against the plain sharded sweep, and
-    rank 0 times it."""
+    rank 0 times it; with ``f64`` (phase 13a) the same of its float64
+    build at depth 6."""
     import torch.distributed as dist
 
     from stan4bart_torch.ops.bart_sweep_kernel import (
@@ -1733,20 +1790,51 @@ def _sharded_rank(rank, world, device, N, C, T, reps, path_shape,
                 sweep_bytes(C, T, N // world, dcfg.max_nodes, DEEP_PAD)
                 / HBM_BYTES_PER_S * 1e3)
         dist.barrier()
+    if f64:
+        f64_ = torch.float64
+        fcfg, _, _, fargs = sweep_args(N, T, C, 14, device, f64_)
+        fl, _ = _local_args(fargs, rank, world)
+        fon, frg = regrow_args(fl, 1.0, 114)
+        axis = DataAxis()
+        before = bart_sweep_fused_sharded.f64_launches
+        k0 = sweep_sharded_cuda(*fl, reduce=axis.sum)
+        k1 = sweep_sharded_cuda(*fon, reduce=axis.sum, rg=frg)
+        out["f64_updates"] = bart_sweep_fused_sharded.f64_launches - before
+        out["f64_reductions"] = axis.calls
+        out["f64_cluster"] = bart_sweep_fused_sharded.last_cluster
+        p0 = sweep_plain(*fl, reduce=axis.sum)
+        torch.cuda.synchronize()
+        out["f64_same0"], out["f64_err0"] = _same_chains(k0, p0)
+        del p0
+        p1 = sweep_plain(*fon, reduce=axis.sum, rg=frg)
+        torch.cuda.synchronize()
+        out["f64_same1"], out["f64_err1"] = _same_chains(k1, p1)
+        del p1, k0, k1
+        dist.barrier()
+        if rank == 0:
+            out["f64_ms"], out["f64_all_ms"] = _time(
+                lambda: sweep_sharded_cuda(*fl), reps)
+            out["f64_ms_1"] = _time(
+                lambda: sweep_sharded_cuda(*fon, rg=frg), reps)[0]
+            out["f64_plain_ms"] = _time(lambda: sweep_plain(*fl), 1)[0]
+            out["f64_bound_ms"] = (
+                sweep_bytes(C, T, N // world, fcfg.max_nodes, dtype=f64_)
+                / HBM_BYTES_PER_S * 1e3)
+        dist.barrier()
     return out
 
 
 def phase_sharded_kernel(N=50_000, C=64, T=75, reps=7, label="phase 10a",
                          path_shape=(10_000, 128), regrow=False,
-                         deep=False):
+                         deep=False, f64=False):
     """The observation-sharded sweep kernel over 2 ranks on the card; with
     ``regrow``, phase 11b in the same ranks, with ``deep`` phase 12a's
-    sharded part."""
+    sharded part, with ``f64`` phase 13a's."""
     from stan4bart_torch.parallel import mesh
 
     t0 = time.perf_counter()
     r0, r1 = mesh.spawn(_sharded_rank, ["cuda:0", "cuda:0"], RANK_BACKEND,
-                        args=(N, C, T, reps, path_shape, regrow, deep),
+                        args=(N, C, T, reps, path_shape, regrow, deep, f64),
                         timeout_s=600)
     same_p = r0["same_plain"] & r1["same_plain"]
     same_t = r0["same_tiled"] & r1["same_tiled"]
@@ -1836,10 +1924,34 @@ def phase_sharded_kernel(N=50_000, C=64, T=75, reps=7, label="phase 10a",
                 or r1["deep_updates"] != 2 * T):
             raise AssertionError("phase 12a: the sharded kernel's deep "
                                  "build disagrees")
+    f64_err = 0.0
+    if f64:
+        f64_err = max(r[k] for r in (r0, r1)
+                      for k in ("f64_err0", "f64_err1"))
+        same0 = r0["f64_same0"] & r1["f64_same0"]
+        same1 = r0["f64_same1"] & r1["f64_same1"]
+        print(f"phase 13a: the sharded kernel's float64 build, n={N} over 2 "
+              f"ranks, chains={C}, trees={T}, stats K={r0['f64_cluster']}: "
+              f"{int(same0.sum())}/{C} and {int(same1.sum())}/{C} chains "
+              "identical to the plain float64 sharded sweep at p_regrow 0 "
+              f"and 1 (max |kernel - plain| {f64_err:.3g}, within "
+              f"{F64_TOL['atol']}); {r0['f64_updates']} float64 tree "
+              f"updates per rank (rank 1 {r1['f64_updates']}), "
+              f"{r0['f64_reductions']} float64 all-reduces; kernels alone "
+              f"median {r0['f64_ms']:.4f} ms "
+              f"{[round(x, 4) for x in r0['f64_all_ms']]} at p_regrow 0 "
+              f"({r0['ms']:.4f} ms in float32), {r0['f64_ms_1']:.4f} ms at "
+              f"1; plain float64 sharded sweep {r0['f64_plain_ms']:.4f} ms; "
+              f"bound {r0['f64_bound_ms']:.4f} ms; {card()}", flush=True)
+        if (same0.sum() < C - 1 or same1.sum() < C - 1
+                or r0["f64_updates"] != 2 * T
+                or r1["f64_updates"] != 2 * T):
+            raise AssertionError("phase 13a: the sharded kernel's float64 "
+                                 "build disagrees")
     return dict(r0, max_abs_err=max(
         r0["err_w1"], *(r[k] for r in (r0, r1) for k in (
             "err_plain", "err_tiled", "path_err_plain", "path_err_tiled"))),
-        share=share, deep_err=deep_err)
+        share=share, deep_err=deep_err, f64_err=f64_err)
 
 
 def _digest(fit):
@@ -1951,6 +2063,7 @@ def _contract_rank(rank, world, device, fits):
             draws={k: getattr(fit.draws, k) for k in
                    ("stan", "bart_train", "tree_feature", "tree_cut")},
             launches={k: fn.launches for k, fn in counts.items()},
+            f64={k: fn.f64_launches for k, fn in counts.items()},
             threads=torch.get_num_threads()))
     return out
 
@@ -1968,13 +2081,16 @@ def _small_fit(device, seed, n=2000, **kw):
 
 
 def phase_contracts(device, label="phase 10c", chains=16, n=2000):
-    """The chain path's and the obs-sharded path's contracts at n = 2000."""
+    """The chain path's and the obs-sharded path's contracts at n = 2000,
+    the obs-sharded one in float32 and in float64 (every tree update a
+    launch of the sharded kernel's float64 build)."""
     from stan4bart_torch.parallel import mesh, multihost
 
     t0 = time.perf_counter()
+    sharded = dict(seed=6, chains=chains, n=n,
+                   stan_args={"max_treedepth": 6, "obs_shards": 2})
     fits = (dict(seed=5, chains=chains, n=n, stan_args={"max_treedepth": 6}),
-            dict(seed=6, chains=chains, n=n,
-                 stan_args={"max_treedepth": 6, "obs_shards": 2}))
+            sharded, dict(sharded, dtype=torch.float64))
     # the ranks run while this process fits the single-process references
     # (nothing here is timed); the ranks use fewer host threads than this
     # process, which a fit on the card does not see
@@ -1994,8 +2110,10 @@ def phase_contracts(device, label="phase 10c", chains=16, n=2000):
     refs = [_small_fit(device, seed=multihost.rank_seed(5, r, 2), chains=C,
                        n=n, stan_args={"max_treedepth": 6})
             for r in range(2)]
-    ref = _small_fit(device, seed=multihost.rank_seed(6, 0, 1),
-                     chains=chains, n=n, stan_args={"max_treedepth": 6})
+    ref = {dt: _small_fit(device, seed=multihost.rank_seed(6, 0, 1),
+                          chains=chains, n=n, dtype=dt,
+                          stan_args={"max_treedepth": 6})
+           for dt in (torch.float32, torch.float64)}
     ranks_thread.join()
     if "error" in box:
         raise box["error"]
@@ -2021,33 +2139,45 @@ def phase_contracts(device, label="phase 10c", chains=16, n=2000):
           f"rank by rank, single-process fits of {C} chains with the "
           f"ranks' seeds (host threads: ranks {res[0]['threads']}, "
           f"single-process fits {torch.get_num_threads()})", flush=True)
-    res = [r[1] for r in ranks]
-    d = res[0]["draws"]
-    same = np.array([
-        np.array_equal(d["tree_feature"][c, 0], ref.draws.tree_feature[c, 0])
-        and np.array_equal(d["tree_cut"][c, 0], ref.draws.tree_cut[c, 0])
-        for c in range(chains)])
-    launches = res[0]["launches"]["bart_sweep_sharded"]
-    print(f"{label}: a 2-rank obs-sharded fit's first forests equal the "
-          f"unsharded fit's in {int(same.sum())}/{chains} chains; "
-          f"bart_sweep_sharded launches per rank {launches}; "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    if same.sum() < chains - 1 or launches != 21 * 20:
-        raise AssertionError(f"{label}: the obs-sharded fit differs")
-    return {"bart_sweep_batch": chain_batch, "bart_sweep_sharded": launches}
+    out = {"bart_sweep_batch": chain_batch}
+    for i, dt in ((1, torch.float32), (2, torch.float64)):
+        res = ranks[0][i]
+        d, r = res["draws"], ref[dt].draws
+        same = np.array([
+            np.array_equal(d["tree_feature"][c, 0], r.tree_feature[c, 0])
+            and np.array_equal(d["tree_cut"][c, 0], r.tree_cut[c, 0])
+            for c in range(chains)])
+        launches = res["launches"]["bart_sweep_sharded"]
+        f64 = res["f64"]["bart_sweep_sharded"]
+        print(f"{label}: a 2-rank obs-sharded {dt} fit's first forests "
+              f"equal the unsharded fit's in {int(same.sum())}/{chains} "
+              f"chains; bart_sweep_sharded launches per rank {launches}, "
+              f"{f64} of them the float64 build; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if (same.sum() < chains - 1 or launches != 21 * 20
+                or f64 != (launches if dt == torch.float64 else 0)
+                or sum(res["launches"].values()) != launches):
+            raise AssertionError(f"{label}: the obs-sharded {dt} fit "
+                                 "differs")
+        key = ("bart_sweep_sharded" if dt == torch.float32
+               else "bart_sweep_sharded_f64")
+        out[key] = launches
+    return out
 
 
-def regrow_bytes(C, T, M):
+def regrow_bytes(C, T, M, dtype=torch.float32):
     """Bytes the in-sweep regrow adds to a sweep's bound: its variates
-    (3 + 3 M uniforms per chain and tree), read once.  The cut ranks its
-    walks read are the ranks table ``sweep_bytes`` counts once already,
-    and the leaf indices and residuals it reads are on chip."""
-    return C * T * (3 + 3 * M) * 4
+    (3 + 3 M uniforms per chain and tree, in ``dtype``), read once.  The
+    cut ranks its walks read are the ranks table ``sweep_bytes`` counts
+    once already, and the leaf indices and residuals it reads are on
+    chip."""
+    return C * T * (3 + 3 * M) * dtype.itemsize
 
 
 def regrow_args(args, p, seed, shut=False):
     """``sweep_args``' operands with ``p_regrow = p`` and regrow variates
-    drawn from ``seed`` (every gate shut when ``shut``)."""
+    drawn in float32 from ``seed`` and widened to the operands' dtype
+    (every gate shut when ``shut``)."""
     from stan4bart_torch.ops import bart as ops
 
     cfg = args[0]
@@ -2055,7 +2185,7 @@ def regrow_args(args, p, seed, shut=False):
     gen = torch.Generator(device=args[1].device)
     gen.manual_seed(seed)
     rg = ops.draw_tree_regrow_variates(gen, C, cfg, torch.float32,
-                                       args[1].device)
+                                       args[1].device).to(args[5].dtype)
     if shut:
         rg[..., 0] = 1.0
     return (cfg._replace(p_regrow=p),) + args[1:], rg
@@ -2245,40 +2375,50 @@ def depth_note(feature):
     return deepest, deep, deep / max(int(act.sum()), 1)
 
 
-def deep_at_shape(device, label, N, C, kernels, seed, T=75, weighted=False,
-                  times=False, reps=7, cfg_kw=DEEP):
-    """Phase 12a at N x C chains: each kernel of ``kernels`` (name ->
-    (launcher, wrapper)) in its deep build (512-slot heaps at max_depth
-    8, 1024-slot at 9: ``cfg_kw``) at the K it picks, with p_regrow 0 and 1 against the plain sweep on the same
-    variates (identical forests and leaf indices in all chains but at
-    most one, as phase 2: the plain sweep's float32 leaf sums on the card
-    are atomics in no fixed order, so a decision on a near tie may go
-    either way between runs), the kernels at equal K equal to the bit;
-    every regrow gate shut equal to p_regrow 0 to the bit; from a prior
-    forest that reaches depth 7 (its deepest node and nodes at depth >= 7
-    printed).  ``weighted``: observation weights in [0.5, 2).  With
-    ``times`` the kernels' CUDA-event times at p_regrow 0 and 1 and the
-    plain sweep's at 0.  Returns the largest error, the Ks and times."""
+def kernels_at_shape(device, label, N, C, kernels, seed, T=75,
+                     weighted=False, times=False, reps=7, cfg_kw=DEEP,
+                     dtype=torch.float32):
+    """Phase 12a (and 13a) at N x C chains: each kernel of ``kernels``
+    (name -> (launcher, wrapper)) in its build for ``cfg_kw``'s heap
+    (512-slot heaps at max_depth 8, 1024-slot at 9, 128 at the default
+    depth 6) and for ``dtype`` at the K it picks, with p_regrow 0 and 1
+    against the plain sweep on the same variates (identical forests and
+    leaf indices in all chains but at most one, as phase 2: the plain
+    sweep's leaf sums on the card are atomics in no fixed order, so a
+    decision on a near tie may go either way between runs), the kernels
+    equal to the bit at the largest K they picked (a kernel that picked a
+    smaller one runs again at it); every regrow gate shut equal to
+    p_regrow 0 to the bit; past depth 6 from a prior forest that reaches
+    depth 7 (its deepest node and nodes at depth >= 7 printed).
+    ``weighted``: observation weights in [0.5, 2).  With ``times`` the
+    kernels' CUDA-event
+    times at p_regrow 0 and 1 and the plain sweep's at 0.  Returns the
+    largest error, the Ks and times."""
     from stan4bart_torch.ops.bart import node_pad
     from stan4bart_torch.ops.bart_sweep_kernel import sweep_plain
 
-    cfg, state, yt, args = sweep_args(N, T, C, seed, device, **cfg_kw)
-    if args[-1].node_pad != node_pad(cfg) or node_pad(cfg) <= 128:
+    cfg, state, yt, args = sweep_args(N, T, C, seed, device, dtype,
+                                      **cfg_kw)
+    deep = cfg.max_depth > 6
+    if args[-1].node_pad != node_pad(cfg) or deep != (node_pad(cfg) > 128):
         raise AssertionError(f"{label}: heap {args[-1].node_pad} slots")
     deepest, n7, share = depth_note(state.feature)
-    tag = (f"{label} max_depth {cfg.max_depth} ({args[-1].node_pad}-slot "
+    tag = (f"{label}{' float64' if dtype == torch.float64 else ''} "
+           f"max_depth {cfg.max_depth} ({args[-1].node_pad}-slot "
            f"heaps) n={N} chains={C}" + (" weighted" if weighted else ""))
-    print(f"{tag}: the starting forest's deepest node at depth {deepest}, "
-          f"{n7} nodes at depth >= 7 ({100 * share:.2f} % of its active "
-          "nodes)", flush=True)
-    if deepest < 7:
-        raise AssertionError(f"{tag}: the starting forest stops at depth "
-                             f"{deepest}")
+    if deep:
+        print(f"{tag}: the starting forest's deepest node at depth "
+              f"{deepest}, {n7} nodes at depth >= 7 ({100 * share:.2f} % of "
+              "its active nodes)", flush=True)
+        if deepest < 7:
+            raise AssertionError(f"{tag}: the starting forest stops at "
+                                 f"depth {deepest}")
     w = None
     if weighted:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed + 200)
-        w = 0.5 + 1.5 * torch.rand(N, generator=gen, device=device)
+        w = (0.5 + 1.5 * torch.rand(N, generator=gen,
+                                    device=device)).to(dtype)
     on, rg = regrow_args(args, 1.0, seed + 100)
     shut, rg_shut = regrow_args(args, 0.5, seed + 100, shut=True)
     out, ks, err, after = {}, {}, 0.0, {}
@@ -2298,23 +2438,31 @@ def deep_at_shape(device, label, N, C, kernels, seed, T=75, weighted=False,
         torch.cuda.synchronize()
         res = check_sweep(f"{tag} p_regrow {p}", outs, state, yt, C, N, T,
                           C - 1)
-        names = list(kernels)
-        for x, y in zip(names, names[1:]):
-            if ks[x] == ks[y] and not all(
-                    torch.equal(i, j) for i, j in zip(outs[x], outs[y])):
-                raise AssertionError(f"{tag} p_regrow {p}: {x} and {y} at "
-                                     f"K={ks[x]} not equal to the bit")
+        kmax = max(ks.values())
+        ref = next(x for x in kernels if ks[x] == kmax)
+        for x in kernels:
+            same = outs[x]
+            if ks[x] != kmax:
+                same = kernels[x][0](*a, weights=w, rg=r, cluster=kmax)
+                torch.cuda.synchronize()
+            if not all(torch.equal(i, j) for i, j in zip(outs[ref], same)):
+                raise AssertionError(f"{tag} p_regrow {p}: {x} at K={kmax} "
+                                     f"not equal to {ref} to the bit")
+            if ks[x] != kmax:
+                print(f"{tag} p_regrow {p}: {x} forced to K={kmax} equals "
+                      f"{ref} to the bit", flush=True)
         err = max(err, *(v[1] for v in res.values()))
         after[p] = depth_note(outs["plain"][0])
         del outs
     print(f"{tag}: "
           + ", ".join(f"{k} (K={v})" for k, v in ks.items())
-          + " against the plain sweep at p_regrow 0 and 1 as above (at "
-          "equal K equal to each other to the bit), and with every gate "
-          "shut equal to p_regrow 0 to the bit; after the sweep "
-          f"the deepest node at depth {after['0'][0]} / {after['1'][0]}, "
-          f"{after['0'][1]} / {after['1'][1]} nodes at depth >= 7 (p_regrow "
-          "0 / 1)", flush=True)
+          + f" against the plain sweep at p_regrow 0 and 1 as above (at "
+          f"K={max(ks.values())} equal to each other to the bit), and with "
+          "every gate "
+          "shut equal to p_regrow 0 to the bit"
+          + (f"; after the sweep the deepest node at depth {after['0'][0]} "
+             f"/ {after['1'][0]}, {after['0'][1]} / {after['1'][1]} nodes "
+             "at depth >= 7 (p_regrow 0 / 1)" if deep else ""), flush=True)
     out.update(err=err, clusters=ks, start_deep=n7, deepest=deepest)
     if times:
         for name, (launch, _) in kernels.items():
@@ -2345,17 +2493,17 @@ def phase_deep_kernels(device, full=None, regrow=None, reps=7):
     three = {"batch": (sweep_cuda, bart_sweep_fused_batch),
              "tiled": (sweep_tiled_cuda, bart_sweep_fused_batch_tiled),
              "chain": (sweep_chain_cuda, bart_sweep_fused)}
-    bench = deep_at_shape(device, "phase 12a", N, C, three, 3, T,
-                          times=True, reps=reps)
-    at128 = deep_at_shape(device, "phase 12a", N, 128,
-                          {k: three[k] for k in ("batch", "chain")}, 6, T)
+    bench = kernels_at_shape(device, "phase 12a", N, C, three, 3, T,
+                             times=True, reps=reps)
+    at128 = kernels_at_shape(device, "phase 12a", N, 128,
+                             {k: three[k] for k in ("batch", "chain")}, 6, T)
     if kernel_smem("bart_sweep_tiled", 50_000, T, 1, True,
                    DEEP_PAD)["resid_on_chip"]:
         raise AssertionError("phase 12a: the deep obs-tiled kernel at "
                              "50 000 rows a block keeps the residual on "
                              "chip; its streaming kernel would go "
                              "unchecked")
-    at50k = deep_at_shape(
+    at50k = kernels_at_shape(
         device, "phase 12a", 50_000, 32,
         {"tiled": three["tiled"], "chain": three["chain"],
          "tiled streamed": (partial(sweep_tiled_cuda, cluster=1),
@@ -2368,15 +2516,15 @@ def phase_deep_kernels(device, full=None, regrow=None, reps=7):
         raise AssertionError("phase 12a: the depth-9 obs-tiled kernel at "
                              "30 000 rows a block keeps the residual on "
                              "chip")
-    at9 = [deep_at_shape(device, "phase 12a", N, 128,
-                         {k: three[k] for k in ("batch", "chain")}, 12, T,
-                         cfg_kw=DEEP9),
-           deep_at_shape(device, "phase 12a", 30_000, 32,
-                         {"tiled": three["tiled"],
-                          "tiled streamed": (partial(sweep_tiled_cuda,
-                                                     cluster=1),
-                                             bart_sweep_fused_batch_tiled)},
-                         13, T, weighted=True, cfg_kw=DEEP9)]
+    at9 = [kernels_at_shape(device, "phase 12a", N, 128,
+                            {k: three[k] for k in ("batch", "chain")}, 12,
+                            T, cfg_kw=DEEP9),
+           kernels_at_shape(device, "phase 12a", 30_000, 32,
+                            {"tiled": three["tiled"],
+                             "tiled streamed": (
+                                 partial(sweep_tiled_cuda, cluster=1),
+                                 bart_sweep_fused_batch_tiled)},
+                            13, T, weighted=True, cfg_kw=DEEP9)]
     print("phase 12a " + "; ".join(
         smem_note(f"bart_sweep_{k}", N, T, at9[0]["clusters"][k], r, 1024)
         for k in ("batch", "chain") for r in (False, True)), flush=True)
@@ -2467,47 +2615,50 @@ def phase_deep_fit(device, label="phase 12b", n=10_000, chains=128,
     return launches, q
 
 
-def _deep_fit_child(out_q):
-    """Phase 12b in a process of its own (``start_deep_fit``): puts
-    ("ok", (launches, fit_quality)) or ("error", traceback) on out_q."""
+def _fit_child(out_q, phase):
+    """Host-bound fit phase ``phase`` ("12b" or "13b") in a process of
+    its own (``start_fit``): puts ("ok", its result) or ("error",
+    traceback) on out_q."""
     import traceback
 
     from stan4bart_torch.utils.device import resolve_device
 
     try:
-        out_q.put(("ok", phase_deep_fit(resolve_device("cuda"))))
+        fn = {"12b": phase_deep_fit, "13b": phase_f64_fit}[phase]
+        out_q.put(("ok", fn(resolve_device("cuda"))))
     except BaseException:
         out_q.put(("error", traceback.format_exc()))
 
 
-def start_deep_fit():
-    """Phase 12b started in a child process, so that its host-bound fit
-    runs beside phase 11c's (the same fit at depth 6, its comparator:
-    both run under the same load); ``join_deep_fit`` collects it."""
+def start_fit(phase):
+    """Fit phase ``phase`` (12b or 13b) started in a child process, so
+    that its host-bound fit runs beside phase 11c's (the same fit at
+    depth 6 and in float32, their comparator: all run under the same
+    load); ``join_fit`` collects it."""
     ctx = torch.multiprocessing.get_context("spawn")
     out_q = ctx.Queue()
-    proc = ctx.Process(target=_deep_fit_child, args=(out_q,), daemon=True)
+    proc = ctx.Process(target=_fit_child, args=(out_q, phase), daemon=True)
     proc.start()
-    return proc, out_q
+    return phase, proc, out_q
 
 
-def join_deep_fit(child, timeout_s=900):
-    """Phase 12b's (launches, fit_quality); raises with the child's
-    traceback when it failed.  The child is stopped either way."""
+def join_fit(child, timeout_s=900):
+    """A child fit phase's result; raises with the child's traceback when
+    it failed.  The child is stopped either way."""
     import queue
 
-    proc, out_q = child
+    phase, proc, out_q = child
     try:
         status, value = out_q.get(timeout=timeout_s)
     except queue.Empty:
-        raise TimeoutError(f"phase 12b did not finish in {timeout_s} s")
+        raise TimeoutError(f"phase {phase} did not finish in {timeout_s} s")
     finally:
         proc.join(30)
         if proc.is_alive():
             proc.kill()
             proc.join(5)
     if status != "ok":
-        raise RuntimeError(f"phase 12b failed:\n{value}")
+        raise RuntimeError(f"phase {phase} failed:\n{value}")
     return value
 
 
@@ -2561,6 +2712,273 @@ def deep_entries(deep, sharded, launches, paths):
     return out
 
 
+# phase 13: float64 state, the kernels' double-precision builds
+F64 = torch.float64
+
+
+def phase_f64_kernels(device, full=None, regrow=None, reps=7):
+    """Phase 13a: the one-launch kernels' float64 builds against the plain
+    float64 sweep on the card on shared variates (drawn in float32 and
+    widened, as the wrappers draw them): at the bench shape (timed at
+    p_regrow 0 and 1 with the plain sweep, K, shared memory and the
+    bound, beside the float32 times of phases 2 and 11a when they ran:
+    ``full``, ``regrow``; the three equal to the bit, forced to one K
+    where they pick different ones), at phases 6-9's 10 000 x 128, at
+    phase 13b's small fits' shapes (the per-chain build at 2000 x 16, the
+    obs-tiled one at 20 000 x 8, 20 trees), at 50 000 x 32 weighted
+    (also the obs-tiled kernel at K = 1, its residual in device memory),
+    the 512-slot builds at max_depth 8 and the
+    1024-slot builds at max_depth 9 at 10 000 x 128; each at p_regrow 0
+    and 1 with every gate shut equal to p_regrow 0 to the bit."""
+    from functools import partial
+
+    from stan4bart_torch.ops.bart_sweep_kernel import (
+        bart_sweep_fused, bart_sweep_fused_batch,
+        bart_sweep_fused_batch_tiled, kernel_smem, sweep_chain_cuda,
+        sweep_cuda, sweep_tiled_cuda)
+
+    C, N, T, M = 256, 10_000, 75, 127
+    three = {"batch": (sweep_cuda, bart_sweep_fused_batch),
+             "tiled": (sweep_tiled_cuda, bart_sweep_fused_batch_tiled),
+             "chain": (sweep_chain_cuda, bart_sweep_fused)}
+    streamed = (partial(sweep_tiled_cuda, cluster=1),
+                bart_sweep_fused_batch_tiled)
+    label = "phase 13a"
+    bench = kernels_at_shape(device, label, N, C, three, 3, T, times=True,
+                             reps=reps, cfg_kw={}, dtype=F64)
+    at128 = kernels_at_shape(device, label, N, 128,
+                             {k: three[k] for k in ("batch", "chain")}, 6, T,
+                             cfg_kw={}, dtype=F64)
+    # the shapes of phase 13b's small fits: the per-chain resume
+    # (f64_resume) and the obs-tiled fit (f64_tiled_fit), 20 trees
+    at_resume = kernels_at_shape(device, label, 2000, 16,
+                                 {"chain": three["chain"]}, 14, 20,
+                                 cfg_kw={}, dtype=F64)
+    at_tiled = kernels_at_shape(device, label, 20_000, 8,
+                                {"tiled": three["tiled"]}, 15, 20,
+                                cfg_kw={}, dtype=F64)
+    if kernel_smem("bart_sweep_tiled", 50_000, T, 1, True, 128,
+                   F64)["resid_on_chip"]:
+        raise AssertionError(f"{label}: the float64 obs-tiled kernel at "
+                             "50 000 rows a block keeps the residual on "
+                             "chip; its streaming kernel would go unchecked")
+    at50k = kernels_at_shape(device, label, 50_000, 32,
+                             {"tiled": three["tiled"],
+                              "chain": three["chain"],
+                              "tiled streamed": streamed},
+                             7, T, weighted=True, cfg_kw={}, dtype=F64)
+    deep8 = kernels_at_shape(device, label, N, 128, three, 12, T,
+                             cfg_kw=DEEP, dtype=F64)
+    # the 1024-slot float64 single-pass ceiling (5 760) is below 10 000
+    deep9 = kernels_at_shape(device, label, N, 128,
+                             {k: three[k] for k in ("tiled", "chain")}, 13,
+                             T, cfg_kw=DEEP9, dtype=F64)
+    notes = ([smem_note(f"bart_sweep_{k}", N, T, bench["clusters"][k], r,
+                        dtype=F64) for k in three for r in (False, True)]
+             + [smem_note(f"bart_sweep_{k}", 50_000, T,
+                          at50k["clusters"][k], True, dtype=F64)
+                for k in ("tiled", "chain")]
+             + [smem_note("bart_sweep_tiled", 50_000, T, 1, True,
+                          dtype=F64)]
+             + [smem_note(f"bart_sweep_{k}", N, T, deep8["clusters"][k],
+                          True, DEEP_PAD, F64) for k in three]
+             + [smem_note(f"bart_sweep_{k}", N, T, deep9["clusters"][k],
+                          True, 1024, F64) for k in ("tiled", "chain")])
+    for note in notes:
+        print(f"{label} {note}", flush=True)
+    nbytes = sweep_bytes(C, T, N, M, dtype=F64)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound1_ms = (nbytes + regrow_bytes(C, T, M, F64)) / HBM_BYTES_PER_S * 1e3
+    f32 = {"batch": ((full or {}).get("ms"), (regrow or {}).get("batch_ms_1")),
+           "tiled": ((full or {}).get("tiled_ms"),
+                     (regrow or {}).get("tiled_ms_1")),
+           "chain": ((full or {}).get("chain_ms"),
+                     (regrow or {}).get("chain_ms_1"))}
+    lines = "; ".join(
+        f"{k} (K={bench['clusters'][k]}) p_regrow 0 / 1: "
+        f"{bench[k + '_ms_0']:.4f} / {bench[k + '_ms_1']:.4f} ms"
+        + ("" if f32[k][0] is None else
+           f" (float32: {f32[k][0]:.4f}"
+           + ("" if f32[k][1] is None else f" / {f32[k][1]:.4f}") + " ms)")
+        for k in three)
+    print(f"{label} float64 times at n={N} chains={C} trees={T}, median of "
+          f"{reps}: {lines}; batch at p_regrow 0 "
+          f"{[round(t, 4) for t in bench['batch_all_0']]}; plain float64 "
+          f"sweep at p_regrow 0 {bench['plain_ms']:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({nbytes / 1e9:.4f} GB at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s: 24 B an observation and tree), "
+          f"with the move {bound1_ms:.4f} ms; {card()}", flush=True)
+    errs = [r["err"] for r in (bench, at128, at_resume, at_tiled, at50k,
+                                deep8, deep9)]
+    print(f"{label}: every float64 build within {F64_TOL['atol']} of the "
+          f"plain float64 sweep (max |kernel - plain| {max(errs):.3g})",
+          flush=True)
+    return dict(bench, bound_ms=bound_ms, bound1_ms=bound1_ms,
+                max_abs_err=max(errs), deep8=deep8["clusters"],
+                deep9=deep9["clusters"])
+
+
+def f64_resume(device, label="phase 13b resume", n=2000, chains=16,
+               trees=20, iters=20, warmup=10):
+    """A small float64 fit on the per-chain path (a callback) through
+    ``save``, ``load(device="cuda")`` and ``continue_sampling``: the
+    loaded fit's ``continue_sampling(10)``, whole and in chunks of 4,
+    equal to the bit to the original's whole one; every sweep a launch of
+    the per-chain kernel's float64 build.  Returns its launches."""
+    import tempfile
+
+    import stan4bart_torch
+    from stan4bart_torch.ops.bart_sweep_kernel import bart_sweep_fused
+    from stan4bart_torch.utils.friedman import (
+        friedman_dataframe, generate_friedman_data)
+
+    df = friedman_dataframe(generate_friedman_data(n, ranef=True,
+                                                   causal=True))
+    counts = reset_counts()
+    fit = stan4bart_torch.stan4bart(
+        FLAGSHIP, df, treatment="z", chains=chains, iter=iters,
+        warmup=warmup, seed=5, verbose=-1, device=device, dtype=F64,
+        callback=lambda d: {"sigma": d["aux.1"]},
+        stan_args={"max_treedepth": 4}, bart_args={"n_trees": trees})
+    launches = check_launches(label, counts, "bart_sweep_chain", iters + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fit.pkl")
+        fit.save(path)
+        back = stan4bart_torch.Stan4bartFit.load(path, device=device)
+    if not (back.prog.dtype == F64 and back.prog.device.type == "cuda"
+            and back.final_states.bart.leaf_value.dtype == F64
+            and back.final_states.bart.leaf_value.is_cuda):
+        raise AssertionError(f"{label}: the loaded fit is not float64 on "
+                             "the card")
+    resumed = {}
+    for which, f, kw in (("original", fit, {}), ("loaded", back, {}),
+                         ("loaded, chunked", back, {"chunk_size": 4})):
+        counts = reset_counts()
+        resumed[which] = f.continue_sampling(10, **kw)
+        launches += check_launches(f"{label} {which}", counts,
+                                   "bart_sweep_chain", 10)
+    f64 = bart_sweep_fused.f64_launches
+    names = ("stan", "bart_train", "bart_test", "k")
+    diffs = {w: resume_equal(resumed["original"], resumed[w], names)
+             for w in ("loaded", "loaded, chunked")}
+    print(f"{label}: float64 fit n={n} chains={chains} on the per-chain "
+          f"path, saved, loaded on the card; continue_sampling(10) of the "
+          "loaded fit against the original's whole one: " + "; ".join(
+              f"{w}: max difference {d:.3g}, equal to the bit {same}"
+              for w, (d, same) in diffs.items())
+          + f"; {f64} float64 per-chain launches in the last resume",
+          flush=True)
+    if not all(same for _, same in diffs.values()) or f64 != 10:
+        raise AssertionError(f"{label}: the float64 resume is not equal to "
+                             "the bit")
+    return launches
+
+
+def f64_tiled_fit(device, label="phase 13b tiled", n=20_000, chains=8,
+                  trees=20, iters=12, warmup=6):
+    """A short float64 fit past the single-pass ceiling: every sweep a
+    launch of the obs-tiled kernel's float64 build, finite draws.
+    Returns its launches."""
+    from stan4bart_torch.ops.bart_sweep_kernel import (
+        bart_sweep_fused_batch_tiled)
+
+    _, fit, launches = run_fit(label, device, n, chains, "bart_sweep_tiled",
+                               iters, warmup, trees, dtype=F64,
+                               stan_args={"max_treedepth": 4})
+    finite_draws(label, fit)
+    if bart_sweep_fused_batch_tiled.f64_launches != launches:
+        raise AssertionError(f"{label}: a sweep ran another build")
+    return launches
+
+
+def phase_f64_fit(device, label="phase 13b", n=10_000, chains=128,
+                  iters=150, warmup=75, trees=75):
+    """Phase 13b: the phase 3 fit (at 128 chains) with
+    ``dtype=torch.float64``, every sweep a launch of the single-pass
+    kernel's float64 build: the gaussian gates, SATE within 1 of the
+    truth, every posterior-mean Sigma positive definite, and its
+    ``fit_quality``; then ``f64_resume`` and ``f64_tiled_fit``.  Returns
+    the float64 builds' launches by kernel and its ``fit_quality``."""
+    from stan4bart_torch.ops.bart_sweep_kernel import bart_sweep_fused_batch
+
+    d, fit, launches = run_fit(label, device, n, chains, "bart_sweep_batch",
+                               iters, warmup, trees, dtype=F64)
+    f64 = bart_sweep_fused_batch.f64_launches
+    finite_draws(label, fit)
+    if (fit.prog.dtype != F64 or f64 != launches
+            or fit.final_states.bart.leaf_value.dtype != F64):
+        raise AssertionError(f"{label}: {f64} of {launches} launches ran "
+                             "the float64 build")
+    q = fit_quality(d, fit)
+    check_gates(label, q["cor"], q["sigma"], "bart_sweep_batch", launches,
+                iters)
+    eig = {k: float(np.linalg.eigvalsh(S.mean(-1)).min())
+           for k, S in fit.extract("Sigma").items()}
+    print(f"{label}: dtype float64, {f64} launches of the float64 "
+          f"single-pass build (every sweep); {quality_line(q)}; SATE truth "
+          f"{d['tau']}, within 1; smallest eigenvalue of the posterior-mean "
+          "Sigma by term: " + ", ".join(f"{k} {v:.4g}"
+                                        for k, v in eig.items()),
+          flush=True)
+    if abs(q["sate"] - d["tau"]) >= 1.0 or min(eig.values()) <= 0:
+        raise AssertionError(f"{label}: SATE or Sigma gate failed")
+    del fit
+    paths = {"bart_sweep_batch_f64": launches,
+             "bart_sweep_chain_f64": f64_resume(device),
+             "bart_sweep_tiled_f64": f64_tiled_fit(device)}
+    return paths, q
+
+
+def f64_entries(f64, sharded, launches, paths):
+    """The kernels line's entries of the float64 builds (phase 13a's
+    numbers at the bench shape; launches of the float64 builds on the
+    main paths: phase 13b's fits)."""
+    bench = sweep_bytes(256, 75, 10_000, 127, dtype=F64)
+    out = []
+    for k, src, line in (("batch", "bart_sweep_batch", 859),
+                         ("tiled", "bart_sweep_tiled", 1495),
+                         ("chain", "bart_sweep_chain", 596)):
+        out.append({
+            "name": f"{src}_f64",
+            "route": "cuda",
+            "source": f"stan4bart_torch/csrc/{src}.cu",
+            # the float64 build of the port of this TPU kernel; the JAX
+            # package sweeps float64 with XLA (stan4bart_tpu/fit.py:447)
+            "replaces": f"stan4bart_tpu/ops/bart_sweep_kernel.py:{line}",
+            "launches": launches.get(f"{src}_f64", 0),
+            "launches_by_path": paths.get(f"{src}_f64", {}),
+            "max_abs_err": f64["max_abs_err"],
+            "ms": f64[f"{k}_ms_0"],
+            "kernel_ms": f64[f"{k}_ms_0"],
+            "ms_p_regrow_1": f64[f"{k}_ms_1"],
+            "plain_ms": f64["plain_ms"],
+            "bound_ms": f64["bound_ms"],
+            "bound_ms_p_regrow_1": f64["bound1_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "cluster": f64["clusters"][k],
+            "bound_bytes": bench,
+        })
+    out.append({
+        "name": "bart_sweep_sharded_f64",
+        "route": "cuda",
+        "source": "stan4bart_torch/csrc/bart_sweep_sharded.cu",
+        "replaces": "stan4bart_tpu/ops/bart.py:717",
+        "launches": launches.get("bart_sweep_sharded_f64", 0),
+        "launches_by_path": paths.get("bart_sweep_sharded_f64", {}),
+        "max_abs_err": sharded["f64_err"],
+        "ms": sharded["f64_ms"],
+        "kernel_ms": sharded["f64_ms"],
+        "ms_p_regrow_1": sharded["f64_ms_1"],
+        "plain_ms": sharded["f64_plain_ms"],
+        "bound_ms": sharded["f64_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "cluster": sharded["f64_cluster"],
+    })
+    return out
+
+
 class Beside:
     """``fn()`` in a thread of this process, for a phase whose work runs
     in processes of its own, so that this process can run another phase
@@ -2587,12 +3005,12 @@ class Beside:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default all); "
-                    "1, 2, 4, 10a, 11a, 11b and 12a are the kernel "
+                    "1, 2, 4, 10a, 11a, 11b, 12a and 13a are the kernel "
                     "phases, which the kernels line needs; 10a, 10b, 10c, "
-                    "11a to 11d, 12a and 12b run one part of phase 10, 11 "
-                    "or 12")
+                    "11a to 11d, 12a, 12b, 13a and 13b run one part of "
+                    "phase 10, 11, 12 or 13")
     args = ap.parse_args()
     run = set(args.phases.split(","))
     if "10" in run:
@@ -2601,6 +3019,8 @@ def main():
         run |= {"11a", "11b", "11c", "11d"}
     if "12" in run:
         run |= {"12a", "12b"}
+    if "13" in run:
+        run |= {"13a", "13b"}
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2621,7 +3041,7 @@ def main():
         walls[name] = now - clock[0]
         clock[0] = now
 
-    secs = cuda_build.build(list(KERNELS), verbose=True)
+    secs = cuda_build.build(list(KERNELS + F64_KERNELS), verbose=True)
     lap("build")
     print("build: " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
           + f" ({walls['build']:.1f} s in all)", flush=True)
@@ -2682,11 +3102,12 @@ def main():
     # in 10a's
     torch.cuda.empty_cache()
     sharded = None
-    if {"10a", "11b", "12a"} & run:
+    if {"10a", "11b", "12a", "13a"} & run:
         sharded = phase_sharded_kernel(regrow="11b" in run,
-                                       deep="12a" in run)
+                                       deep="12a" in run, f64="13a" in run)
         lap("phase 10a" + (" and 11b" if "11b" in run else "")
-            + (" and 12a sharded" if "12a" in run else ""))
+            + (" and 12a sharded" if "12a" in run else "")
+            + (" and 13a sharded" if "13a" in run else ""))
     # 10b's ranks are processes of their own, waited on by a thread; the
     # short option fits of phases 6, 8 and 9 run beside them in this
     # process, each with its own launch counts (the ranks count theirs)
@@ -2706,30 +3127,40 @@ def main():
     lap("phase 10b and the option fits of 6, 8 and 9 beside it")
     if "10c" in run:
         for k, v in phase_contracts(device).items():
-            paths[k]["phase 10c"] = v
+            paths.setdefault(k, {})["phase 10c"] = v
         lap("phase 10c")
     regrow = None
     if "11a" in run:
         regrow = phase_regrow_kernels(device)
         lap("phase 11a")
-    # 12b's fit runs in a child process beside 11c's, its comparator
-    deep_child = start_deep_fit() if "12b" in run else None
-    q6 = None     # 11c's fit_quality, printed beside 12b's
+    # 12b's and 13b's fits run in child processes beside 11c's, their
+    # comparator
+    children = [start_fit(p) for p in ("12b", "13b") if p in run]
+    q6 = None     # 11c's fit_quality, printed beside 12b's and 13b's
     if "11c" in run:
         n11, q6 = phase_regrow_fit(device)
         paths["bart_sweep_batch"]["phase 11c"] = n11
         paths["bart_sweep_regrow"] = {"phase 11c": n11}
-        lap("phase 11c" + (" and 12b beside it" if deep_child else ""))
-    if deep_child is not None:
-        n12, q8 = join_deep_fit(deep_child)
-        # launches of the deep build, counted in its own entry
-        paths["bart_sweep_batch_deep"] = {"phase 12b": n12}
-        print("phase 12b, depth 8 against depth 6: " + quality_line(q8)
-              + ("" if q6 is None else
-                 "; depth 6 (phase 11c, the same fit with p_regrow 0.25, "
-                 f"run beside it): {quality_line(q6)}") + f"; {card()}",
-              flush=True)
-        lap("phase 12b (joined)")
+        lap("phase 11c" + "".join(f" and {c[0]}" for c in children)
+            + (" beside it" if children else ""))
+    comparator = ("" if q6 is None else
+                  "; phase 11c (depth 6, float32, p_regrow 0.25, run "
+                  f"beside it): {quality_line(q6)}")
+    for child in children:
+        if child[0] == "12b":
+            n12, q8 = join_fit(child)
+            # launches of the deep build, counted in its own entry
+            paths["bart_sweep_batch_deep"] = {"phase 12b": n12}
+            print("phase 12b, depth 8 against depth 6: " + quality_line(q8)
+                  + comparator + f"; {card()}", flush=True)
+        else:
+            n13, q13 = join_fit(child)
+            # launches of the float64 builds, counted in their entries
+            for k, v in n13.items():
+                paths.setdefault(k, {})["phase 13b"] = v
+            print("phase 13b, float64 against float32: " + quality_line(q13)
+                  + comparator + f"; {card()}", flush=True)
+        lap(f"phase {child[0]} (joined)")
     if "11d" in run:
         phase_profile(device, p11)
         del p11
@@ -2739,12 +3170,24 @@ def main():
         deep = phase_deep_kernels(device, full if "2" in run else None,
                                   regrow)
         lap("phase 12a")
+    f64 = None
+    if "13a" in run:
+        f64 = phase_f64_kernels(device, full if "2" in run else None,
+                                regrow)
+        lap("phase 13a")
     print("wall seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; {sum(walls.values()):.1f} in all", flush=True)
-    kernel_phases = {"1", "2", "4", "10a", "11a", "11b", "12a"}
+    kernel_phases = {"1", "2", "4", "10a", "11a", "11b", "12a", "13a"}
     launches = {k: (sum(v.values()) if run - kernel_phases else None)
                 for k, v in paths.items()}
+    # each float64 build launched on the main path that runs it
+    for k, phase in (("bart_sweep_batch_f64", "13b"),
+                     ("bart_sweep_chain_f64", "13b"),
+                     ("bart_sweep_tiled_f64", "13b"),
+                     ("bart_sweep_sharded_f64", "10c")):
+        if phase in run and not launches.get(k):
+            raise AssertionError(f"{k}: no launch in phase {phase}")
     if not kernel_phases - {"10a"} <= run or sharded is None:
         print(card(), flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -2879,7 +3322,8 @@ def main():
         "sharded_plain_ms": sharded["rg_plain_ms"],
         "sharded_bound_ms": sharded["rg_bound_ms"],
         "sharded_regrow_updates": sharded["rg_updates"],
-    }] + deep_entries(deep, sharded, launches, paths)}), flush=True)
+    }] + deep_entries(deep, sharded, launches, paths)
+        + f64_entries(f64, sharded, launches, paths)}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,8 @@
 // full - obs is then the node math (move choice, decision, leaf draw),
 // obs - copy the per-observation work and copy the streaming floor.  What
 // bounds them: bytes, as the sweep (16 B per observation and tree).  They
-// are built for 128-slot heaps (max_depth <= 6) only: no fit runs them.
+// are built for 128-slot heaps (max_depth <= 6) and float only: no fit
+// runs them.
 
 #include "sweep_cluster.cuh"
 
@@ -31,9 +32,9 @@ using namespace s4b;
 
 template <Body kBody>
 __global__ void __launch_bounds__(kThreads)
-bart_sweep_ablate_kernel(SweepArgs a, int K) {
+bart_sweep_ablate_kernel(SweepArgs<float> a, int K) {
   extern __shared__ float4 smem4[];
-  __shared__ TreeShared<kPadShallow> s;
+  __shared__ TreeShared<kPadShallow, float> s;
   sweep_on_chip<kBody>(a, s, reinterpret_cast<unsigned char*>(smem4), K);
 }
 
@@ -51,7 +52,7 @@ extern "C" int bart_sweep_ablate_launch(
     int32_t* cut_out, float* lv_out, int32_t* lidx_out, float* tfit_out,
     float* resid_out, float* stats_out, int C, int T, int N, int P, int M,
     int K, void* stream) {
-  SweepArgs a{};
+  SweepArgs<float> a{};
   a.feature_in = feature_in;
   a.cut_in = cut_in;
   a.lidx_in = lidx_in;
@@ -73,7 +74,7 @@ extern "C" int bart_sweep_ablate_launch(
   a.M = M;
   a.lv_in = lv_in;
   a.stats_out = stats_out;
-  const size_t dyn = on_chip_bytes<kPadShallow>(N, T, K);
+  const size_t dyn = on_chip_bytes<kPadShallow, float>(N, T, K);
   if (mode == 0)
     return launch_clusters(bart_sweep_ablate_kernel<Body::kCopy>, a, C, K,
                            dyn, stream);

@@ -45,6 +45,12 @@
 // (n <= 23 424 at 512 and 14 592 at 1024, K = 1, 75 trees;
 // ops/bart_sweep_kernel.py:on_chip_ceilings) and fewer blocks fit on an
 // SM.
+//
+// The source is also built for float64 state (S4B_F64: the library
+// bart_sweep_batch_f64, symbols ending in _f64), which the JAX package
+// sweeps with XLA only: 8 B of residual an observation on chip and 24 B
+// of device memory an observation and tree, so one block holds 18 496
+// observations at 128 slots (12 032 at 512, 5 856 at 1024, 75 trees).
 
 #include "sweep_cluster.cuh"
 
@@ -52,87 +58,77 @@ namespace {
 
 using namespace s4b;
 
-template <int kPad, bool kRegrow>
+template <typename Real, int kPad, bool kRegrow>
 __global__ void __launch_bounds__(kThreads)
-bart_sweep_batch_kernel(SweepArgs a, int K) {
+bart_sweep_batch_kernel(SweepArgs<Real> a, int K) {
   extern __shared__ float4 smem4[];
   on_chip_kernel<kRegrow, kPad>(a, K,
                                 reinterpret_cast<unsigned char*>(smem4));
 }
 
-template <int kPad>
+template <typename Real, int kPad>
 int info(int N, int T, int K, int regrow, long long* static_b,
          long long* dynamic_b, int* optin, int* clusters) {
   const size_t dyn =
-      on_chip_bytes<kPad>(N, T, K) + state_bytes<kPad>(regrow);
+      on_chip_bytes<kPad, Real>(N, T, K) + state_bytes<kPad, Real>(regrow);
   *dynamic_b = (long long)dyn;
-  return regrow ? cluster_info(bart_sweep_batch_kernel<kPad, true>, K, dyn,
-                               static_b, optin, clusters)
-                : cluster_info(bart_sweep_batch_kernel<kPad, false>, K, dyn,
-                               static_b, optin, clusters);
+  return regrow
+      ? cluster_info(bart_sweep_batch_kernel<Real, kPad, true>, K, dyn,
+                     static_b, optin, clusters)
+      : cluster_info(bart_sweep_batch_kernel<Real, kPad, false>, K, dyn,
+                     static_b, optin, clusters);
 }
 
-template <int kPad>
-int launch(const SweepArgs& a, int C, int K, void* stream) {
-  const size_t dyn =
-      on_chip_bytes<kPad>(a.N, a.T, K) + state_bytes<kPad>(with_regrow(a));
+template <typename Real, int kPad>
+int launch(const SweepArgs<Real>& a, int C, int K, void* stream) {
+  const size_t dyn = on_chip_bytes<kPad, Real>(a.N, a.T, K)
+      + state_bytes<kPad, Real>(with_regrow(a));
   return with_regrow(a)
-      ? launch_clusters(bart_sweep_batch_kernel<kPad, true>, a, C, K, dyn,
-                        stream)
-      : launch_clusters(bart_sweep_batch_kernel<kPad, false>, a, C, K, dyn,
-                        stream);
+      ? launch_clusters(bart_sweep_batch_kernel<Real, kPad, true>, a, C, K,
+                        dyn, stream)
+      : launch_clusters(bart_sweep_batch_kernel<Real, kPad, false>, a, C, K,
+                        dyn, stream);
 }
 
 }  // namespace
 
 // Writes the kernel's static and dynamic shared memory per block at N, T
-// and K (the build for heaps of ``pad`` slots, 128, 512 or 1024; with
+// and K (the build's real type, for heaps of ``pad`` slots, 128, 512 or
+// 1024; with
 // the regrow step when ``regrow``), the device's opt-in limit per block and
 // the number of clusters of K blocks that can be resident at once;
 // returns the CUDA error code.
-extern "C" int bart_sweep_batch_info(int N, int T, int K, int pad,
-                                     int regrow, long long* static_b,
-                                     long long* dynamic_b, int* optin,
-                                     int* clusters) {
+extern "C" int S4B_SYM(bart_sweep_batch_info)(int N, int T, int K, int pad,
+                                              int regrow, long long* static_b,
+                                              long long* dynamic_b,
+                                              int* optin, int* clusters) {
   switch (pad) {
     case kPadShallow:
-      return info<kPadShallow>(N, T, K, regrow, static_b, dynamic_b, optin,
-                               clusters);
+      return info<BuildReal, kPadShallow>(N, T, K, regrow, static_b,
+                                          dynamic_b, optin, clusters);
     case kPadDeep:
-      return info<kPadDeep>(N, T, K, regrow, static_b, dynamic_b, optin,
-                            clusters);
+      return info<BuildReal, kPadDeep>(N, T, K, regrow, static_b, dynamic_b,
+                                       optin, clusters);
     case kPadDeepest:
-      return info<kPadDeepest>(N, T, K, regrow, static_b, dynamic_b, optin,
-                               clusters);
+      return info<BuildReal, kPadDeepest>(N, T, K, regrow, static_b,
+                                          dynamic_b, optin, clusters);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// Launches one sweep over C chains in clusters of K blocks on ``stream``,
-// the build for heaps of ``pad`` slots (128, 512 or 1024, at least M + 1;
+// Launches one sweep over C chains in clusters of K blocks on ``stream``
+// (the operands in the build's real type), the build for heaps of ``pad``
+// slots (128, 512 or 1024, at least M + 1;
 // zn rows of pad normals); returns the CUDA error code of the launch (0 on
 // success).
-extern "C" int bart_sweep_batch_launch(
-    const int32_t* feature_in, const int32_t* cut_in, const int32_t* lidx_in,
-    const float* tfit_in, const float* resid0, const float* sigma2,
-    const float* tau2, const float* u, const float* zn,
-    const int32_t* ranks_t, const float* spcum, const float* psplit,
-    const float* weights, int32_t* feature_out, int32_t* cut_out,
-    float* lv_out, int32_t* lidx_out, float* tfit_out, float* resid_out,
-    int C, int T, int N, int P, int M, int max_depth, int n_cuts,
-    float p_grow, float p_prune, float trans_grow0, float trans_prune0,
-    float p_regrow, const float* rg, int pad, int K, void* stream) {
-  SweepArgs a{feature_in, cut_in, lidx_in, tfit_in, resid0, sigma2, tau2,
-              u, zn, ranks_t, spcum, psplit, weights, feature_out, cut_out,
-              lv_out, lidx_out, tfit_out, resid_out, T, N, P, M, max_depth,
-              n_cuts, p_grow, p_prune, trans_grow0, trans_prune0};
-  a.p_regrow = p_regrow;
-  a.rg = rg;
+extern "C" int S4B_SYM(bart_sweep_batch_launch)(SWEEP_HEAD, int K,
+                                                void* stream) {
+  const SweepArgs<BuildReal> a = SWEEP_ARGS;
   if (M + 1 > pad) return (int)cudaErrorInvalidValue;
   switch (pad) {
-    case kPadShallow: return launch<kPadShallow>(a, C, K, stream);
-    case kPadDeep: return launch<kPadDeep>(a, C, K, stream);
-    case kPadDeepest: return launch<kPadDeepest>(a, C, K, stream);
+    case kPadShallow: return launch<BuildReal, kPadShallow>(a, C, K, stream);
+    case kPadDeep: return launch<BuildReal, kPadDeep>(a, C, K, stream);
+    case kPadDeepest: return launch<BuildReal, kPadDeepest>(a, C, K, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -53,8 +53,10 @@
 // (chain_stats), and the blocks' fixed-point histograms are added in rank
 // order there (gather_hist, leaf_sums).  The cross-rank reduction is a
 // kernel boundary.  The fixed-point scales are the rank's own, so the
-// integers never leave the rank: each rank turns its exact sums into
-// float32 once, and the ranks' floats are summed by the all-reduce.  A
+// integers never leave the rank: each rank turns its exact sums into the
+// build's real type (float, or double in the S4B_F64 build) once, and the
+// ranks' values are summed by the all-reduce, whose blocks are in that
+// type.  A
 // sharded sweep therefore equals the unsharded one up to rounding, which
 // is the JAX package's own contract for its sharded sweep; on one rank it
 // gives the forests of bart_sweep_tiled.cu but where a sum's rounding
@@ -86,12 +88,12 @@ using namespace s4b;
 // The right pair is summed (into rn), not taken as the move's total less
 // the left pair: with weights that difference can leave a rounding
 // residue where no observation goes right.
-template <int kPad>
+template <typename Real, int kPad>
 __global__ void __launch_bounds__(kThreads)
-sharded_stats_kernel(SweepArgs a, int K, int t, float* blk, int* scl) {
+sharded_stats_kernel(SweepArgs<Real> a, int K, int t, Real* blk, int* scl) {
   extern __shared__ float4 smem4[];
-  TreeShared<kPad>& s =
-      tree_state<kPad>(reinterpret_cast<unsigned char*>(smem4));
+  TreeShared<kPad, Real>& s =
+      tree_state<kPad, Real>(reinterpret_cast<unsigned char*>(smem4));
   // the proposed-right pair's fixed-point sums
   __shared__ unsigned long long rn[2];
 
@@ -103,9 +105,9 @@ sharded_stats_kernel(SweepArgs a, int K, int t, float* blk, int* scl) {
   obs_range(N, K, rank, start, n);
   const bool flush = t == T;
   const size_t ct = (size_t)c * T + t;
-  const float* __restrict__ R0 = a.resid0 + (size_t)c * N + start;
-  float* __restrict__ R = a.resid_out + (size_t)c * N + start;
-  const float* __restrict__ wts = a.weights ? a.weights + start : nullptr;
+  const Real* __restrict__ R0 = a.resid0 + (size_t)c * N + start;
+  Real* __restrict__ R = a.resid_out + (size_t)c * N + start;
+  const Real* __restrict__ wts = a.weights ? a.weights + start : nullptr;
 
   if (tid < 2) rn[tid] = 0;
   // the last tree's leaf values, drawn by its apply launch
@@ -120,30 +122,31 @@ sharded_stats_kernel(SweepArgs a, int K, int t, float* blk, int* scl) {
   }
   const int32_t* __restrict__ li_prev =
       t > 0 ? a.lidx_out + (ct - 1) * N + start : nullptr;
-  float* __restrict__ tf_prev =
+  Real* __restrict__ tf_prev =
       t > 0 ? a.tfit_out + (ct - 1) * N + start : nullptr;
   const int32_t* __restrict__ li_in =
       flush ? nullptr : a.lidx_in + ct * N + start;
-  const float* __restrict__ tf_in =
+  const Real* __restrict__ tf_in =
       flush ? nullptr : a.tfit_in + ct * N + start;
   const int32_t* __restrict__ rank_row =
       flush ? nullptr : mv.rank_row + start;
 
   // pass A: apply tree t-1's fit, roll the residual, the maxima
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  Real acc[8] = {Real(0), Real(0), Real(0), Real(0),
+                 Real(0), Real(0), Real(0), Real(0)};
   for (int i = tid; i < n; i += kThreads) {
-    float r = t == 0 ? R0[i] : R[i];
+    Real r = t == 0 ? R0[i] : R[i];
     if (t > 0) {
-      const float nf = s.lv[li_prev[i]];
+      const Real nf = s.lv[li_prev[i]];
       tf_prev[i] = nf;
       r = r - nf;
     }
     if (!flush) {
       r = r + tf_in[i];
-      const float w = wts ? wts[i] : 1.0f;
-      const float wr = wts ? w * r : r;
-      acc[6] = fmaxf(acc[6], fabsf(wr));
-      acc[7] = fmaxf(acc[7], w);
+      const Real w = wts ? wts[i] : Real(1);
+      const Real wr = wts ? w * r : r;
+      acc[6] = fmax(acc[6], fabs(wr));
+      acc[7] = fmax(acc[7], w);
     }
     R[i] = r;
   }
@@ -165,23 +168,23 @@ sharded_stats_kernel(SweepArgs a, int K, int t, float* blk, int* scl) {
   for (int base = 0; base < n; base += kTile) {
     bool in[kPer], in_l[kPer];
     int li[kPer], li_l[kPer];
-    float w[kPer], wr[kPer];
+    Real w[kPer], wr[kPer];
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       const int i = base + k * kThreads + tid;
       in[k] = i < n;
       in_l[k] = false;
       li[k] = -1;
-      w[k] = 0.0f;
-      wr[k] = 0.0f;
+      w[k] = Real(0);
+      wr[k] = Real(0);
       if (in[k]) {
         li[k] = li_in[i];
         const bool gl = rank_row[i] <= mv.cn;
         const bool mem = mv.grow ? (li[k] == mv.eta)
                                  : (li[k] == mv.lft || li[k] == mv.rgt);
         in_l[k] = mem && gl;
-        const float r = R[i];
-        w[k] = wts ? wts[i] : 1.0f;
+        const Real r = R[i];
+        w[k] = wts ? wts[i] : Real(1);
         wr[k] = wts ? w[k] * r : r;
         if (mem && !gl) {
           rn_w += to_fixed(w[k], s.sc[9]);
@@ -203,9 +206,9 @@ sharded_stats_kernel(SweepArgs a, int K, int t, float* blk, int* scl) {
   // the cluster barrier shows every block's rn too
   gather_hist(s, M + 1, K);
   if (rank == 0) {
-    float* out = blk + (size_t)c * 2 * (M + 2);
+    Real* out = blk + (size_t)c * 2 * (M + 2);
     for (int m = tid; m <= M + 1; m += kThreads) {
-      float cnt, sm;
+      Real cnt, sm;
       if (m <= M) {
         leaf_sums(s, m, K, cnt, sm);
       } else {
@@ -215,8 +218,8 @@ sharded_stats_kernel(SweepArgs a, int K, int t, float* blk, int* scl) {
           c_w += p[0];
           c_r += p[1];
         }
-        cnt = from_fixed(c_w, s.sc[9]);
-        sm = from_fixed(c_r, s.sc[10]);
+        cnt = from_fixed<Real>(c_w, s.sc[9]);
+        sm = from_fixed<Real>(c_r, s.sc[10]);
       }
       out[m] = cnt;
       out[M + 2 + m] = sm;
@@ -232,47 +235,47 @@ sharded_stats_kernel(SweepArgs a, int K, int t, float* blk, int* scl) {
 // post-move partition's sums and rows into post (C, 4, M): weight sums,
 // weighted residual sums, feature, cut), and the new leaf indices of the
 // block's observations.
-template <int kPad>
+template <typename Real, int kPad>
 __global__ void __launch_bounds__(kThreads)
-sharded_apply_kernel(SweepArgs a, int nb, int t, const float* blk,
-                     float* post) {
+sharded_apply_kernel(SweepArgs<Real> a, int nb, int t, const Real* blk,
+                     Real* post) {
   extern __shared__ float4 smem4[];
-  TreeShared<kPad>& s =
-      tree_state<kPad>(reinterpret_cast<unsigned char*>(smem4));
+  TreeShared<kPad, Real>& s =
+      tree_state<kPad, Real>(reinterpret_cast<unsigned char*>(smem4));
 
   const int N = a.N, T = a.T, M = a.M;
   const int c = blockIdx.x / nb, b = blockIdx.x - c * nb;
   const size_t ct = (size_t)c * T + t;
-  const TreeRows rows = global_rows<kPad>(a, ct);
+  const TreeRows<Real> rows = global_rows<kPad>(a, ct);
   const Move mv = begin_tree(a, s, rows);
-  const float* cnt = blk + (size_t)c * 2 * (M + 2);
-  const float* sm = cnt + (M + 2);
-  const float s2 = a.sigma2[c], t2 = a.tau2[c];
+  const Real* cnt = blk + (size_t)c * 2 * (M + 2);
+  const Real* sm = cnt + (M + 2);
+  const Real s2 = a.sigma2[c], t2 = a.tau2[c];
   const bool prune = mv.move == 1;
   if (threadIdx.x == 0) {
-    float st[6];
+    Real st[6];
     st[0] = mv.grow ? cnt[mv.eta] : cnt[mv.lft] + cnt[mv.rgt];
     st[1] = mv.grow ? sm[mv.eta] : sm[mv.lft] + sm[mv.rgt];
     st[2] = cnt[M];
     st[3] = sm[M];
     st[4] = cnt[mv.lft];
     st[5] = sm[mv.lft];
-    const float rn[2] = {cnt[M + 1], sm[M + 1]};
+    const Real rn[2] = {cnt[M + 1], sm[M + 1]};
     mh_decide(a, s, mv, st, rows, s2, t2, rn);
     // the accepted partition's sums at eta, lft and rgt
-    s.tot[0] = prune ? st[0] : 0.0f;
-    s.tot[1] = prune ? st[1] : 0.0f;
-    s.tot[2] = prune ? 0.0f : st[2];
-    s.tot[3] = prune ? 0.0f : st[3];
-    s.tot[4] = prune ? 0.0f : rn[0];
-    s.tot[5] = prune ? 0.0f : rn[1];
+    s.tot[0] = prune ? st[0] : Real(0);
+    s.tot[1] = prune ? st[1] : Real(0);
+    s.tot[2] = prune ? Real(0) : st[2];
+    s.tot[3] = prune ? Real(0) : st[3];
+    s.tot[4] = prune ? Real(0) : rn[0];
+    s.tot[5] = prune ? Real(0) : rn[1];
   }
   __syncthreads();
   const bool accept = s.sc[4] != 0;
 
   if (b == 0) {
     for (int m = threadIdx.x; m < M; m += kThreads) {
-      float n_m = cnt[m], s_m = sm[m];
+      Real n_m = cnt[m], s_m = sm[m];
       if (accept) {
         if (m == mv.eta) {
           n_m = s.tot[0];
@@ -285,18 +288,18 @@ sharded_apply_kernel(SweepArgs a, int nb, int t, const float* blk,
           s_m = s.tot[5];
         }
       }
-      const float pv = 1.0f / (n_m / s2 + 1.0f / t2);
-      const float pm = pv * s_m / s2;
-      const float mu = pm + sqrtf(pv) * rows.zn[m];
-      a.lv_out[ct * M + m] = s.feat[m] == kLeaf ? mu : 0.0f;
+      const Real pv = Real(1) / (n_m / s2 + Real(1) / t2);
+      const Real pm = pv * s_m / s2;
+      const Real mu = pm + sqrt(pv) * rows.zn[m];
+      a.lv_out[ct * M + m] = s.feat[m] == kLeaf ? mu : Real(0);
       a.feature_out[ct * M + m] = s.feat[m];
       a.cut_out[ct * M + m] = s.cut[m];
       if (post != nullptr) {
-        float* p = post + (size_t)c * 4 * M;
+        Real* p = post + (size_t)c * 4 * M;
         p[m] = n_m;
         p[M + m] = s_m;
-        p[2 * M + m] = (float)s.feat[m];
-        p[3 * M + m] = (float)s.cut[m];
+        p[2 * M + m] = (Real)s.feat[m];
+        p[3 * M + m] = (Real)s.cut[m];
       }
     }
   }
@@ -312,10 +315,10 @@ sharded_apply_kernel(SweepArgs a, int nb, int t, const float* blk,
 
 // The post-move rows of chain c's tree from post (C, 4, M) into s.feat
 // and s.cut.  Called by every thread; ends on a block barrier.
-template <int kPad>
-__device__ inline void load_post_tree(TreeShared<kPad>& s, const float* post,
-                                      int c, int M) {
-  const float* p = post + (size_t)c * 4 * M;
+template <int kPad, typename Real>
+__device__ inline void load_post_tree(TreeShared<kPad, Real>& s,
+                                      const Real* post, int c, int M) {
+  const Real* p = post + (size_t)c * 4 * M;
   for (int m = threadIdx.x; m < kPad; m += kThreads) {
     s.feat[m] = m < M ? (int)p[2 * M + m] : kInactive;
     s.cut[m] = m < M ? (int)p[3 * M + m] : 0;
@@ -330,25 +333,25 @@ __device__ inline void load_post_tree(TreeShared<kPad>& s, const float* post,
 // M + 1): row 0 the weight sums, row 1 the weighted residual sums, 0
 // outside eta's subtree and in slot M; a chain whose gate stays shut
 // writes zeros.
-template <int kPad>
+template <typename Real, int kPad>
 __global__ void __launch_bounds__(kThreads)
-sharded_regrow_stats_kernel(SweepArgs a, int K, int t, float* rblk,
-                            const int* scl, const float* post) {
+sharded_regrow_stats_kernel(SweepArgs<Real> a, int K, int t, Real* rblk,
+                            const int* scl, const Real* post) {
   extern __shared__ float4 smem4[];
   unsigned char* dyn = reinterpret_cast<unsigned char*>(smem4);
-  TreeShared<kPad>& s = tree_state<kPad>(dyn);
-  RegrowShared<kPad>& r = regrow_state<kPad>(dyn);
+  TreeShared<kPad, Real>& s = tree_state<kPad, Real>(dyn);
+  RegrowShared<kPad>& r = regrow_state<kPad, Real>(dyn);
 
   const int N = a.N, T = a.T, M = a.M;
   const int tid = threadIdx.x;
   const int rank = block_rank(K);
   const int c = blockIdx.x / K;
   const size_t ct = (size_t)c * T + t;
-  float* out = rblk + (size_t)c * 2 * (M + 1);
+  Real* out = rblk + (size_t)c * 2 * (M + 1);
   if (!regrow_gate(a, ct)) {
     // the whole cluster returns: it is one chain
     if (rank == 0)
-      for (int m = tid; m < 2 * (M + 1); m += kThreads) out[m] = 0.0f;
+      for (int m = tid; m < 2 * (M + 1); m += kThreads) out[m] = Real(0);
     return;
   }
   if (tid == 0) {
@@ -356,19 +359,19 @@ sharded_regrow_stats_kernel(SweepArgs a, int K, int t, float* rblk,
     s.sc[10] = scl[2 * c + 1];
   }
   load_post_tree(s, post, c, M);
-  const float* row = regrow_row(a, ct);
+  const Real* row = regrow_row(a, ct);
   regrow_propose(a, s, r, row);
   int start, n;
   obs_range(N, K, rank, start, n);
   const int32_t* __restrict__ li_t = a.lidx_out + ct * N + start;
-  const float* __restrict__ R = a.resid_out + (size_t)c * N + start;
+  const Real* __restrict__ R = a.resid_out + (size_t)c * N + start;
   regrow_pass(a, s, r, start, n, a.weights ? a.weights + start : nullptr,
               [&](int i) { return li_t[i]; }, [&](int i) { return R[i]; });
   __syncthreads();
   if (K > 1) cluster_sync();
   if (rank == 0) {
     for (int m = tid; m <= M; m += kThreads) {
-      float cnt = 0.0f, sm = 0.0f;
+      Real cnt = Real(0), sm = Real(0);
       if (m < M && bit(r.sub_bits, m)) hist_sums(s, r.hist2, m, K, cnt, sm);
       out[m] = cnt;
       out[M + 1 + m] = sm;
@@ -385,34 +388,34 @@ sharded_regrow_stats_kernel(SweepArgs a, int K, int t, float* rblk,
 // (the leaves of eta's subtree drawn from the proposal's sums, the others
 // from the post-move ones, with the tree's normals) and every block
 // rewrites the leaf indices of its observations under eta.
-template <int kPad>
+template <typename Real, int kPad>
 __global__ void __launch_bounds__(kThreads)
-sharded_regrow_apply_kernel(SweepArgs a, int nb, int t, const float* rblk,
-                            const float* post) {
+sharded_regrow_apply_kernel(SweepArgs<Real> a, int nb, int t,
+                            const Real* rblk, const Real* post) {
   extern __shared__ float4 smem4[];
   unsigned char* dyn = reinterpret_cast<unsigned char*>(smem4);
-  TreeShared<kPad>& s = tree_state<kPad>(dyn);
-  RegrowShared<kPad>& r = regrow_state<kPad>(dyn);
+  TreeShared<kPad, Real>& s = tree_state<kPad, Real>(dyn);
+  RegrowShared<kPad>& r = regrow_state<kPad, Real>(dyn);
 
   const int N = a.N, T = a.T, M = a.M;
   const int c = blockIdx.x / nb, b = blockIdx.x - c * nb;
   const size_t ct = (size_t)c * T + t;
   if (!regrow_gate(a, ct)) return;
   load_post_tree(s, post, c, M);
-  const float* row = regrow_row(a, ct);
+  const Real* row = regrow_row(a, ct);
   regrow_propose(a, s, r, row);
-  const float* oc = post + (size_t)c * 4 * M;
-  const float* os = oc + M;
-  const float* nc = rblk + (size_t)c * 2 * (M + 1);
-  const float* ns = nc + M + 1;
-  const float s2 = a.sigma2[c], t2 = a.tau2[c];
+  const Real* oc = post + (size_t)c * 4 * M;
+  const Real* os = oc + M;
+  const Real* nc = rblk + (size_t)c * 2 * (M + 1);
+  const Real* ns = nc + M + 1;
+  const Real s2 = a.sigma2[c], t2 = a.tau2[c];
   if (threadIdx.x < 32) {
     regrow_mh(s, r, row, M, s2, t2,
-              [&](int m, float& cnt, float& sm) {
+              [&](int m, Real& cnt, Real& sm) {
                 cnt = oc[m];
                 sm = os[m];
               },
-              [&](int m, float& cnt, float& sm) {
+              [&](int m, Real& cnt, Real& sm) {
                 cnt = nc[m];
                 sm = ns[m];
               });
@@ -428,97 +431,65 @@ sharded_regrow_apply_kernel(SweepArgs a, int nb, int t, const float* rblk,
       li_out[i] = regrow_leaf(a, r, eta, start + i);
   if (b != 0) return;
   regrow_accept(s, r);
-  const float* zn = a.zn + ct * kPad;
+  const Real* zn = a.zn + ct * kPad;
   for (int m = threadIdx.x; m < M; m += kThreads) {
     const bool sub = bit(r.sub_bits, m);
-    const float n_m = sub ? nc[m] : oc[m], s_m = sub ? ns[m] : os[m];
-    const float pv = 1.0f / (n_m / s2 + 1.0f / t2);
-    const float pm = pv * s_m / s2;
-    const float mu = pm + sqrtf(pv) * zn[m];
-    a.lv_out[ct * M + m] = s.feat[m] == kLeaf ? mu : 0.0f;
+    const Real n_m = sub ? nc[m] : oc[m], s_m = sub ? ns[m] : os[m];
+    const Real pv = Real(1) / (n_m / s2 + Real(1) / t2);
+    const Real pm = pv * s_m / s2;
+    const Real mu = pm + sqrt(pv) * zn[m];
+    a.lv_out[ct * M + m] = s.feat[m] == kLeaf ? mu : Real(0);
     a.feature_out[ct * M + m] = s.feat[m];
     a.cut_out[ct * M + m] = s.cut[m];
   }
 }
 
-SweepArgs make_args(
-    const int32_t* feature_in, const int32_t* cut_in, const int32_t* lidx_in,
-    const float* tfit_in, const float* resid0, const float* sigma2,
-    const float* tau2, const float* u, const float* zn,
-    const int32_t* ranks_t, const float* spcum, const float* psplit,
-    const float* weights, int32_t* feature_out, int32_t* cut_out,
-    float* lv_out, int32_t* lidx_out, float* tfit_out, float* resid_out,
-    int T, int N, int P, int M, int max_depth, int n_cuts, float p_grow,
-    float p_prune, float trans_grow0, float trans_prune0, float p_regrow,
-    const float* rg) {
-  SweepArgs a{feature_in, cut_in, lidx_in, tfit_in, resid0, sigma2, tau2,
-              u, zn, ranks_t, spcum, psplit, weights, feature_out, cut_out,
-              lv_out, lidx_out, tfit_out, resid_out, T, N, P, M, max_depth,
-              n_cuts, p_grow, p_prune, trans_grow0, trans_prune0};
-  a.p_regrow = p_regrow;
-  a.rg = rg;
-  return a;
-}
+// The launches of each build (the build's real type, heaps of kPad
+// slots, the per-tree state's dynamic shared memory state_bytes, 0 up to
+// 512 slots).
+using Real = BuildReal;
 
-// The launchers' common head: the sweep's operands, shapes and
-// constants, as ops/bart_sweep_kernel.py:_operands passes them.
-#define SHARDED_HEAD                                                        \
-    const int32_t *feature_in, const int32_t *cut_in,                       \
-    const int32_t *lidx_in, const float *tfit_in, const float *resid0,      \
-    const float *sigma2, const float *tau2, const float *u,                 \
-    const float *zn, const int32_t *ranks_t, const float *spcum,            \
-    const float *psplit, const float *weights, int32_t *feature_out,        \
-    int32_t *cut_out, float *lv_out, int32_t *lidx_out, float *tfit_out,    \
-    float *resid_out, int C, int T, int N, int P, int M, int max_depth,     \
-    int n_cuts, float p_grow, float p_prune, float trans_grow0,             \
-    float trans_prune0, float p_regrow, const float *rg, int pad
-#define SHARDED_ARGS                                                        \
-  make_args(feature_in, cut_in, lidx_in, tfit_in, resid0, sigma2, tau2, u,  \
-            zn, ranks_t, spcum, psplit, weights, feature_out, cut_out,      \
-            lv_out, lidx_out, tfit_out, resid_out, T, N, P, M, max_depth,   \
-            n_cuts, p_grow, p_prune, trans_grow0, trans_prune0, p_regrow,   \
-            rg)
-
-// The launches of each build (heaps of kPad slots, the per-tree state's
-// dynamic shared memory state_bytes, 0 up to 512 slots).
 template <int kPad>
 int info(int K, long long* static_b, int* optin, int* clusters) {
-  return cluster_info(sharded_stats_kernel<kPad>, K, state_bytes<kPad>(false),
-                      static_b, optin, clusters);
+  return cluster_info(sharded_stats_kernel<Real, kPad>, K,
+                      state_bytes<kPad, Real>(false), static_b, optin,
+                      clusters);
 }
 
 template <int kPad>
-int stats(const SweepArgs& a, int C, int K, int t, float* blk, int* scl,
-          void* stream) {
-  return launch_clusters(sharded_stats_kernel<kPad>, a, C, K,
-                         state_bytes<kPad>(false), stream, t, blk, scl);
+int stats(const SweepArgs<Real>& a, int C, int K, int t, Real* blk,
+          int* scl, void* stream) {
+  return launch_clusters(sharded_stats_kernel<Real, kPad>, a, C, K,
+                         state_bytes<kPad, Real>(false), stream, t, blk,
+                         scl);
 }
 
 template <int kPad>
-int apply(const SweepArgs& a, int C, int nb, int t, const float* blk,
-          float* post, void* stream) {
-  const size_t dyn = state_bytes<kPad>(false);
-  sharded_apply_kernel<kPad>
+int apply(const SweepArgs<Real>& a, int C, int nb, int t, const Real* blk,
+          Real* post, void* stream) {
+  const size_t dyn = state_bytes<kPad, Real>(false);
+  sharded_apply_kernel<Real, kPad>
       <<<C * nb, kThreads, dyn, (cudaStream_t)stream>>>(a, nb, t, blk, post);
   return (int)cudaGetLastError();
 }
 
 template <int kPad>
-int regrow_stats(const SweepArgs& a, int C, int K, int t, float* rblk,
-                 const int* scl, const float* post, void* stream) {
-  return launch_clusters(sharded_regrow_stats_kernel<kPad>, a, C, K,
-                         state_bytes<kPad>(true), stream, t, rblk, scl, post);
+int regrow_stats(const SweepArgs<Real>& a, int C, int K, int t, Real* rblk,
+                 const int* scl, const Real* post, void* stream) {
+  return launch_clusters(sharded_regrow_stats_kernel<Real, kPad>, a, C, K,
+                         state_bytes<kPad, Real>(true), stream, t, rblk, scl,
+                         post);
 }
 
 template <int kPad>
-int regrow_apply(const SweepArgs& a, int C, int nb, int t, const float* rblk,
-                 const float* post, void* stream) {
-  const size_t dyn = state_bytes<kPad>(true);
+int regrow_apply(const SweepArgs<Real>& a, int C, int nb, int t,
+                 const Real* rblk, const Real* post, void* stream) {
+  const size_t dyn = state_bytes<kPad, Real>(true);
   cudaError_t err = cudaFuncSetAttribute(
-      sharded_regrow_apply_kernel<kPad>,
+      sharded_regrow_apply_kernel<Real, kPad>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return refused(err);
-  sharded_regrow_apply_kernel<kPad>
+  sharded_regrow_apply_kernel<Real, kPad>
       <<<C * nb, kThreads, dyn, (cudaStream_t)stream>>>(a, nb, t, rblk, post);
   return (int)cudaGetLastError();
 }
@@ -530,37 +501,41 @@ int regrow_apply(const SweepArgs& a, int C, int nb, int t, const float* rblk,
 // (128, 512 or 1024), the device's opt-in limit per block and the number
 // of clusters of K blocks that can be resident at once; returns the CUDA
 // error code.
-extern "C" int bart_sweep_sharded_info(int N, int T, int K, int pad,
-                                       long long* static_b,
-                                       long long* dynamic_b, int* optin,
-                                       int* clusters) {
+extern "C" int S4B_SYM(bart_sweep_sharded_info)(int N, int T, int K,
+                                                int pad,
+                                                long long* static_b,
+                                                long long* dynamic_b,
+                                                int* optin, int* clusters) {
   (void)N;
   (void)T;
   switch (pad) {
     case kPadShallow:
-      *dynamic_b = (long long)state_bytes<kPadShallow>(false);
+      *dynamic_b = (long long)state_bytes<kPadShallow, Real>(false);
       return info<kPadShallow>(K, static_b, optin, clusters);
     case kPadDeep:
-      *dynamic_b = (long long)state_bytes<kPadDeep>(false);
+      *dynamic_b = (long long)state_bytes<kPadDeep, Real>(false);
       return info<kPadDeep>(K, static_b, optin, clusters);
     case kPadDeepest:
-      *dynamic_b = (long long)state_bytes<kPadDeepest>(false);
+      *dynamic_b = (long long)state_bytes<kPadDeepest, Real>(false);
       return info<kPadDeepest>(K, static_b, optin, clusters);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// Every launcher takes the build for heaps of ``pad`` slots (128, 512 or
-// 1024, at least M + 1: the stats launch's histograms keep the
-// proposed-left pair in slot M; zn rows of pad normals).
+// Every launcher takes the operands in the build's real type (SWEEP_HEAD)
+// and the build for heaps of ``pad`` slots (128, 512 or 1024, at least
+// M + 1: the stats launch's histograms keep the proposed-left pair in slot
+// M; zn rows of pad normals); its blocks blk, post and rblk are in the
+// real type too.
 
 // Launches the stats pass of tree t (t == T: the flush) over C chains in
 // clusters of K blocks on ``stream``, writing blk (C, 2, M + 2) and, when
 // scl is not null, the tree's fixed-point scales scl (C, 2); returns the
 // CUDA error code of the launch (0 on success).
-extern "C" int bart_sweep_sharded_stats(SHARDED_HEAD, int t, float* blk,
-                                        int* scl, int K, void* stream) {
-  const SweepArgs a = SHARDED_ARGS;
+extern "C" int S4B_SYM(bart_sweep_sharded_stats)(SWEEP_HEAD, int t,
+                                                 Real* blk, int* scl, int K,
+                                                 void* stream) {
+  const SweepArgs<Real> a = SWEEP_ARGS;
   if (t < 0 || t > T || M + 1 > pad) return (int)cudaErrorInvalidValue;
   switch (pad) {
     case kPadShallow: return stats<kPadShallow>(a, C, K, t, blk, scl, stream);
@@ -574,9 +549,10 @@ extern "C" int bart_sweep_sharded_stats(SHARDED_HEAD, int t, float* blk,
 // ``stream``, reading the reduced blk and, when post is not null, keeping
 // the post-move sums and rows in post (C, 4, M) for the tree's regrow;
 // returns the CUDA error code.
-extern "C" int bart_sweep_sharded_apply(SHARDED_HEAD, int t, const float* blk,
-                                        float* post, int nb, void* stream) {
-  const SweepArgs a = SHARDED_ARGS;
+extern "C" int S4B_SYM(bart_sweep_sharded_apply)(SWEEP_HEAD, int t,
+                                                 const Real* blk, Real* post,
+                                                 int nb, void* stream) {
+  const SweepArgs<Real> a = SWEEP_ARGS;
   if (t < 0 || t >= T || nb < 1 || M + 1 > pad)
     return (int)cudaErrorInvalidValue;
   switch (pad) {
@@ -593,11 +569,10 @@ extern "C" int bart_sweep_sharded_apply(SHARDED_HEAD, int t, const float* blk,
 // Launches the regrow stats pass of tree t over C chains in clusters of K
 // blocks on ``stream``, writing rblk (C, 2, M + 1) from the scales scl and
 // the post-move rows in post; returns the CUDA error code.
-extern "C" int bart_sweep_sharded_regrow_stats(SHARDED_HEAD, int t,
-                                               float* rblk, const int* scl,
-                                               const float* post, int K,
-                                               void* stream) {
-  const SweepArgs a = SHARDED_ARGS;
+extern "C" int S4B_SYM(bart_sweep_sharded_regrow_stats)(
+    SWEEP_HEAD, int t, Real* rblk, const int* scl, const Real* post, int K,
+    void* stream) {
+  const SweepArgs<Real> a = SWEEP_ARGS;
   if (t < 0 || t >= T || rg == nullptr || M + 1 > pad)
     return (int)cudaErrorInvalidValue;
   switch (pad) {
@@ -614,11 +589,10 @@ extern "C" int bart_sweep_sharded_regrow_stats(SHARDED_HEAD, int t,
 // Launches the regrow apply pass of tree t over C chains, nb blocks each,
 // on ``stream``, reading the reduced rblk and post; returns the CUDA error
 // code.
-extern "C" int bart_sweep_sharded_regrow_apply(SHARDED_HEAD, int t,
-                                               const float* rblk,
-                                               const float* post, int nb,
-                                               void* stream) {
-  const SweepArgs a = SHARDED_ARGS;
+extern "C" int S4B_SYM(bart_sweep_sharded_regrow_apply)(
+    SWEEP_HEAD, int t, const Real* rblk, const Real* post, int nb,
+    void* stream) {
+  const SweepArgs<Real> a = SWEEP_ARGS;
   if (t < 0 || t >= T || nb < 1 || rg == nullptr || M + 1 > pad)
     return (int)cudaErrorInvalidValue;
   switch (pad) {

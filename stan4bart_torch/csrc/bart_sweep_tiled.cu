@@ -46,7 +46,9 @@
 // slice fits to about 23 500 (512) or 14 600 (1024) observations a block
 // (38 000 at 128); the streaming kernel holds TreeShared and
 // RegrowShared in 35 520 B of static shared memory at 512 and in 70 656 B
-// of dynamic shared memory at 1024.
+// of dynamic shared memory at 1024.  The float64 build (S4B_F64,
+// bart_sweep_tiled_f64) moves 8-byte residuals and tree fits, so its
+// slice fits to about half as many observations a block.
 //
 // Both take every sum in the order of sweep_common.cuh over the same
 // observation ranges and per-thread order (tid + j * kThreads within a
@@ -65,9 +67,9 @@ using namespace s4b;
 constexpr int kStreamPer = 8;                    // per thread per tile
 constexpr int kStreamTile = kThreads * kStreamPer;
 
-template <int kPad, bool kRegrow>
+template <typename Real, int kPad, bool kRegrow>
 __global__ void __launch_bounds__(kThreads)
-bart_sweep_tiled_on_chip_kernel(SweepArgs a, int K) {
+bart_sweep_tiled_on_chip_kernel(SweepArgs<Real> a, int K) {
   extern __shared__ float4 smem4[];
   on_chip_kernel<kRegrow, kPad>(a, K,
                                 reinterpret_cast<unsigned char*>(smem4));
@@ -82,19 +84,19 @@ bart_sweep_tiled_on_chip_kernel(SweepArgs a, int K) {
 // decision and, if accepted, the rows and those leaf indices rewritten.
 // Called by every thread after a block barrier; ends on one.  Not
 // inlined, as regrow_on_chip.
-template <int kPad>
-__device__ __noinline__ Regrow regrow_streamed(RegrowArgs ra,
-                                               TreeShared<kPad>& s,
+template <int kPad, typename Real>
+__device__ __noinline__ Regrow regrow_streamed(RegrowArgs<Real> ra,
+                                               TreeShared<kPad, Real>& s,
                                                RegrowShared<kPad>& r,
                                                size_t ct,
                                                int start, int n,
                                                int32_t* li_out,
-                                               const float* R,
-                                               const float* wts, float s2,
-                                               float t2, int K) {
-  const SweepArgs a = ra.args();
+                                               const Real* R,
+                                               const Real* wts, Real s2,
+                                               Real t2, int K) {
+  const SweepArgs<Real> a = ra.args();
   const int tid = threadIdx.x;
-  const float* row = regrow_row(a, ct);
+  const Real* row = regrow_row(a, ct);
   gather_hist(s, a.M, K);
   regrow_propose(a, s, r, row);
   const int eta = r.rsc[0];
@@ -109,16 +111,16 @@ __device__ __noinline__ Regrow regrow_streamed(RegrowArgs ra,
   return Regrow::kAccepted;
 }
 
-template <int kPad, bool kRegrow>
+template <typename Real, int kPad, bool kRegrow>
 __global__ void __launch_bounds__(kThreads)
-bart_sweep_tiled_stream_kernel(SweepArgs a, int K) {
+bart_sweep_tiled_stream_kernel(SweepArgs<Real> a, int K) {
   // the per-tree state (dynamic shared memory above 512 heap slots) and
   // the regrow step's, in the kernel that runs it
   extern __shared__ float4 smem4[];
   unsigned char* dyn = reinterpret_cast<unsigned char*>(smem4);
-  TreeShared<kPad>& s = tree_state<kPad>(dyn);
+  TreeShared<kPad, Real>& s = tree_state<kPad, Real>(dyn);
   RegrowShared<kPad>* rs = nullptr;
-  if constexpr (kRegrow) rs = &regrow_state<kPad>(dyn);
+  if constexpr (kRegrow) rs = &regrow_state<kPad, Real>(dyn);
 
   const int N = a.N, T = a.T;
   const int rank = block_rank(K);
@@ -126,34 +128,35 @@ bart_sweep_tiled_stream_kernel(SweepArgs a, int K) {
   int start, n;
   obs_range(N, K, rank, start, n);
   const int tid = threadIdx.x;
-  const float s2 = a.sigma2[c], t2 = a.tau2[c];
-  const float* __restrict__ R0 = a.resid0 + (size_t)c * N + start;
-  float* __restrict__ R = a.resid_out + (size_t)c * N + start;
-  const float* __restrict__ wts = a.weights ? a.weights + start : nullptr;
+  const Real s2 = a.sigma2[c], t2 = a.tau2[c];
+  const Real* __restrict__ R0 = a.resid0 + (size_t)c * N + start;
+  Real* __restrict__ R = a.resid_out + (size_t)c * N + start;
+  const Real* __restrict__ wts = a.weights ? a.weights + start : nullptr;
 
   for (int t = 0; t <= T; ++t) {
     const bool flush = t == T;
     const size_t ct = (size_t)c * T + t;
-    const TreeRows rows = global_rows<kPad>(a, ct);
+    const TreeRows<Real> rows = global_rows<kPad>(a, ct);
     const bool regrow = kRegrow && !flush && regrow_gate(a, ct);
     Move mv{};
     if (!flush) mv = begin_tree(a, s, rows);
     // the previous tree's new leaf indices and its fit (t > 0)
     const int32_t* __restrict__ li_prev =
         t > 0 ? a.lidx_out + (ct - 1) * N + start : nullptr;
-    float* __restrict__ tf_prev =
+    Real* __restrict__ tf_prev =
         t > 0 ? a.tfit_out + (ct - 1) * N + start : nullptr;
     const int32_t* __restrict__ li_in =
         flush ? nullptr : a.lidx_in + ct * N + start;
-    const float* __restrict__ tf_in =
+    const Real* __restrict__ tf_in =
         flush ? nullptr : a.tfit_in + ct * N + start;
     const int32_t* __restrict__ rank_row =
         flush ? nullptr : mv.rank_row + start;
 
     // pass A: apply tree t-1's fit, roll the residual, move statistics
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    Real acc[8] = {Real(0), Real(0), Real(0), Real(0),
+                   Real(0), Real(0), Real(0), Real(0)};
     for (int base = 0; base < n; base += kStreamTile) {
-      float rv[kStreamPer], tfv[kStreamPer];
+      Real rv[kStreamPer], tfv[kStreamPer];
       int lpv[kStreamPer], liv[kStreamPer], rkv[kStreamPer];
 #pragma unroll
       for (int k = 0; k < kStreamPer; ++k) {
@@ -172,16 +175,16 @@ bart_sweep_tiled_stream_kernel(SweepArgs a, int K) {
       for (int k = 0; k < kStreamPer; ++k) {
         const int i = base + k * kThreads + tid;
         if (i < n) {
-          float r = rv[k];
+          Real r = rv[k];
           if (t > 0) {
-            float nf = s.lv[lpv[k]];
+            Real nf = s.lv[lpv[k]];
             tf_prev[i] = nf;
             r = r - nf;
           }
           if (!flush) {
             r = r + tfv[k];
-            float w = wts ? wts[i] : 1.0f;
-            float wr = wts ? w * r : r;
+            Real w = wts ? wts[i] : Real(1);
+            Real wr = wts ? w * r : r;
             add_move_stats(acc, mv, liv[k], rkv[k] <= mv.cn, w, wr);
           }
           R[i] = r;
@@ -194,7 +197,7 @@ bart_sweep_tiled_stream_kernel(SweepArgs a, int K) {
     // pass B: new leaf indices and per-node leaf statistics
     int32_t* __restrict__ li_out = a.lidx_out + ct * N + start;
     for (int base = 0; base < n; base += kStreamTile) {
-      float rv[kStreamPer];
+      Real rv[kStreamPer];
       int liv[kStreamPer], rkv[kStreamPer];
 #pragma unroll
       for (int k = 0; k < kStreamPer; ++k) {
@@ -207,27 +210,28 @@ bart_sweep_tiled_stream_kernel(SweepArgs a, int K) {
       }
       bool in[kStreamPer];
       int li[kStreamPer];
-      float w[kStreamPer], wr[kStreamPer];
+      Real w[kStreamPer], wr[kStreamPer];
 #pragma unroll
       for (int k = 0; k < kStreamPer; ++k) {
         const int i = base + k * kThreads + tid;
         in[k] = i < n;
         li[k] = -1;
-        w[k] = 0.0f;
-        wr[k] = 0.0f;
+        w[k] = Real(0);
+        wr[k] = Real(0);
         if (in[k]) {
           li[k] = moved_leaf(mv, accept, liv[k], rkv[k] <= mv.cn);
           li_out[i] = li[k];
-          w[k] = wts ? wts[i] : 1.0f;
+          w[k] = wts ? wts[i] : Real(1);
           wr[k] = wts ? w[k] * rv[k] : rv[k];
         }
       }
       hist_add<kStreamPer>(s, in, li, w, wr, wts != nullptr);
     }
     __syncthreads();
-    const Regrow rg = regrow ? regrow_streamed<kPad>(RegrowArgs(a), s, *rs,
-                                                     ct, start, n, li_out, R,
-                                                     wts, s2, t2, K)
+    const Regrow rg = regrow ? regrow_streamed<kPad>(RegrowArgs<Real>(a), s,
+                                                     *rs, ct, start, n,
+                                                     li_out, R, wts, s2, t2,
+                                                     K)
                              : Regrow::kNone;
     draw_leaves(a, s, ct, rows, s2, t2, K, rank == 0, rg, rs);
   }
@@ -238,12 +242,12 @@ bart_sweep_tiled_stream_kernel(SweepArgs a, int K) {
 // The kernel that runs at N, T and K, with the regrow step or without
 // (on chip where its shared memory fits the device's opt-in limit per
 // block) and its dynamic shared memory, for heaps of kPad slots.
-template <int kPad>
+template <typename Real, int kPad>
 int pick(int N, int T, int K, bool regrow, bool* on_chip, size_t* dyn) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(
-      &attr, regrow ? bart_sweep_tiled_on_chip_kernel<kPad, true>
-                    : bart_sweep_tiled_on_chip_kernel<kPad, false>);
+      &attr, regrow ? bart_sweep_tiled_on_chip_kernel<Real, kPad, true>
+                    : bart_sweep_tiled_on_chip_kernel<Real, kPad, false>);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, optin = 0;
   err = cudaGetDevice(&dev);
@@ -251,111 +255,107 @@ int pick(int N, int T, int K, bool regrow, bool* on_chip, size_t* dyn) {
   err = cudaDeviceGetAttribute(&optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  *dyn = on_chip_bytes<kPad>(N, T, K) + state_bytes<kPad>(regrow);
+  *dyn = on_chip_bytes<kPad, Real>(N, T, K)
+      + state_bytes<kPad, Real>(regrow);
   *on_chip = attr.sharedSizeBytes + *dyn <= (size_t)optin;
-  if (!*on_chip) *dyn = state_bytes<kPad>(regrow);
+  if (!*on_chip) *dyn = state_bytes<kPad, Real>(regrow);
   return 0;
 }
 
 // The kernel that runs at N, T and K with the regrow step or without,
 // for heaps of kPad slots.
-template <bool kRegrow, int kPad>
+template <typename Real, bool kRegrow, int kPad>
 int info(int N, int T, int K, long long* static_b, long long* dynamic_b,
          int* optin, int* clusters, int* resid_on_chip) {
   bool on_chip = false;
   size_t dyn = 0;
-  int e = pick<kPad>(N, T, K, kRegrow, &on_chip, &dyn);
+  int e = pick<Real, kPad>(N, T, K, kRegrow, &on_chip, &dyn);
   if (e != 0) return e;
   *dynamic_b = (long long)dyn;
   *resid_on_chip = on_chip ? 1 : 0;
   return on_chip
-      ? cluster_info(bart_sweep_tiled_on_chip_kernel<kPad, kRegrow>, K, dyn,
-                     static_b, optin, clusters)
-      : cluster_info(bart_sweep_tiled_stream_kernel<kPad, kRegrow>, K, dyn,
-                     static_b, optin, clusters);
+      ? cluster_info(bart_sweep_tiled_on_chip_kernel<Real, kPad, kRegrow>, K,
+                     dyn, static_b, optin, clusters)
+      : cluster_info(bart_sweep_tiled_stream_kernel<Real, kPad, kRegrow>, K,
+                     dyn, static_b, optin, clusters);
 }
 
-template <bool kRegrow, int kPad>
-int launch(const SweepArgs& a, int C, int K, void* stream) {
+template <typename Real, bool kRegrow, int kPad>
+int launch(const SweepArgs<Real>& a, int C, int K, void* stream) {
   bool on_chip = false;
   size_t dyn = 0;
-  int e = pick<kPad>(a.N, a.T, K, kRegrow, &on_chip, &dyn);
+  int e = pick<Real, kPad>(a.N, a.T, K, kRegrow, &on_chip, &dyn);
   if (e != 0) return e;
   return on_chip
-      ? launch_clusters(bart_sweep_tiled_on_chip_kernel<kPad, kRegrow>, a, C,
-                        K, dyn, stream)
-      : launch_clusters(bart_sweep_tiled_stream_kernel<kPad, kRegrow>, a, C,
-                        K, dyn, stream);
+      ? launch_clusters(bart_sweep_tiled_on_chip_kernel<Real, kPad, kRegrow>,
+                        a, C, K, dyn, stream)
+      : launch_clusters(bart_sweep_tiled_stream_kernel<Real, kPad, kRegrow>,
+                        a, C, K, dyn, stream);
 }
 
-template <int kPad>
+template <typename Real, int kPad>
 int info_pad(int N, int T, int K, int regrow, long long* static_b,
              long long* dynamic_b, int* optin, int* clusters,
              int* resid_on_chip) {
-  return regrow ? info<true, kPad>(N, T, K, static_b, dynamic_b, optin,
-                                   clusters, resid_on_chip)
-                : info<false, kPad>(N, T, K, static_b, dynamic_b, optin,
-                                    clusters, resid_on_chip);
+  return regrow ? info<Real, true, kPad>(N, T, K, static_b, dynamic_b, optin,
+                                         clusters, resid_on_chip)
+                : info<Real, false, kPad>(N, T, K, static_b, dynamic_b,
+                                          optin, clusters, resid_on_chip);
 }
 
-template <int kPad>
-int launch_pad(const SweepArgs& a, int C, int K, void* stream) {
-  return with_regrow(a) ? launch<true, kPad>(a, C, K, stream)
-                        : launch<false, kPad>(a, C, K, stream);
+template <typename Real, int kPad>
+int launch_pad(const SweepArgs<Real>& a, int C, int K, void* stream) {
+  return with_regrow(a) ? launch<Real, true, kPad>(a, C, K, stream)
+                        : launch<Real, false, kPad>(a, C, K, stream);
 }
 
 }  // namespace
 
 // Writes the shared memory per block (static, dynamic) of the kernel that
-// runs at N, T and K (the build for heaps of ``pad`` slots, 128, 512 or
-// 1024; with the regrow step when ``regrow``), the device's opt-in limit per
-// block, the number of clusters of K blocks that can be resident at once,
-// and whether the residual stays on chip; returns the CUDA error code.
-extern "C" int bart_sweep_tiled_info(int N, int T, int K, int pad,
-                                     int regrow, long long* static_b,
-                                     long long* dynamic_b, int* optin,
-                                     int* clusters, int* resid_on_chip) {
+// runs at N, T and K (the build's real type, for heaps of ``pad`` slots,
+// 128, 512 or 1024; with the regrow step when ``regrow``), the device's
+// opt-in limit per block, the number of clusters of K blocks that can be
+// resident at once, and whether the residual stays on chip; returns the
+// CUDA error code.
+extern "C" int S4B_SYM(bart_sweep_tiled_info)(int N, int T, int K, int pad,
+                                              int regrow, long long* static_b,
+                                              long long* dynamic_b,
+                                              int* optin, int* clusters,
+                                              int* resid_on_chip) {
   switch (pad) {
     case kPadShallow:
-      return info_pad<kPadShallow>(N, T, K, regrow, static_b, dynamic_b,
-                                   optin, clusters, resid_on_chip);
+      return info_pad<BuildReal, kPadShallow>(N, T, K, regrow, static_b,
+                                              dynamic_b, optin, clusters,
+                                              resid_on_chip);
     case kPadDeep:
-      return info_pad<kPadDeep>(N, T, K, regrow, static_b, dynamic_b, optin,
-                                clusters, resid_on_chip);
+      return info_pad<BuildReal, kPadDeep>(N, T, K, regrow, static_b,
+                                           dynamic_b, optin, clusters,
+                                           resid_on_chip);
     case kPadDeepest:
-      return info_pad<kPadDeepest>(N, T, K, regrow, static_b, dynamic_b,
-                                   optin, clusters, resid_on_chip);
+      return info_pad<BuildReal, kPadDeepest>(N, T, K, regrow, static_b,
+                                              dynamic_b, optin, clusters,
+                                              resid_on_chip);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// Launches one sweep over C chains in clusters of K blocks on ``stream``,
-// the build for heaps of ``pad`` slots (128, 512 or 1024, at least M + 1;
-// zn rows of pad normals); returns the CUDA error code of the launch (0 on
-// success).  resid_out
+// Launches one sweep over C chains in clusters of K blocks on ``stream``
+// (the operands in the build's real type), the build for heaps of ``pad``
+// slots (128, 512 or 1024, at least M + 1; zn rows of pad normals);
+// returns the CUDA error code of the launch (0 on success).  resid_out
 // holds the final residual when the kernel ends (and, where the residual
 // does not fit on chip, serves as the running residual throughout).
-extern "C" int bart_sweep_tiled_launch(
-    const int32_t* feature_in, const int32_t* cut_in, const int32_t* lidx_in,
-    const float* tfit_in, const float* resid0, const float* sigma2,
-    const float* tau2, const float* u, const float* zn,
-    const int32_t* ranks_t, const float* spcum, const float* psplit,
-    const float* weights, int32_t* feature_out, int32_t* cut_out,
-    float* lv_out, int32_t* lidx_out, float* tfit_out, float* resid_out,
-    int C, int T, int N, int P, int M, int max_depth, int n_cuts,
-    float p_grow, float p_prune, float trans_grow0, float trans_prune0,
-    float p_regrow, const float* rg, int pad, int K, void* stream) {
-  SweepArgs a{feature_in, cut_in, lidx_in, tfit_in, resid0, sigma2, tau2,
-              u, zn, ranks_t, spcum, psplit, weights, feature_out, cut_out,
-              lv_out, lidx_out, tfit_out, resid_out, T, N, P, M, max_depth,
-              n_cuts, p_grow, p_prune, trans_grow0, trans_prune0};
-  a.p_regrow = p_regrow;
-  a.rg = rg;
+extern "C" int S4B_SYM(bart_sweep_tiled_launch)(SWEEP_HEAD, int K,
+                                                void* stream) {
+  const SweepArgs<BuildReal> a = SWEEP_ARGS;
   if (M + 1 > pad) return (int)cudaErrorInvalidValue;
   switch (pad) {
-    case kPadShallow: return launch_pad<kPadShallow>(a, C, K, stream);
-    case kPadDeep: return launch_pad<kPadDeep>(a, C, K, stream);
-    case kPadDeepest: return launch_pad<kPadDeepest>(a, C, K, stream);
+    case kPadShallow:
+      return launch_pad<BuildReal, kPadShallow>(a, C, K, stream);
+    case kPadDeep:
+      return launch_pad<BuildReal, kPadDeep>(a, C, K, stream);
+    case kPadDeepest:
+      return launch_pad<BuildReal, kPadDeepest>(a, C, K, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

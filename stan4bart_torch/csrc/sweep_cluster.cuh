@@ -10,7 +10,8 @@
 // The observation passes read three arrays per (chain, tree) from device
 // memory: the leaf indices, the tree's old fit and the cut-rank row of the
 // proposed variable.  They arrive through a ring of kStages tiles in
-// shared memory, filled by 4-byte cp.async copies.  Each thread copies
+// shared memory, filled by element-wise cp.async copies (4 bytes, 8 for
+// the tree fits of a double build).  Each thread copies
 // exactly the elements it will read itself (tile element k * kThreads +
 // tid), so a tile needs no block barrier, any row offset and any n are
 // fine (no 16-byte alignment), and the per-thread observation order is the
@@ -20,9 +21,10 @@
 // is decided and its leaves drawn.  Only the residual depends on earlier
 // trees; it stays in shared memory (sweep_on_chip).
 //
-// sweep_on_chip is the sweep with a block's residual slice and a copy of
-// its leaf indices in shared memory (one byte an observation at 128 heap
-// slots, two above: LeafCopy): bart_sweep_batch.cu and
+// sweep_on_chip is the sweep with a block's residual slice (4 bytes an
+// observation, 8 in a double build) and a copy of its leaf indices in
+// shared memory (one byte an observation at 128 heap slots, two above:
+// LeafCopy): bart_sweep_batch.cu and
 // bart_sweep_chain.cu at any K, and bart_sweep_tiled.cu wherever the slice
 // fits, so the three are bit-identical at equal K.  Its ``kBody`` selects
 // the ablation stubs of bart_sweep_ablate.cu, which keep the grid,
@@ -42,19 +44,20 @@ constexpr int kTile = kThreads * kPer;    // observations per tile
 constexpr int kStages = 3;                // tiles in the ring
 
 // the ring: the pass-1 operands of kStages tiles
+template <typename Real>
 struct Ring {
   int32_t li[kStages][kTile];
-  float tf[kStages][kTile];
+  Real tf[kStages][kTile];
   int32_t rk[kStages][kTile];
 };
 
 // the input rows of the kStages trees that can be in flight at once
-template <int kPad>
+template <int kPad, typename Real>
 struct Heads {
   int32_t feat[kStages][kPad];
   int32_t cut[kStages][kPad];
-  float zn[kStages][kPad];
-  float u[kStages][8];
+  Real zn[kStages][kPad];
+  Real u[kStages][8];
 };
 
 // The byte copy of a block's leaf indices in sweep_on_chip: per
@@ -86,20 +89,23 @@ __device__ inline void obs_range(int N, int K, int rank, int& start,
 }
 
 // Dynamic shared memory of sweep_on_chip at N, T and K with heaps of
-// kPad slots: the ring, the tree rows in flight, the residual slice, its
-// copy of the leaf indices, the trees' variables.
-template <int kPad>
+// kPad slots and state in Real: the ring, the tree rows in flight, the
+// residual slice, its copy of the leaf indices, the trees' variables.
+template <int kPad, typename Real>
 __host__ __device__ inline size_t on_chip_bytes(int N, int T, int K) {
   const size_t chunk = (size_t)obs_chunk(N, K);
-  return sizeof(Ring) + sizeof(Heads<kPad>) + chunk * 4
+  return sizeof(Ring<Real>) + sizeof(Heads<kPad, Real>)
+      + chunk * sizeof(Real)
       + ((chunk * sizeof(typename LeafCopy<kPad>::T) + 15) & ~(size_t)15)
       + (((size_t)T * 4 + 15) & ~(size_t)15);
 }
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+// an asynchronous copy of one element (4 or 8 bytes) to shared memory
+template <typename X>
+__device__ __forceinline__ void cp_async(X* smem, const X* gmem) {
   const unsigned sa = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(sa), "l"(gmem) : "memory");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(sa), "l"(gmem), "n"(sizeof(X)) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -117,11 +123,11 @@ __device__ __forceinline__ void cp_async_wait() {
 // brings the tree's input rows (heap rows, uniforms, leaf normals) into
 // heads[t % kStages], each thread the elements it reads itself (unless
 // heads is null: the ablation stubs read no tree rows).
-template <int kPad>
+template <int kPad, typename Real>
 struct TileStream {
-  const SweepArgs* a;
-  Ring* ring;
-  Heads<kPad>* heads;
+  const SweepArgs<Real>* a;
+  Ring<Real>* ring;
+  Heads<kPad, Real>* heads;
   const int* vsel;       // (T,) each tree's split variable
   size_t row0;           // c * T: the chain's first (chain, tree) row
   int start, n, nt, total;
@@ -137,9 +143,9 @@ struct TileStream {
       for (int k = 0; k < kPer; ++k) {
         const int e = k * kThreads + threadIdx.x, i = j * kTile + e;
         if (i < n) {
-          cp_async4(&ring->li[st][e], a->lidx_in + row + i);
-          cp_async4(&ring->tf[st][e], a->tfit_in + row + i);
-          cp_async4(&ring->rk[st][e], rk + i);
+          cp_async(&ring->li[st][e], a->lidx_in + row + i);
+          cp_async(&ring->tf[st][e], a->tfit_in + row + i);
+          cp_async(&ring->rk[st][e], rk + i);
         }
       }
       if (heads != nullptr && j == 0) {
@@ -149,14 +155,13 @@ struct TileStream {
         for (int k = 0; k < (kPad + kThreads - 1) / kThreads; ++k) {
           const int m = k * kThreads + threadIdx.x;
           if (m < a->M) {
-            cp_async4(&heads->feat[h][m], a->feature_in + ct * a->M + m);
-            cp_async4(&heads->cut[h][m], a->cut_in + ct * a->M + m);
-            cp_async4(&heads->zn[h][m], a->zn + ct * kPad + m);
+            cp_async(&heads->feat[h][m], a->feature_in + ct * a->M + m);
+            cp_async(&heads->cut[h][m], a->cut_in + ct * a->M + m);
+            cp_async(&heads->zn[h][m], a->zn + ct * kPad + m);
           }
         }
         if (threadIdx.x < 8)
-          cp_async4(&heads->u[h][threadIdx.x],
-                    a->u + ct * 8 + threadIdx.x);
+          cp_async(&heads->u[h][threadIdx.x], a->u + ct * 8 + threadIdx.x);
       }
     }
     cp_async_commit();
@@ -177,14 +182,14 @@ enum class Body { kFull, kCopy, kObs };
 // after a block barrier; ends on one.  Not inlined, its operands a small
 // RegrowArgs by value: the loop around it keeps its own registers (the
 // step inlined made the loop spill).
-template <int kPad>
+template <int kPad, typename Real>
 __device__ __noinline__ Regrow regrow_on_chip(
-    RegrowArgs ra, TreeShared<kPad>& s, RegrowShared<kPad>& r, size_t ct,
-    int start, int n, typename LeafCopy<kPad>::T* lidx_s, const float* R,
-    float s2, float t2, int K) {
-  const SweepArgs a = ra.args();
+    RegrowArgs<Real> ra, TreeShared<kPad, Real>& s, RegrowShared<kPad>& r,
+    size_t ct, int start, int n, typename LeafCopy<kPad>::T* lidx_s,
+    const Real* R, Real s2, Real t2, int K) {
+  const SweepArgs<Real> a = ra.args();
   const int tid = threadIdx.x;
-  const float* row = regrow_row(a, ct);
+  const Real* row = regrow_row(a, ct);
   gather_hist(s, a.M, K);
   regrow_propose(a, s, r, row);
   const int eta = r.rsc[0];
@@ -218,9 +223,11 @@ __device__ __noinline__ Regrow regrow_on_chip(
 // regrow step (its state in rs); the kernels instantiate both and launch
 // this one only where p_regrow > 0, so the sweep without the move is the
 // code it was before the move existed, registers and shared memory alike.
-// kPad: the heap slots of the build (LeafCopy, Heads).
-template <Body kBody, bool kRegrow = false, int kPad = kPadShallow>
-__device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared<kPad>& s,
+// kPad: the heap slots of the build (LeafCopy, Heads); Real its type.
+template <Body kBody, bool kRegrow = false, int kPad = kPadShallow,
+          typename Real>
+__device__ inline void sweep_on_chip(const SweepArgs<Real>& a,
+                                     TreeShared<kPad, Real>& s,
                                      unsigned char* smem, int K,
                                      RegrowShared<kPad>* rs = nullptr) {
   using LeafT = typename LeafCopy<kPad>::T;
@@ -232,17 +239,19 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared<kPad>& s,
   int start, n;
   obs_range(N, K, rank, start, n);
   const int chunk = obs_chunk(N, K);
-  Ring* ring = reinterpret_cast<Ring*>(smem);
-  Heads<kPad>* heads = reinterpret_cast<Heads<kPad>*>(smem + sizeof(Ring));
-  float* R = reinterpret_cast<float*>(smem + sizeof(Ring)
-                                      + sizeof(Heads<kPad>));     // (chunk,)
+  Ring<Real>* ring = reinterpret_cast<Ring<Real>*>(smem);
+  Heads<kPad, Real>* heads =
+      reinterpret_cast<Heads<kPad, Real>*>(smem + sizeof(Ring<Real>));
+  Real* R = reinterpret_cast<Real*>(smem + sizeof(Ring<Real>)
+                                    + sizeof(Heads<kPad, Real>)); // (chunk,)
   LeafT* lidx_s = reinterpret_cast<LeafT*>(R + chunk);            // (chunk,)
   int* vsel = reinterpret_cast<int*>(
       reinterpret_cast<unsigned char*>(lidx_s)
       + ((chunk * sizeof(LeafT) + 15) & ~15));
   const bool full = kBody == Body::kFull;
-  const float s2 = full ? a.sigma2[c] : 0.0f, t2 = full ? a.tau2[c] : 0.0f;
-  const float* __restrict__ wts = a.weights;
+  const Real s2 = full ? a.sigma2[c] : Real(0);
+  const Real t2 = full ? a.tau2[c] : Real(0);
+  const Real* __restrict__ wts = a.weights;
   const bool writer = rank == 0;
 
   for (int t = tid; t < T; t += kThreads)
@@ -252,8 +261,8 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared<kPad>& s,
   __syncthreads();
 
   const int nt = max((n + kTile - 1) / kTile, 1);
-  TileStream<kPad> ts{&a, ring, full ? heads : nullptr, vsel,
-                      (size_t)c * T, start, n, nt, nt * T};
+  TileStream<kPad, Real> ts{&a, ring, full ? heads : nullptr, vsel,
+                            (size_t)c * T, start, n, nt, nt * T};
   for (int q = 0; q < kStages - 1; ++q) ts.issue(q);
 
   for (int t = 0; t < T; ++t) {
@@ -262,8 +271,8 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared<kPad>& s,
     // flight) have landed; begin_tree's barrier shows them to the block
     cp_async_wait<kStages - 2>();
     const int h = t % kStages;
-    const TreeRows rows{heads->feat[h], heads->cut[h], heads->u[h],
-                        heads->zn[h]};
+    const TreeRows<Real> rows{heads->feat[h], heads->cut[h], heads->u[h],
+                              heads->zn[h]};
     // the chain's regrow gate, loaded now and read after pass 2
     const bool regrow = kRegrow && regrow_gate(a, ct);
     Move mv{};
@@ -287,7 +296,8 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared<kPad>& s,
     // pass 1: the last tree's new fit taken off the residual (its leaf
     // values in s.lv, its leaf indices in lidx_s), the partial residual
     // and the six move statistics
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    Real acc[8] = {Real(0), Real(0), Real(0), Real(0),
+                   Real(0), Real(0), Real(0), Real(0)};
     for (int j = 0; j < nt; ++j) {
       const int q = t * nt + j, st = q % kStages;
       ts.issue(q + kStages - 1);
@@ -297,26 +307,26 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared<kPad>& s,
         const int e = k * kThreads + tid, i = j * kTile + e;
         if (i < n) {
           const int li = ring->li[st][e];
-          const float tf = ring->tf[st][e];
+          const Real tf = ring->tf[st][e];
           if (kBody == Body::kCopy) {
             a.lidx_out[row + i] = li;
             a.tfit_out[row + i] = tf;
             continue;
           }
-          float r = R[i];
+          Real r = R[i];
           if (t > 0) {
-            const float nf = s.lv[lidx_s[i]];
+            const Real nf = s.lv[lidx_s[i]];
             a.tfit_out[row - N + i] = nf;
             r = r - nf;
           }
           r = r + tf;
           R[i] = r;
-          float w = wts ? wts[start + i] : 1.0f;
-          float wr = wts ? w * r : r;
+          Real w = wts ? wts[start + i] : Real(1);
+          Real wr = wts ? w * r : r;
           if (kBody == Body::kObs) {
             lidx_s[i] = (LeafT)li;
-            acc[6] = fmaxf(acc[6], fabsf(wr));
-            acc[7] = fmaxf(acc[7], w);
+            acc[6] = fmax(acc[6], fabs(wr));
+            acc[7] = fmax(acc[7], w);
             continue;
           }
           bool gl = ring->rk[st][e] <= mv.cn;
@@ -341,14 +351,14 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared<kPad>& s,
     for (int base = 0; base < n; base += kTile) {
       bool in[kPer];
       int li[kPer];
-      float w[kPer], wr[kPer];
+      Real w[kPer], wr[kPer];
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
         const int i = base + k * kThreads + tid;
         in[k] = i < n;
         li[k] = -1;
-        w[k] = 0.0f;
-        wr[k] = 0.0f;
+        w[k] = Real(0);
+        wr[k] = Real(0);
         if (in[k]) {
           const int packed = lidx_s[i];
           if (kBody == Body::kFull) {
@@ -359,7 +369,7 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared<kPad>& s,
             li[k] = packed;
           }
           a.lidx_out[row + i] = li[k];
-          w[k] = wts ? wts[start + i] : 1.0f;
+          w[k] = wts ? wts[start + i] : Real(1);
           wr[k] = wts ? w[k] * R[i] : R[i];
         }
       }
@@ -367,16 +377,16 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared<kPad>& s,
     }
     __syncthreads();
     if (kBody == Body::kFull) {
-      const Regrow rg = regrow ? regrow_on_chip<kPad>(RegrowArgs(a), s, *rs,
-                                                      ct, start, n, lidx_s, R,
-                                                      s2, t2, K)
+      const Regrow rg = regrow ? regrow_on_chip<kPad>(RegrowArgs<Real>(a), s,
+                                                      *rs, ct, start, n,
+                                                      lidx_s, R, s2, t2, K)
                                : Regrow::kNone;
       draw_leaves(a, s, ct, rows, s2, t2, K, writer, rg, rs);
     } else {
       // the obs stub keeps the leaf statistics so that nothing is dropped
       gather_hist(s, M, K);
       for (int m = tid; m < M; m += kThreads) {
-        float cnt, sm;
+        Real cnt, sm;
         leaf_sums(s, m, K, cnt, sm);
         if (writer) {
           a.stats_out[(ct * 2) * M + m] = cnt;
@@ -391,9 +401,9 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared<kPad>& s,
   cp_async_wait<0>();
   const size_t last = ((size_t)c * T + T - 1) * N + start;
   for (int i = tid; i < n; i += kThreads) {
-    float r = R[i];
+    Real r = R[i];
     if (kBody != Body::kCopy && T > 0) {
-      const float nf = s.lv[lidx_s[i]];
+      const Real nf = s.lv[lidx_s[i]];
       a.tfit_out[last + i] = nf;
       r = r - nf;
     }
@@ -403,16 +413,16 @@ __device__ inline void sweep_on_chip(const SweepArgs& a, TreeShared<kPad>& s,
   if (K > 1) cluster_sync();
 }
 
-// The body of an on-chip sweep kernel with heaps of kPad slots: the sweep
-// with the regrow step (kRegrow, its state in a second shared block) or
-// without.  The per-tree state is static up to 512 slots; above, it
-// takes the head of ``smem`` (state_bytes) and the sweep's buffers
-// follow it.
-template <bool kRegrow, int kPad>
-__device__ inline void on_chip_kernel(const SweepArgs& a, int K,
+// The body of an on-chip sweep kernel with heaps of kPad slots and state
+// in Real: the sweep with the regrow step (kRegrow, its state in a second
+// shared block) or without.  The per-tree state is static up to 512
+// slots; above, it takes the head of ``smem`` (state_bytes) and the
+// sweep's buffers follow it.
+template <bool kRegrow, int kPad, typename Real>
+__device__ inline void on_chip_kernel(const SweepArgs<Real>& a, int K,
                                       unsigned char* smem) {
   if constexpr (static_state<kPad>()) {
-    __shared__ TreeShared<kPad> s;
+    __shared__ TreeShared<kPad, Real> s;
     if constexpr (kRegrow) {
       __shared__ RegrowShared<kPad> r;
       sweep_on_chip<Body::kFull, true, kPad>(a, s, smem, K, &r);
@@ -420,8 +430,8 @@ __device__ inline void on_chip_kernel(const SweepArgs& a, int K,
       sweep_on_chip<Body::kFull, false, kPad>(a, s, smem, K);
     }
   } else {
-    auto* s = reinterpret_cast<TreeShared<kPad>*>(smem);
-    unsigned char* rest = smem + sizeof(TreeShared<kPad>);
+    auto* s = reinterpret_cast<TreeShared<kPad, Real>*>(smem);
+    unsigned char* rest = smem + sizeof(TreeShared<kPad, Real>);
     if constexpr (kRegrow) {
       auto* r = reinterpret_cast<RegrowShared<kPad>*>(rest);
       sweep_on_chip<Body::kFull, true, kPad>(
@@ -433,8 +443,9 @@ __device__ inline void on_chip_kernel(const SweepArgs& a, int K,
 }
 
 // Whether a launch runs the sweep with the regrow step.
-inline bool with_regrow(const SweepArgs& a) {
-  return a.rg != nullptr && a.p_regrow > 0.0f;
+template <typename Real>
+inline bool with_regrow(const SweepArgs<Real>& a) {
+  return a.rg != nullptr && a.p_regrow > Real(0);
 }
 
 // ``err`` as an int, with the runtime's last error reset: a refused launch
@@ -450,8 +461,8 @@ inline int refused(cudaError_t err) {
 // portable cluster sizes) or for more shared memory than a block may have,
 // and cudaErrorInvalidConfiguration when no cluster of the kernel fits on
 // the device.
-template <typename Kernel, typename... Extra>
-inline int launch_clusters(Kernel kernel, const SweepArgs& a, int C, int K,
+template <typename Kernel, typename Args, typename... Extra>
+inline int launch_clusters(Kernel kernel, const Args& a, int C, int K,
                            size_t dyn, void* stream, Extra... extra) {
   if (K < 1 || K > 8) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -477,6 +488,33 @@ inline int launch_clusters(Kernel kernel, const SweepArgs& a, int C, int K,
   if (err != cudaSuccess) return refused(err);
   return (int)cudaGetLastError();
 }
+
+// The C launchers' common head (bart_sweep_batch.cu, bart_sweep_chain.cu,
+// bart_sweep_tiled.cu, bart_sweep_sharded.cu): the sweep's operands,
+// shapes and constants in the build's real type, and the heap slots, as
+// ops/bart_sweep_kernel.py:_operands passes them.
+#define SWEEP_HEAD                                                          \
+    const int32_t *feature_in, const int32_t *cut_in,                       \
+    const int32_t *lidx_in, const BuildReal *tfit_in,                       \
+    const BuildReal *resid0, const BuildReal *sigma2,                       \
+    const BuildReal *tau2, const BuildReal *u, const BuildReal *zn,         \
+    const int32_t *ranks_t, const BuildReal *spcum,                         \
+    const BuildReal *psplit, const BuildReal *weights,                      \
+    int32_t *feature_out, int32_t *cut_out, BuildReal *lv_out,              \
+    int32_t *lidx_out, BuildReal *tfit_out, BuildReal *resid_out, int C,    \
+    int T, int N, int P, int M, int max_depth, int n_cuts,                  \
+    BuildReal p_grow, BuildReal p_prune, BuildReal trans_grow0,             \
+    BuildReal trans_prune0, BuildReal p_regrow, const BuildReal *rg,        \
+    int pad
+// SWEEP_HEAD's operands as the kernels' SweepArgs
+#define SWEEP_ARGS                                                          \
+  SweepArgs<BuildReal> {                                                    \
+    feature_in, cut_in, lidx_in, tfit_in, resid0, sigma2, tau2, u, zn,      \
+        ranks_t, spcum, psplit, weights, feature_out, cut_out, lv_out,      \
+        lidx_out, tfit_out, resid_out, T, N, P, M, max_depth, n_cuts,       \
+        p_grow, p_prune, trans_grow0, trans_prune0, nullptr, nullptr,       \
+        p_regrow, rg                                                        \
+  }
 
 // A kernel's shared memory per block (static, and the dynamic ``dyn``), the
 // device's opt-in limit per block, and how many clusters of K blocks can be

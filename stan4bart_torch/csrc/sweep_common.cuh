@@ -29,7 +29,22 @@
 // Integer addition does not depend on order, so these sums are the same
 // in every kernel, at every cluster size and on every run, and they are
 // exact but for the rounding of each value to 2^-scale and of the total
-// back to float.
+// back to the real type.
+//
+// Every per-tree structure and step is also a template on the real type
+// Real of the state (the residual, tree fits, leaf values, variates and
+// every sum and decision): float, or double in the builds of each source
+// compiled with S4B_F64 (ops/cuda_build.py builds both; BuildReal, and
+// S4B_SYM gives the double build's C symbols an _f64 suffix).  The
+// fixed-point histograms stay 64-bit integers in both, but the rounding
+// of each value to 2^-scale does not cost the same.  In float only values
+// below about 2^-26 of the chain's largest magnitude lose bits, which a
+// float sum cannot resolve anyway.  In double every value rounds to
+// 2^-scale, about 2^-48 of the largest magnitude at n = 10 000 (N * amax
+// * 2^scale < 2^62), coarser than a double's own 2^-53: each per-node
+// sum is then exact to about n * 2^-49 of the largest |w r|, some 1e-10
+// of it at n = 10 000, far inside the 1e-9 the double builds are held to
+// against their plain version.
 //
 // The tree heap's size is a template parameter kPad of every per-tree
 // structure and step: each kernel is built for kPadShallow = 128 slots
@@ -63,54 +78,65 @@ constexpr int kLeaf = -1;
 constexpr int kInactive = -2;
 constexpr unsigned kFull = 0xffffffffu;
 
+// The real type of a build: double where the source is compiled with
+// S4B_F64, else float; S4B_SYM(name) is a C launcher's symbol in it.
+#ifdef S4B_F64
+using BuildReal = double;
+#define S4B_SYM(name) name##_f64
+#else
+using BuildReal = float;
+#define S4B_SYM(name) name
+#endif
+
+template <typename Real>
 struct SweepArgs {
   const int32_t* feature_in;   // (C, T, M)
   const int32_t* cut_in;       // (C, T, M)
   const int32_t* lidx_in;      // (C, T, N)
-  const float* tfit_in;        // (C, T, N)
-  const float* resid0;         // (C, N) y_target - allfit
-  const float* sigma2;         // (C,)
-  const float* tau2;           // (C,)
-  const float* u;              // (C, T, 8) proposal uniforms
-  const float* zn;             // (C, T, kPad) leaf normals
+  const Real* tfit_in;         // (C, T, N)
+  const Real* resid0;          // (C, N) y_target - allfit
+  const Real* sigma2;          // (C,)
+  const Real* tau2;            // (C,)
+  const Real* u;               // (C, T, 8) proposal uniforms
+  const Real* zn;              // (C, T, kPad) leaf normals
   const int32_t* ranks_t;      // (P, N) cut ranks
-  const float* spcum;          // (P,) split-probability cumsum
-  const float* psplit;         // (max_depth + 2,) p_split by depth
-  const float* weights;        // (N,) or nullptr
+  const Real* spcum;           // (P,) split-probability cumsum
+  const Real* psplit;          // (max_depth + 2,) p_split by depth
+  const Real* weights;         // (N,) or nullptr
   int32_t* feature_out;
   int32_t* cut_out;
-  float* lv_out;               // (C, T, M)
+  Real* lv_out;                // (C, T, M)
   int32_t* lidx_out;
-  float* tfit_out;
-  float* resid_out;            // (C, N)
+  Real* tfit_out;
+  Real* resid_out;             // (C, N)
   int T, N, P, M, max_depth, n_cuts;
-  float p_grow, p_prune;
-  float trans_grow0;           // log(p_prune) - log(p_grow)
-  float trans_prune0;          // log(p_grow) - log(p_prune)
+  Real p_grow, p_prune;
+  Real trans_grow0;            // log(p_prune) - log(p_grow)
+  Real trans_prune0;           // log(p_grow) - log(p_prune)
   // the ablation stubs' extra operands (bart_sweep_ablate.cu), else null
-  const float* lv_in;          // (C, T, M) leaf values to look up
-  float* stats_out;            // (C, T, 2, M) per-node leaf statistics
+  const Real* lv_in;           // (C, T, M) leaf values to look up
+  Real* stats_out;             // (C, T, 2, M) per-node leaf statistics
   // the in-sweep subtree regrow (ops/bart.py:_subtree_regrow): its
   // probability and, per (chain, tree), a row of 3 + 3 M uniforms: gate,
   // node pick, accept, then each node's split, variable and cut; rg is
   // null when p_regrow is 0
-  float p_regrow;
-  const float* rg;             // (C, T, 3 + 3 M)
+  Real p_regrow;
+  const Real* rg;              // (C, T, 3 + 3 M)
 };
 
 // The block's per-tree state, in shared memory.
-template <int kPad>
+template <int kPad, typename Real>
 struct TreeShared {
   int feat[kPad];
   int cut[kPad];
-  float lv[kPad];              // leaf values of the last drawn tree
+  Real lv[kPad];               // leaf values of the last drawn tree
   // per-node sums of the fixed-point weights and weighted residuals
   unsigned long long hist[2][kPad];
-  float red[kWarps][8];
+  Real red[kWarps][8];
   // the chain's move statistics (0-5) and largest |w r| and w (6, 7)
-  float tot[8];
+  Real tot[8];
   // the block's sums, read by the other blocks of its cluster (K > 1)
-  float part[8];
+  Real part[8];
   unsigned long long hsum[2][kPad];
   unsigned nog_bits[kPad / 32];
   // eta, lft, rgt, move (0 grow, 1 prune, 2 change), accept, v, c,
@@ -146,39 +172,41 @@ __host__ __device__ constexpr bool static_state() {
 
 // The dynamic shared memory a build's per-tree state takes (0 when
 // static), with the regrow step's when ``regrow``.
-template <int kPad>
+template <int kPad, typename Real>
 __host__ __device__ constexpr size_t state_bytes(bool regrow) {
   return static_state<kPad>()
       ? 0
-      : sizeof(TreeShared<kPad>) + (regrow ? sizeof(RegrowShared<kPad>) : 0);
+      : sizeof(TreeShared<kPad, Real>)
+            + (regrow ? sizeof(RegrowShared<kPad>) : 0);
 }
 
-static_assert(sizeof(TreeShared<kPadDeepest>) % 16 == 0 &&
+static_assert(sizeof(TreeShared<kPadDeepest, float>) % 16 == 0 &&
+                  sizeof(TreeShared<kPadDeepest, double>) % 16 == 0 &&
                   sizeof(RegrowShared<kPadDeepest>) % 16 == 0,
               "the dynamic shared memory after the state stays 16-aligned");
 
 // The block's per-tree state in a kernel whose dynamic shared memory
 // ``dyn`` holds nothing else: a static shared block up to kPadDeep slots,
 // else the head of ``dyn``.
-template <int kPad>
-__device__ inline TreeShared<kPad>& tree_state(unsigned char* dyn) {
+template <int kPad, typename Real>
+__device__ inline TreeShared<kPad, Real>& tree_state(unsigned char* dyn) {
   if constexpr (static_state<kPad>()) {
-    __shared__ TreeShared<kPad> s;
+    __shared__ TreeShared<kPad, Real> s;
     return s;
   } else {
-    return *reinterpret_cast<TreeShared<kPad>*>(dyn);
+    return *reinterpret_cast<TreeShared<kPad, Real>*>(dyn);
   }
 }
 
 // The block's regrow state beside tree_state's.
-template <int kPad>
+template <int kPad, typename Real>
 __device__ inline RegrowShared<kPad>& regrow_state(unsigned char* dyn) {
   if constexpr (static_state<kPad>()) {
     __shared__ RegrowShared<kPad> r;
     return r;
   } else {
     return *reinterpret_cast<RegrowShared<kPad>*>(
-        dyn + sizeof(TreeShared<kPad>));
+        dyn + sizeof(TreeShared<kPad, Real>));
   }
 }
 
@@ -193,15 +221,17 @@ __device__ inline bool bit(const unsigned* bits, int m) {
 
 // Where a tree's input rows are read from: device memory, or copies in
 // shared memory that arrived ahead of the tree (sweep_cluster.cuh).
+template <typename Real>
 struct TreeRows {
   const int32_t* feat;         // (M,)
   const int32_t* cut;          // (M,)
-  const float* u;              // (8,) proposal uniforms
-  const float* zn;             // (kPad,) leaf normals
+  const Real* u;               // (8,) proposal uniforms
+  const Real* zn;              // (kPad,) leaf normals
 };
 
-template <int kPad>
-__device__ inline TreeRows global_rows(const SweepArgs& a, size_t ct) {
+template <int kPad, typename Real>
+__device__ inline TreeRows<Real> global_rows(const SweepArgs<Real>& a,
+                                             size_t ct) {
   return {a.feature_in + ct * a.M, a.cut_in + ct * a.M, a.u + ct * 8,
           a.zn + ct * kPad};
 }
@@ -215,9 +245,9 @@ struct Move {
 
 // index of the target-th set bit (0-based, from node 0 up) of a node mask
 // of kWords words; 0 when there is none
-template <int kWords>
-__device__ inline int pick_marked(const unsigned* bits, int count, float u) {
-  int target = (int)floorf(u * (float)count);
+template <int kWords, typename Real>
+__device__ inline int pick_marked(const unsigned* bits, int count, Real u) {
+  int target = (int)floor(u * (Real)count);
   target = min(target, count - 1);
   if (target < 0) return 0;
   for (int k = 0; k < kWords; ++k) {
@@ -234,10 +264,17 @@ __device__ inline int pick_marked(const unsigned* bits, int count, float u) {
 
 // the split variable of a tree whose proposal uniform u[3] is u3: the
 // inverse CDF of the split probabilities
-__device__ inline int pick_var(const SweepArgs& a, float u3) {
+template <typename Real>
+__device__ inline int pick_var(const SweepArgs<Real>& a, Real u3) {
   int v = 0;
   for (int j = 0; j < a.P; ++j) v += a.spcum[j] <= u3 ? 1 : 0;
   return min(v, a.P - 1);
+}
+
+// the cut of a cut uniform u: uniform over the n_cuts cuts
+template <typename Real>
+__device__ inline int pick_cut(Real u, int n_cuts) {
+  return min((int)floor(u * (Real)n_cuts), n_cuts - 1);
 }
 
 // a pointer to the same shared-memory object in block ``rank`` of this
@@ -251,21 +288,23 @@ __device__ inline void cluster_sync() {
   cooperative_groups::this_cluster().sync();
 }
 
-__device__ inline float leaf_marginal(float n, float s, float s2, float t2) {
-  float denom = s2 + n * t2;
-  return 0.5f * logf(s2 / denom) + t2 * s * s / (2.0f * s2 * denom);
+template <typename Real>
+__device__ inline Real leaf_marginal(Real n, Real s, Real s2, Real t2) {
+  Real denom = s2 + n * t2;
+  return Real(0.5) * log(s2 / denom) + t2 * s * s / (Real(2) * s2 * denom);
 }
 
 // Loads the tree's heap rows, clears the leaf histograms and picks the
 // move: node picks by warp ballots over the leaf and NOG masks, the
 // variable by inverse CDF, the cut uniformly.  Ends on a block barrier.
-template <int kPad>
-__device__ inline Move begin_tree(const SweepArgs& a, TreeShared<kPad>& s,
-                                  const TreeRows& rows) {
+template <int kPad, typename Real>
+__device__ inline Move begin_tree(const SweepArgs<Real>& a,
+                                  TreeShared<kPad, Real>& s,
+                                  const TreeRows<Real>& rows) {
   constexpr int kWords = kPad / 32;
   const int M = a.M;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* u = rows.u;
+  const Real* u = rows.u;
   for (int m = tid; m < kPad; m += kThreads) {
     s.feat[m] = m < M ? rows.feat[m] : kInactive;
     s.cut[m] = m < M ? rows.cut[m] : 0;
@@ -292,11 +331,11 @@ __device__ inline Move begin_tree(const SweepArgs& a, TreeShared<kPad>& s,
         n_nog += __popc(nog_bits[k]);
         s.nog_bits[k] = nog_bits[k];
       }
-      float u_move = u[0];
+      Real u_move = u[0];
       bool grow = u_move < a.p_grow;
       bool prune = !grow && u_move < a.p_grow + a.p_prune;
       int v = pick_var(a, u[3]);
-      int cn = min((int)floorf(u[4] * (float)a.n_cuts), a.n_cuts - 1);
+      int cn = pick_cut(u[4], a.n_cuts);
       int eta = grow ? pick_marked<kWords>(leaf_bits, n_leaf, u[1])
                      : pick_marked<kWords>(nog_bits, max(n_nog, 1), u[2]);
       s.sc[0] = eta;
@@ -327,10 +366,11 @@ __device__ inline Move begin_tree(const SweepArgs& a, TreeShared<kPad>& s,
 // statistics: (n, s) over the move's nodes, over those going left, and
 // over the current left child; acc[6] and acc[7] keep the largest |wr|
 // and w, which scale the leaf histograms.
-__device__ inline void add_move_stats(float acc[8], const Move& mv, int li,
-                                      bool gl, float w, float wr) {
-  acc[6] = fmaxf(acc[6], fabsf(wr));
-  acc[7] = fmaxf(acc[7], w);
+template <typename Real>
+__device__ inline void add_move_stats(Real acc[8], const Move& mv, int li,
+                                      bool gl, Real w, Real wr) {
+  acc[6] = fmax(acc[6], fabs(wr));
+  acc[7] = fmax(acc[7], w);
   bool ml = li == mv.lft;
   bool mem = mv.grow ? (li == mv.eta) : (ml || li == mv.rgt);
   if (mem) {
@@ -349,13 +389,16 @@ __device__ inline void add_move_stats(float acc[8], const Move& mv, int li,
 
 // The power of two S that turns values of magnitude at most amax into
 // 64-bit integers whose sum over N values cannot overflow:
-// N * amax * 2^S < 2^62.  Kept within a float's exponent range.
-__device__ inline int fix_scale(float amax, int N) {
-  if (!(amax > 0.0f)) return 0;
+// N * amax * 2^S < 2^62.  Kept within the real type's exponent range
+// (2^S a normal number: S <= 127 in float, 1023 in double).
+template <typename Real>
+__device__ inline int fix_scale(Real amax, int N) {
+  constexpr int kMaxScale = sizeof(Real) == 4 ? 127 : 1023;
+  if (!(amax > Real(0))) return 0;
   int e;
-  frexpf(amax, &e);                       // amax < 2^e
+  frexp(amax, &e);                        // amax < 2^e
   const int en = 32 - __clz(max(N, 1));   // N < 2^en
-  return min(62 - en - e, 127);
+  return min(62 - en - e, kMaxScale);
 }
 
 // x as a fixed-point integer of scale S (|S| <= 127; x * 2^S is exact)
@@ -365,9 +408,18 @@ __device__ inline long long to_fixed(float x, int S) {
   return __float2ll_rn(x * f);
 }
 
-// a fixed-point sum of scale S back to float
-__device__ inline float from_fixed(unsigned long long v, int S) {
-  return (float)ldexp((double)(long long)v, -S);
+// x as a fixed-point integer of scale S (|S| <= 1023; x * 2^S is exact)
+__device__ inline long long to_fixed(double x, int S) {
+  const double f =
+      S >= -1022 ? __longlong_as_double((long long)(S + 1023) << 52)
+                 : ldexp(1.0, S);
+  return __double2ll_rn(x * f);
+}
+
+// a fixed-point sum of scale S back to the real type
+template <typename Real>
+__device__ inline Real from_fixed(unsigned long long v, int S) {
+  return (Real)ldexp((double)(long long)v, -S);
 }
 
 // Sums the threads' move statistics (acc[0..5], in fixed order) and
@@ -376,38 +428,38 @@ __device__ inline float from_fixed(unsigned long long v, int S) {
 // s.sc[9] (w) and s.sc[10] (w r).  Called by every thread; contains block
 // barriers and, in a cluster of K > 1 blocks, one cluster barrier, after
 // which every block adds the blocks' sums in rank order.
-template <int kPad>
-__device__ inline void chain_stats(TreeShared<kPad>& s, const float acc[8],
-                                   int N, int K) {
+template <int kPad, typename Real>
+__device__ inline void chain_stats(TreeShared<kPad, Real>& s,
+                                   const Real acc[8], int N, int K) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int k = 0; k < 8; ++k) {
-    float x = acc[k];
+    Real x = acc[k];
     for (int off = 16; off > 0; off >>= 1) {
-      const float y = __shfl_xor_sync(kFull, x, off);
-      x = k < 6 ? x + y : fmaxf(x, y);
+      const Real y = __shfl_xor_sync(kFull, x, off);
+      x = k < 6 ? x + y : fmax(x, y);
     }
     if (lane == 0) s.red[warp][k] = x;
   }
   __syncthreads();
   if (K > 1) {
     if (tid < 8) {
-      float x = 0.0f;
+      Real x = Real(0);
       for (int wp = 0; wp < kWarps; ++wp)
-        x = tid < 6 ? x + s.red[wp][tid] : fmaxf(x, s.red[wp][tid]);
+        x = tid < 6 ? x + s.red[wp][tid] : fmax(x, s.red[wp][tid]);
       s.part[tid] = x;
     }
     cluster_sync();
   }
   if (tid < 8) {
-    float x = 0.0f;
+    Real x = Real(0);
     if (K == 1) {
       for (int wp = 0; wp < kWarps; ++wp)
-        x = tid < 6 ? x + s.red[wp][tid] : fmaxf(x, s.red[wp][tid]);
+        x = tid < 6 ? x + s.red[wp][tid] : fmax(x, s.red[wp][tid]);
     } else {
       x = in_rank(s.part, 0)[tid];
       for (int r = 1; r < K; ++r) {
-        const float y = in_rank(s.part, r)[tid];
-        x = tid < 6 ? x + y : fmaxf(x, y);
+        const Real y = in_rank(s.part, r)[tid];
+        x = tid < 6 ? x + y : fmax(x, y);
       }
     }
     s.tot[tid] = x;
@@ -422,49 +474,50 @@ __device__ inline void chain_stats(TreeShared<kPad>& s, const float acc[8],
 // right (else the move's total less the left pair); on acceptance
 // rewrites the tree rows in shared memory and sets s.sc[4].  Run by one
 // thread.
-template <int kPad>
-__device__ inline void mh_decide(const SweepArgs& a, TreeShared<kPad>& s,
-                                 const Move& mv, const float* st,
-                                 const TreeRows& rows, float s2, float t2,
-                                 const float* rn = nullptr) {
-  const float* u = rows.u;
+template <int kPad, typename Real>
+__device__ inline void mh_decide(const SweepArgs<Real>& a,
+                                 TreeShared<kPad, Real>& s, const Move& mv,
+                                 const Real* st, const TreeRows<Real>& rows,
+                                 Real s2, Real t2,
+                                 const Real* rn = nullptr) {
+  const Real* u = rows.u;
   const int eta = mv.eta, lft = mv.lft, rgt = mv.rgt, move = mv.move;
-  float n_all = st[0], s_all = st[1], n_ln = st[2], s_ln = st[3];
-  float n_lo = st[4], s_lo = st[5];
-  float n_rn = rn ? rn[0] : n_all - n_ln, s_rn = rn ? rn[1] : s_all - s_ln;
-  float n_ro = n_all - n_lo, s_ro = s_all - s_lo;
-  float m_all = leaf_marginal(n_all, s_all, s2, t2);
-  float m_ln = leaf_marginal(n_ln, s_ln, s2, t2);
-  float m_rn = leaf_marginal(n_rn, s_rn, s2, t2);
-  float m_lo = leaf_marginal(n_lo, s_lo, s2, t2);
-  float m_ro = leaf_marginal(n_ro, s_ro, s2, t2);
+  Real n_all = st[0], s_all = st[1], n_ln = st[2], s_ln = st[3];
+  Real n_lo = st[4], s_lo = st[5];
+  Real n_rn = rn ? rn[0] : n_all - n_ln, s_rn = rn ? rn[1] : s_all - s_ln;
+  Real n_ro = n_all - n_lo, s_ro = s_all - s_lo;
+  Real m_all = leaf_marginal(n_all, s_all, s2, t2);
+  Real m_ln = leaf_marginal(n_ln, s_ln, s2, t2);
+  Real m_rn = leaf_marginal(n_rn, s_rn, s2, t2);
+  Real m_lo = leaf_marginal(n_lo, s_lo, s2, t2);
+  Real m_ro = leaf_marginal(n_ro, s_ro, s2, t2);
   int n_leaf = s.sc[7], n_nog = s.sc[8];
   int d = 31 - __clz(eta + 1);
-  float ps_d = a.psplit[d];
-  float split_term = logf(ps_d)
-      + 2.0f * log1pf(-a.psplit[min(d + 1, a.max_depth + 1)])
-      - log1pf(-ps_d);
+  Real ps_d = a.psplit[d];
+  Real split_term = log(ps_d)
+      + Real(2) * log1p(-a.psplit[min(d + 1, a.max_depth + 1)])
+      - log1p(-ps_d);
   bool valid;
-  float log_accept;
+  Real log_accept;
   if (mv.grow) {
     int parent = eta > 0 ? (eta - 1) / 2 : 0;
     bool parent_was_nog =
         eta > 0 && ((s.nog_bits[parent >> 5] >> (parent & 31)) & 1u);
     int n_nog_grow = n_nog + 1 - (parent_was_nog ? 1 : 0);
-    float trans = a.trans_grow0 + logf((float)n_leaf)
-        - logf((float)n_nog_grow);
+    Real trans = a.trans_grow0 + log((Real)n_leaf)
+        - log((Real)n_nog_grow);
     log_accept = split_term + trans + (m_ln + m_rn - m_all);
-    valid = d < a.max_depth && n_ln > 0.0f && n_rn > 0.0f;
+    valid = d < a.max_depth && n_ln > Real(0) && n_rn > Real(0);
   } else if (move == 1) {
-    float trans = a.trans_prune0 + logf((float)n_nog)
-        - logf((float)max(n_leaf - 1, 1));
+    Real trans = a.trans_prune0 + log((Real)n_nog)
+        - log((Real)max(n_leaf - 1, 1));
     log_accept = -split_term + trans + (m_all - m_lo - m_ro);
     valid = n_nog > 0;
   } else {
     log_accept = m_ln + m_rn - m_lo - m_ro;
-    valid = n_nog > 0 && n_ln > 0.0f && n_rn > 0.0f;
+    valid = n_nog > 0 && n_ln > Real(0) && n_rn > Real(0);
   }
-  bool accept = valid && (logf(u[5]) < log_accept);
+  bool accept = valid && (log(u[5]) < log_accept);
   if (accept) {
     if (move == 1) {
       s.feat[eta] = kLeaf;
@@ -484,11 +537,11 @@ __device__ inline void mh_decide(const SweepArgs& a, TreeShared<kPad>& s,
 // Metropolis-Hastings decision (mh_decide).  Returns whether the move was
 // accepted.  Called by every thread; every block of a cluster makes the
 // same decision from the same numbers.
-template <int kPad>
-__device__ inline bool decide(const SweepArgs& a, TreeShared<kPad>& s,
-                              const Move& mv, const float acc[8],
-                              const TreeRows& rows, float s2, float t2,
-                              int K = 1) {
+template <int kPad, typename Real>
+__device__ inline bool decide(const SweepArgs<Real>& a,
+                              TreeShared<kPad, Real>& s, const Move& mv,
+                              const Real acc[8], const TreeRows<Real>& rows,
+                              Real s2, Real t2, int K = 1) {
   chain_stats(s, acc, a.N, K);
   if (threadIdx.x == 0) mh_decide(a, s, mv, s.tot, rows, s2, t2);
   __syncthreads();
@@ -525,12 +578,12 @@ __device__ inline long long group_sum(unsigned grp, long long v) {
 // Every lane of the warp calls it together.  The W observations are
 // independent, so their warp reductions overlap.  Unweighted (every w 1),
 // the weights' sum is the group's size times 2^scale, exactly.
-template <int W, int kPad>
+template <int W, int kPad, typename Real>
 __device__ inline void hist_add(unsigned long long (&h)[2][kPad],
-                                const TreeShared<kPad>& s,
+                                const TreeShared<kPad, Real>& s,
                                 const bool (&in)[W],
-                                const int (&li)[W], const float (&w)[W],
-                                const float (&wr)[W], bool weighted) {
+                                const int (&li)[W], const Real (&w)[W],
+                                const Real (&wr)[W], bool weighted) {
   const int lane = threadIdx.x & 31;
   const int sw_scale = s.sc[9], swr_scale = s.sc[10];
   unsigned grp[W];
@@ -543,7 +596,8 @@ __device__ inline void hist_add(unsigned long long (&h)[2][kPad],
 #pragma unroll
   for (int k = 0; k < W; ++k)
     tw[k] = weighted ? group_sum(grp[k], in[k] ? to_fixed(w[k], sw_scale) : 0)
-                     : (long long)__popc(grp[k]) * to_fixed(1.0f, sw_scale);
+                     : (long long)__popc(grp[k]) * to_fixed(Real(1),
+                                                            sw_scale);
 #pragma unroll
   for (int k = 0; k < W; ++k) {
     if (in[k] && lane == __ffs(grp[k]) - 1) {
@@ -554,18 +608,19 @@ __device__ inline void hist_add(unsigned long long (&h)[2][kPad],
 }
 
 // hist_add into the block's leaf histograms
-template <int W, int kPad>
-__device__ inline void hist_add(TreeShared<kPad>& s, const bool (&in)[W],
-                                const int (&li)[W], const float (&w)[W],
-                                const float (&wr)[W], bool weighted) {
+template <int W, int kPad, typename Real>
+__device__ inline void hist_add(TreeShared<kPad, Real>& s,
+                                const bool (&in)[W], const int (&li)[W],
+                                const Real (&w)[W], const Real (&wr)[W],
+                                bool weighted) {
   hist_add<W>(s.hist, s, in, li, w, wr, weighted);
 }
 
 // In a cluster of K > 1 blocks, publishes the block's leaf histograms and
 // waits on a cluster barrier.  Called by every thread after a block
 // barrier.
-template <int kPad>
-__device__ inline void gather_hist(TreeShared<kPad>& s, int M, int K) {
+template <int kPad, typename Real>
+__device__ inline void gather_hist(TreeShared<kPad, Real>& s, int M, int K) {
   if (K == 1) return;
   for (int m = threadIdx.x; m < M; m += kThreads) {
     s.hsum[0][m] = s.hist[0][m];
@@ -577,10 +632,10 @@ __device__ inline void gather_hist(TreeShared<kPad>& s, int M, int K) {
 // Node m's sums (weight and weighted residual) in the histogram pair h
 // over the chain: this block's (K = 1) or, in a cluster, every block's in
 // rank order, in the fixed-point scales of chain_stats.
-template <int kPad>
-__device__ inline void hist_sums(TreeShared<kPad>& s,
+template <int kPad, typename Real>
+__device__ inline void hist_sums(TreeShared<kPad, Real>& s,
                                  unsigned long long (&h)[2][kPad], int m,
-                                 int K, float& cnt, float& sm) {
+                                 int K, Real& cnt, Real& sm) {
   unsigned long long c = 0, r = 0;
   if (K == 1) {
     c = h[0][m];
@@ -591,16 +646,16 @@ __device__ inline void hist_sums(TreeShared<kPad>& s,
       r += in_rank(&h[1][0], k)[m];
     }
   }
-  cnt = from_fixed(c, s.sc[9]);
-  sm = from_fixed(r, s.sc[10]);
+  cnt = from_fixed<Real>(c, s.sc[9]);
+  sm = from_fixed<Real>(r, s.sc[10]);
 }
 
 // Node m's leaf statistics (weight and weighted residual sums) over the
 // chain, after gather_hist; after an accepted regrow (r not null), those
 // of the proposed partition on eta's subtree.
-template <int kPad>
-__device__ inline void leaf_sums(TreeShared<kPad>& s, int m, int K,
-                                 float& cnt, float& sm,
+template <int kPad, typename Real>
+__device__ inline void leaf_sums(TreeShared<kPad, Real>& s, int m, int K,
+                                 Real& cnt, Real& sm,
                                  RegrowShared<kPad>* r = nullptr) {
   if (r != nullptr && bit(r->sub_bits, m))
     hist_sums(s, r->hist2, m, K, cnt, sm);
@@ -616,22 +671,23 @@ __device__ inline void leaf_sums(TreeShared<kPad>& s, int m, int K,
 // from the same sums.  ``rg``: what the tree's regrow step did (which
 // gathered the histograms already when it ran), with its state r.
 // Called by every thread after a block barrier; ends on one.
-template <int kPad>
-__device__ inline void draw_leaves(const SweepArgs& a, TreeShared<kPad>& s,
-                                   size_t ct, const TreeRows& rows, float s2,
-                                   float t2, int K = 1, bool write = true,
+template <int kPad, typename Real>
+__device__ inline void draw_leaves(const SweepArgs<Real>& a,
+                                   TreeShared<kPad, Real>& s, size_t ct,
+                                   const TreeRows<Real>& rows, Real s2,
+                                   Real t2, int K = 1, bool write = true,
                                    Regrow rg = Regrow::kNone,
                                    RegrowShared<kPad>* r = nullptr) {
   const int M = a.M;
   if (rg == Regrow::kNone) gather_hist(s, M, K);
   RegrowShared<kPad>* accepted = rg == Regrow::kAccepted ? r : nullptr;
   for (int m = threadIdx.x; m < M; m += kThreads) {
-    float cnt, sm;
+    Real cnt, sm;
     leaf_sums(s, m, K, cnt, sm, accepted);
-    float pv = 1.0f / (cnt / s2 + 1.0f / t2);
-    float pm = pv * sm / s2;
-    float mu = pm + sqrtf(pv) * rows.zn[m];
-    float lv = s.feat[m] == kLeaf ? mu : 0.0f;
+    Real pv = Real(1) / (cnt / s2 + Real(1) / t2);
+    Real pm = pv * sm / s2;
+    Real mu = pm + sqrt(pv) * rows.zn[m];
+    Real lv = s.feat[m] == kLeaf ? mu : Real(0);
     s.lv[m] = lv;
     if (write) {
       a.lv_out[ct * M + m] = lv;
@@ -645,24 +701,25 @@ __device__ inline void draw_leaves(const SweepArgs& a, TreeShared<kPad>& s,
 // The operands a regrow step reads, for a step that is not inlined into
 // the sweep's loop (sweep_cluster.cuh:regrow_on_chip): passed by value
 // in a few registers, where the whole SweepArgs would take many.
+template <typename Real>
 struct RegrowArgs {
-  const float* rg;
+  const Real* rg;
   const int32_t* ranks_t;
-  const float* spcum;
-  const float* psplit;
-  const float* weights;
+  const Real* spcum;
+  const Real* psplit;
+  const Real* weights;
   int32_t* lidx_out;
   int N, P, M, n_cuts;
-  float p_regrow;
+  Real p_regrow;
 
-  explicit __device__ RegrowArgs(const SweepArgs& a)
+  explicit __device__ RegrowArgs(const SweepArgs<Real>& a)
       : rg(a.rg), ranks_t(a.ranks_t), spcum(a.spcum), psplit(a.psplit),
         weights(a.weights), lidx_out(a.lidx_out), N(a.N), P(a.P), M(a.M),
         n_cuts(a.n_cuts), p_regrow(a.p_regrow) {}
 
   // the SweepArgs the regrow's functions read (its other fields null)
-  __device__ SweepArgs args() const {
-    SweepArgs a{};
+  __device__ SweepArgs<Real> args() const {
+    SweepArgs<Real> a{};
     a.rg = rg;
     a.ranks_t = ranks_t;
     a.spcum = spcum;
@@ -679,13 +736,16 @@ struct RegrowArgs {
 };
 
 // This (chain, tree)'s row of regrow uniforms.
-__device__ inline const float* regrow_row(const SweepArgs& a, size_t ct) {
+template <typename Real>
+__device__ inline const Real* regrow_row(const SweepArgs<Real>& a,
+                                         size_t ct) {
   return a.rg + ct * (size_t)(3 + 3 * a.M);
 }
 
 // Whether the tree's regrow gate opens: the move is on and the gate
 // uniform falls under p_regrow.  The same for every thread of a chain.
-__device__ inline bool regrow_gate(const SweepArgs& a, size_t ct) {
+template <typename Real>
+__device__ inline bool regrow_gate(const SweepArgs<Real>& a, size_t ct) {
   return a.rg != nullptr && regrow_row(a, ct)[0] < a.p_regrow;
 }
 
@@ -699,16 +759,16 @@ __device__ inline bool regrow_gate(const SweepArgs& a, size_t ct) {
 // n_active in r.rsc[2], and r.hist2 zeroed.  One thread per node, kNodes
 // nodes a thread (node j * kThreads + tid), a warp's 32 nodes one mask
 // word.  Called by every thread; ends on a block barrier.
-template <int kPad>
-__device__ inline void regrow_propose(const SweepArgs& a,
-                                      const TreeShared<kPad>& s,
+template <int kPad, typename Real>
+__device__ inline void regrow_propose(const SweepArgs<Real>& a,
+                                      const TreeShared<kPad, Real>& s,
                                       RegrowShared<kPad>& r,
-                                      const float* row) {
+                                      const Real* row) {
   constexpr int kWords = kPad / 32;
   constexpr int kNodes = (kPad + kThreads - 1) / kThreads;
   const int M = a.M;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* u3 = row + 3;
+  const Real* u3 = row + 3;
   for (int j = tid; j < 2 * kPad; j += kThreads) (&r.hist2[0][0])[j] = 0;
   if (warp == 0) {
     int n = 0;
@@ -745,8 +805,7 @@ __device__ inline void regrow_propose(const SweepArgs& a,
         }
         want[j] = u3[m] < a.psplit[31 - __clz(m + 1)];
         v[j] = pick_var(a, u3[M + m]);
-        cn[j] = min((int)floorf(u3[2 * M + m] * (float)a.n_cuts),
-                    a.n_cuts - 1);
+        cn[j] = pick_cut(u3[2 * M + m], a.n_cuts);
       }
       const unsigned wb = __ballot_sync(kFull, want[j]);
       const unsigned sb = __ballot_sync(kFull, in[j]);
@@ -778,8 +837,8 @@ __device__ inline void regrow_propose(const SweepArgs& a,
 
 // The leaf of the proposed subtree that observation ``obs`` (of the N),
 // whose post-move leaf lies under eta, lands in: the walk down from eta.
-template <int kPad>
-__device__ inline int regrow_leaf(const SweepArgs& a,
+template <int kPad, typename Real>
+__device__ inline int regrow_leaf(const SweepArgs<Real>& a,
                                   const RegrowShared<kPad>& r, int eta,
                                   int obs) {
   int node = eta;
@@ -796,21 +855,21 @@ __device__ inline int regrow_leaf(const SweepArgs& a,
 // resid(i).  One observation per thread at a time, so that the step adds
 // few registers to the sweep it runs in; the sums are integers, so their
 // order does not matter.  Every thread calls it; no barrier.
-template <int kPad, typename Leaf, typename Resid>
-__device__ inline void regrow_pass(const SweepArgs& a,
-                                   const TreeShared<kPad>& s,
+template <int kPad, typename Real, typename Leaf, typename Resid>
+__device__ inline void regrow_pass(const SweepArgs<Real>& a,
+                                   const TreeShared<kPad, Real>& s,
                                    RegrowShared<kPad>& r, int start, int n,
-                                   const float* wts, Leaf leaf,
+                                   const Real* wts, Leaf leaf,
                                    Resid resid) {
   const int eta = r.rsc[0];
   for (int base = 0; base < n; base += kThreads) {
     const int i = base + threadIdx.x;
     bool in[1] = {i < n && bit(r.sub_bits, leaf(i))};
     int li[1] = {-1};
-    float w[1] = {0.0f}, wr[1] = {0.0f};
+    Real w[1] = {Real(0)}, wr[1] = {Real(0)};
     if (in[0]) {
       li[0] = regrow_leaf(a, r, eta, start + i);
-      w[0] = wts ? wts[i] : 1.0f;
+      w[0] = wts ? wts[i] : Real(1);
       wr[0] = wts ? w[0] * resid(i) : resid(i);
     }
     hist_add<1>(r.hist2, s, in, li, w, wr, wts != nullptr);
@@ -824,20 +883,20 @@ __device__ inline void regrow_pass(const SweepArgs& a,
 // subtree in node order; a proposal with an empty leaf (weights
 // included) is refused.  The gate has opened.  Run by warp 0; leaves the
 // decision in r.rsc[1].
-template <int kPad, typename Old, typename Prop>
-__device__ inline void regrow_mh(const TreeShared<kPad>& s,
-                                 RegrowShared<kPad>& r, const float* row,
-                                 int M, float s2, float t2, Old old,
+template <int kPad, typename Real, typename Old, typename Prop>
+__device__ inline void regrow_mh(const TreeShared<kPad, Real>& s,
+                                 RegrowShared<kPad>& r, const Real* row,
+                                 int M, Real s2, Real t2, Old old,
                                  Prop prop) {
   constexpr int kWords = kPad / 32;
   const int lane = threadIdx.x & 31;
-  float m_old = 0.0f, m_new = 0.0f;
+  Real m_old = Real(0), m_new = Real(0);
   bool empty = false;
   for (int k = 0; k < kWords; ++k) {
     const int m = 32 * k + lane;
-    float to = 0.0f, tn = 0.0f;
+    Real to = Real(0), tn = Real(0);
     if (m < M && bit(r.sub_bits, m)) {
-      float cnt, sm;
+      Real cnt, sm;
       if (s.feat[m] == kLeaf) {
         old(m, cnt, sm);
         to = leaf_marginal(cnt, sm, s2, t2);
@@ -845,7 +904,7 @@ __device__ inline void regrow_mh(const TreeShared<kPad>& s,
       if (r.rfeat[m] == kLeaf) {
         prop(m, cnt, sm);
         tn = leaf_marginal(cnt, sm, s2, t2);
-        empty = empty || cnt <= 0.0f;
+        empty = empty || cnt <= Real(0);
       }
     }
     for (int j = 0; j < 32; ++j) {
@@ -861,9 +920,9 @@ __device__ inline void regrow_mh(const TreeShared<kPad>& s,
       n_new += __popc(r.new_bits[k]);
     }
     const int n_act = r.rsc[2], n_act_new = n_act - n_sub + n_new;
-    const float log_accept = m_new - m_old + logf((float)n_act)
-        - logf((float)n_act_new);
-    r.rsc[1] = !empty && logf(row[2]) < log_accept ? 1 : 0;
+    const Real log_accept = m_new - m_old + log((Real)n_act)
+        - log((Real)n_act_new);
+    r.rsc[1] = !empty && log(row[2]) < log_accept ? 1 : 0;
   }
 }
 
@@ -873,17 +932,18 @@ __device__ inline void regrow_mh(const TreeShared<kPad>& s,
 // the proposed partition's pass; in a cluster of K > 1 blocks it waits on
 // a cluster barrier first.  Returns the decision, the same in every
 // block.
-template <int kPad>
-__device__ inline bool regrow_decide(const SweepArgs& a, TreeShared<kPad>& s,
-                                     RegrowShared<kPad>& r, const float* row,
-                                     float s2, float t2, int K) {
+template <int kPad, typename Real>
+__device__ inline bool regrow_decide(const SweepArgs<Real>& a,
+                                     TreeShared<kPad, Real>& s,
+                                     RegrowShared<kPad>& r, const Real* row,
+                                     Real s2, Real t2, int K) {
   if (K > 1) cluster_sync();
   if (threadIdx.x < 32) {
     regrow_mh(s, r, row, a.M, s2, t2,
-              [&](int m, float& cnt, float& sm) {
+              [&](int m, Real& cnt, Real& sm) {
                 leaf_sums(s, m, K, cnt, sm);
               },
-              [&](int m, float& cnt, float& sm) {
+              [&](int m, Real& cnt, Real& sm) {
                 hist_sums(s, r.hist2, m, K, cnt, sm);
               });
   }
@@ -893,8 +953,8 @@ __device__ inline bool regrow_decide(const SweepArgs& a, TreeShared<kPad>& s,
 
 // An accepted regrow's rows: eta's subtree set from the proposal.  Called
 // by every thread; ends on a block barrier.
-template <int kPad>
-__device__ inline void regrow_accept(TreeShared<kPad>& s,
+template <int kPad, typename Real>
+__device__ inline void regrow_accept(TreeShared<kPad, Real>& s,
                                      const RegrowShared<kPad>& r) {
   for (int m = threadIdx.x; m < kPad; m += kThreads) {
     if (bit(r.sub_bits, m)) {

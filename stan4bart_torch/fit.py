@@ -27,6 +27,7 @@ from stan4bart_torch.formula.design import ModelFrame, build_model_frame
 from stan4bart_torch.gibbs import OFFSET_TYPES, GibbsDraw, GibbsProgram
 from stan4bart_torch.models.assemble import build_parametric_model
 from stan4bart_torch.ops.bart import BartConfig
+from stan4bart_torch.ops.bart_sweep_kernel import check_kernel_dtype
 from stan4bart_torch.ops.nuts import NutsConfig
 from stan4bart_torch.utils.device import resolve_device
 
@@ -286,9 +287,11 @@ def stan4bart(
     group (``parallel/mesh.py``; no callback, ``keep_fits=False`` or
     pooled adaptation).  A fit from several ranks keeps its final states
     on the ranks (``final_states`` is None), so it cannot
-    ``continue_sampling``.  ``dtype`` defaults to float32 (the CUDA sweep
-    kernel's type); float64 runs on the CPU only.  ``chunk_size`` bounds
-    the iterations between progress reports and interrupt checks.
+    ``continue_sampling``.  ``dtype`` is float32 (the default) or
+    float64; on the card each sweep launches the CUDA kernels' build for
+    it (``ops/bart_sweep_kernel.py``: a float64 fit runs their
+    double-precision builds).  ``chunk_size`` bounds the iterations
+    between progress reports and interrupt checks.
 
     ``algorithm`` selects the parametric block's sampler within Gibbs:
     ``"nuts"`` (default; the only one with exact posterior contracts),
@@ -364,8 +367,8 @@ def stan4bart(
         skip_bart = skip_stan = int(skip)
     if dtype is None:
         dtype = torch.float32
-    if dev.type == "cuda" and dtype != torch.float32:
-        raise ValueError("the CUDA path runs in float32")
+    if dev.type == "cuda":
+        check_kernel_dtype(dtype)
 
     if subset is not None:
         subset = np.asarray(subset)

@@ -231,14 +231,17 @@ class GibbsProgram:
                         if weights is not None and len(np.asarray(weights))
                         else None)
         self.sweep_consts = make_sweep_consts(
-            bart_cfg, ranks, self.split_probs, device=self.device)
+            bart_cfg, ranks, self.split_probs, device=self.device,
+            dtype=dtype)
         # the obs-tiled sweep kernel past the single-pass kernel's shared
         # memory, and the per-chain step's kernel up to its ceiling: at
-        # depth <= 6 the JAX package's boundaries (npad 10368 and 51840),
-        # deeper what the deep builds hold on chip (``on_chip_ceilings``)
+        # depth <= 6 the JAX package's boundaries (npad 10368 and 51840,
+        # which hold on chip in float32 and float64), deeper what the build
+        # for the heap and dtype holds on chip (``on_chip_ceilings``)
         pad = self.sweep_consts.node_pad
         single, chain = ((MAX_NPAD, MAX_N_CHAIN) if pad == NODE_PAD
-                         else on_chip_ceilings(pad, bart_cfg.num_trees))
+                         else on_chip_ceilings(pad, bart_cfg.num_trees,
+                                               dtype))
         self.sweep_tiled = self.sweep_consts.npad > single
         self.sweep_single_ok = self.sweep_consts.npad <= chain
 
@@ -1133,7 +1136,7 @@ class GibbsProgram:
         lp._inv_mass0_global = np.asarray(inv_mass0)
         lp.sweep_consts = make_sweep_consts(
             self.bart_cfg, local["ranks"], self.split_probs,
-            device=self.device)
+            device=self.device, dtype=self.dtype)
         lp.phase_s = {k: 0.0 for k in self.phase_s}
         return lp
 

@@ -35,9 +35,10 @@ each tree's move, where the tree's gate opens (``csrc/sweep_common.cuh``
 get no regrow variates and run as without the move.
 
 Each wrapper's ``launches`` counts its kernel's launches,
-``regrow_launches`` those that ran the in-sweep regrow and
-``deep_launches`` those of the deep builds, 512 or 1024 heap slots (for
-the sharded sweep: tree updates and regrow updates).
+``regrow_launches`` those that ran the in-sweep regrow,
+``deep_launches`` those of the deep builds, 512 or 1024 heap slots, and
+``f64_launches`` those of the double-precision builds (for the sharded
+sweep: tree updates and regrow updates).
 
 The cluster size K of every sweep kernel is ``cluster_size``'s choice
 from the clusters the device holds at once, unless the caller forces it
@@ -56,6 +57,15 @@ state would leave no room for observations in a block); on the card
 deterministic forest, and the three sweep kernels are bit-identical at
 equal K.  A K whose slice does not fit on chip has no resident cluster
 and is never chosen; forced, its launch raises.
+
+The kernels take float32 or float64 state.  Each source is built twice
+(``ops/cuda_build.py``): the float32 library and ``<name>_f64``, whose
+kernels hold the residual, tree fits, leaf values, variates and every sum
+and decision in double, with ``_f64`` C symbols.  A float64 state
+launches the double build (its ceilings on n and its K from its own
+shared memory: 8 bytes of residual an observation and wider rings and
+tree rows), never the float32 one; the variates are drawn in float32 as
+for a float32 state and widened.
 
 ``bart_sweep_fused_sharded`` is the observation-sharded sweep of one
 rank of a data group: on a CUDA tensor ``csrc/bart_sweep_sharded.cu``,
@@ -125,8 +135,8 @@ BLOCK_FIXED_OBS = 2700
 class SweepConsts(NamedTuple):
     """Model-static kernel operands, built once per GibbsProgram."""
     ranks_t: torch.Tensor   # (P, N) int32 cut ranks, one row per variable
-    spcum: torch.Tensor     # (P,) f32 split-probability inclusive cumsum
-    psplit: torch.Tensor    # (max_depth + 2,) f32 p_split by depth
+    spcum: torch.Tensor     # (P,) split-probability inclusive cumsum
+    psplit: torch.Tensor    # (max_depth + 2,) p_split by depth
     depths: torch.Tensor    # (M,) int64 node depth by heap index
     n_obs: int
     npad: int               # n rounded up to the TPU kernel's 128 lanes
@@ -135,22 +145,23 @@ class SweepConsts(NamedTuple):
 
 
 def make_sweep_consts(cfg: BartConfig, ranks, split_probs,
-                      device="cuda") -> SweepConsts:
-    """Static operands of the sweep from the model data (ranks (N, P)).
-    The plain sweep takes any depth; on the card the kernels' heaps go
-    to max_depth ``MAX_KERNEL_DEPTH``, and a deeper tree raises."""
+                      device="cuda", dtype=torch.float32) -> SweepConsts:
+    """Static operands of the sweep from the model data (ranks (N, P)),
+    the split probabilities in the state's ``dtype`` (the cumsum taken in
+    it).  The plain sweep takes any depth; on the card the kernels' heaps
+    go to max_depth ``MAX_KERNEL_DEPTH``, and a deeper tree raises."""
     device = resolve_device(device)
     if device.type == "cuda":
         check_kernel_depth(cfg)
     ranks = np.asarray(ranks)
     n = ranks.shape[0]
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
     return SweepConsts(
         ranks_t=torch.as_tensor(np.ascontiguousarray(ranks.T),
                                 dtype=torch.int32, device=device),
-        spcum=torch.as_tensor(np.cumsum(np.asarray(split_probs,
-                                                   np.float32)),
+        spcum=torch.as_tensor(np.cumsum(np.asarray(split_probs, np_dtype)),
                               device=device),
-        psplit=torch.as_tensor(split_prob_by_depth(cfg), dtype=torch.float32,
+        psplit=torch.as_tensor(split_prob_by_depth(cfg), dtype=dtype,
                                device=device),
         depths=torch.as_tensor(node_depths(cfg), dtype=torch.long,
                                device=device),
@@ -174,41 +185,56 @@ def _round(x: int, k: int) -> int:
     return -(-x // k) * k
 
 
-def on_chip_state(pad: int) -> int:
+def _real_bytes(dtype) -> int:
+    """Bytes of the kernels' real type for state of ``dtype``."""
+    check_kernel_dtype(dtype)
+    return 8 if dtype == torch.float64 else 4
+
+
+def on_chip_state(pad: int, dtype=torch.float32) -> int:
     """Shared memory per block of the per-tree state of a sweep kernel
-    built for ``pad`` heap slots with the regrow step (static up to 512
-    slots, dynamic above): ``sizeof`` of ``csrc/sweep_common.cuh``'s
-    TreeShared (three int/float rows, two fixed-point histograms, the
-    warp sums, the NOG mask, the scalars) and RegrowShared (two rows, a
-    histogram, four masks, three ints)."""
-    return (_round(44 * pad + pad // 8 + 364, 8)
+    built for ``pad`` heap slots and state of ``dtype`` with the regrow
+    step (static up to 512 slots, dynamic above): ``sizeof`` of
+    ``csrc/sweep_common.cuh``'s TreeShared (two int rows and a row of
+    leaf values, two fixed-point histograms, the warp sums, the NOG mask,
+    the scalars) and RegrowShared (two rows, a histogram, four masks,
+    three ints)."""
+    b = _real_bytes(dtype)
+    return (_round((40 + b) * pad + pad // 8 + 80 * b + 44, 8)
             + _round(24 * pad + pad // 2 + 12, 8))
 
 
-def on_chip_block_obs(pad: int, T: int) -> int:
+def on_chip_block_obs(pad: int, T: int, dtype=torch.float32) -> int:
     """Observations one block of ``csrc/sweep_cluster.cuh:sweep_on_chip``
     (the build with the regrow step, the larger) holds within
     ``SMEM_OPTIN`` bytes, a multiple of 32: what is left after the
-    per-tree state, the ring (3 tiles of 1024 observations x 12 B), the
-    tree rows in flight (3 x 12 B x pad + 96 B) and the trees' variables
-    (4 B x T), at 4 B of residual and 1 (pad 128) or 2 B of leaf index
-    copy per observation (``on_chip_bytes``)."""
-    left = (SMEM_OPTIN - on_chip_state(pad) - 36_864 - (36 * pad + 96)
-            - _round(4 * T, 16))
+    per-tree state, the ring (3 tiles of 1024 observations x (8 + b) B,
+    b the real type's bytes: 4, or 8 for float64), the tree rows in
+    flight (3 x (8 + b) B x pad + 24 b B) and the trees' variables (4 B x
+    T), at b B of residual and 1 (pad 128) or 2 B of leaf index copy per
+    observation (``on_chip_bytes``)."""
+    b = _real_bytes(dtype)
+    left = (SMEM_OPTIN - on_chip_state(pad, dtype) - 3072 * (8 + b)
+            - (3 * (8 + b) * pad + 24 * b) - _round(4 * T, 16))
     # a multiple of 32 observations needs no padding of its copy
-    return max(left // (4 + (1 if pad <= 128 else 2)) // 32 * 32, 0)
+    return max(left // (b + (1 if pad <= 128 else 2)) // 32 * 32, 0)
 
 
-def on_chip_ceilings(pad: int, T: int) -> tuple[int, int]:
+def on_chip_ceilings(pad: int, T: int,
+                     dtype=torch.float32) -> tuple[int, int]:
     """The widest padded observation rows (multiples of 128) of the
-    single-pass and per-chain kernels at ``pad`` heap slots and T trees:
-    at 128 the JAX package's limits (``MAX_NPAD``, ``MAX_N_CHAIN``), which
-    fit on chip; above, what the build with the regrow (the larger) holds
-    in one block (single-pass, K = 1) and in a cluster of
-    ``MAX_CLUSTER`` blocks (per-chain)."""
+    single-pass and per-chain kernels at ``pad`` heap slots, T trees and
+    state of ``dtype``: at 128 the JAX package's limits (``MAX_NPAD``,
+    ``MAX_N_CHAIN``), which fit on chip in either type (one float64 block
+    holds 18 496 observations at 75 trees); above, what the build with
+    the regrow (the larger) holds in one block (single-pass, K = 1) and
+    in a cluster of ``MAX_CLUSTER`` blocks (per-chain), from the type's
+    own bytes (a float64 build's below float32's: each observation and
+    tree row takes more)."""
+    check_kernel_dtype(dtype)
     if pad == NODE_PAD:
         return MAX_NPAD, MAX_N_CHAIN
-    block = on_chip_block_obs(pad, T)
+    block = on_chip_block_obs(pad, T, dtype)
     return block // 128 * 128, MAX_CLUSTER * block // 128 * 128
 
 
@@ -274,37 +300,51 @@ def _ptr(x):
     return ctypes.c_void_p(0 if x is None else x.data_ptr())
 
 
+def _entry(name: str, entry: str, dtype):
+    """The C entry point ``<name>_<entry>`` of sweep kernel ``name``'s
+    build for state of ``dtype``, built and loaded on first use: the
+    float32 library, or the double-precision one (``ops/cuda_build.py``:
+    library ``<name>_f64``, whose symbols end in ``_f64``)."""
+    from stan4bart_torch.ops.cuda_build import F64, load
+
+    sfx = F64 if _real_bytes(dtype) == 8 else ""
+    return getattr(load(name + sfx), f"{name}_{entry}{sfx}")
+
+
 def _operands(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
               tau2, u, zn, consts: SweepConsts, weights, rg=None):
     """Check a sweep kernel's operands and allocate its outputs; returns
     (outputs, the launcher's leading ctypes arguments, their argtypes).
-    The regrow variates go to the kernel only when ``cfg.p_regrow > 0``
-    (else a null pointer: the move is off)."""
+    Every float operand is in resid0's dtype, float32 or float64, the
+    kernel's real type; the scalars go as that type.  The regrow
+    variates go to the kernel only when ``cfg.p_regrow > 0`` (else a null
+    pointer: the move is off)."""
     C, T, M = feature.shape
     N = consts.n_obs
     P = consts.ranks_t.shape[0]
-    i32, f32 = torch.int32, torch.float32
+    i32, real = torch.int32, resid0.dtype
+    check_kernel_dtype(real)
     _check(feature, "feature", i32, (C, T, M))
     _check(cut, "cut", i32, (C, T, M))
     _check(lidx, "leaf_idx", i32, (C, T, N))
-    _check(tfit, "tree_fit", f32, (C, T, N))
-    _check(resid0, "resid", f32, (C, N))
-    _check(sigma2, "sigma2", f32, (C,))
-    _check(tau2, "tau2", f32, (C,))
-    _check(u, "u", f32, (C, T, 8))
-    _check(zn, "zn", f32, (C, T, consts.node_pad))
+    _check(tfit, "tree_fit", real, (C, T, N))
+    _check(resid0, "resid", real, (C, N))
+    _check(sigma2, "sigma2", real, (C,))
+    _check(tau2, "tau2", real, (C,))
+    _check(u, "u", real, (C, T, 8))
+    _check(zn, "zn", real, (C, T, consts.node_pad))
     _check(consts.ranks_t, "ranks", i32, (P, N))
-    _check(consts.spcum, "spcum", f32, (P,))
-    _check(consts.psplit, "psplit", f32, (cfg.max_depth + 2,))
+    _check(consts.spcum, "spcum", real, (P,))
+    _check(consts.psplit, "psplit", real, (cfg.max_depth + 2,))
     if weights is not None:
-        _check(weights, "weights", f32, (N,))
+        _check(weights, "weights", real, (N,))
     rg = _regrow_variates(cfg, rg)
     if rg is not None:
-        _check(rg, "rg", f32, (C, T, 3 + 3 * M))
+        _check(rg, "rg", real, (C, T, 3 + 3 * M))
 
     feature_o = torch.empty_like(feature)
     cut_o = torch.empty_like(cut)
-    lv_o = torch.empty((C, T, M), dtype=f32, device=feature.device)
+    lv_o = torch.empty((C, T, M), dtype=real, device=feature.device)
     lidx_o = torch.empty_like(lidx)
     tfit_o = torch.empty_like(tfit)
     resid_o = torch.empty_like(resid0)
@@ -318,23 +358,22 @@ def _operands(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
                math.log(cfg.p_prune) - math.log(cfg.p_grow),
                math.log(cfg.p_grow) - math.log(cfg.p_prune),
                cfg.p_regrow, _ptr(rg), consts.node_pad])
+    scalar = ctypes.c_double if real == torch.float64 else ctypes.c_float
     argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
-                + [ctypes.c_float] * 5 + [ctypes.c_void_p, ctypes.c_int])
+                + [scalar] * 5 + [ctypes.c_void_p, ctypes.c_int])
     return outs, head, argtypes
 
 
 def _launch(name: str, cfg: BartConfig, feature, cut, lidx, tfit, resid0,
             sigma2, tau2, u, zn, consts: SweepConsts, weights, K: int,
             rg=None):
-    """Check the operands and launch kernel ``csrc/<name>.cu`` on the
-    current stream in clusters of K blocks per chain; returns its fresh
-    outputs."""
-    from stan4bart_torch.ops.cuda_build import load
-
+    """Check the operands and launch kernel ``csrc/<name>.cu`` (its
+    build for resid0's dtype) on the current stream in clusters of K
+    blocks per chain; returns its fresh outputs."""
     outs, head, argtypes = _operands(cfg, feature, cut, lidx, tfit, resid0,
                                      sigma2, tau2, u, zn, consts, weights,
                                      rg)
-    fn = getattr(load(name), f"{name}_launch")
+    fn = _entry(name, "launch", resid0.dtype)
     fn.restype = ctypes.c_int
     fn.argtypes = argtypes + [ctypes.c_int, ctypes.c_void_p]
     stream = torch.cuda.current_stream(feature.device).cuda_stream
@@ -348,22 +387,22 @@ _info_cache: dict = {}
 
 
 def kernel_smem(name: str, N: int, T: int, K: int,
-                regrow: bool = False, pad: int = NODE_PAD) -> dict:
+                regrow: bool = False, pad: int = NODE_PAD,
+                dtype=torch.float32) -> dict:
     """Shared memory per block of the sweep kernel ``name``
     (``bart_sweep_batch``, ``bart_sweep_tiled``, ``bart_sweep_chain`` or,
     its stats launch, ``bart_sweep_sharded``)
     at N observations, T trees and clusters of K blocks, on the current
-    CUDA device, for the build with ``pad`` heap slots and, for the
-    one-launch kernels, the instantiation with the in-sweep regrow when
-    ``regrow``: static and dynamic bytes, the device's opt-in limit, how
-    many clusters can be resident at once (0 where the on-chip kernels'
-    slice does not fit), and whether the residual stays on chip."""
+    CUDA device, for the build with ``pad`` heap slots and state of
+    ``dtype`` and, for the one-launch kernels, the instantiation with the
+    in-sweep regrow when ``regrow``: static and dynamic bytes, the
+    device's opt-in limit, how many clusters can be resident at once (0
+    where the on-chip kernels' slice does not fit), and whether the
+    residual stays on chip."""
     regrow = bool(regrow) and name != "bart_sweep_sharded"
-    key = (name, N, T, K, regrow, pad, torch.cuda.current_device())
+    key = (name, dtype, N, T, K, regrow, pad, torch.cuda.current_device())
     if key not in _info_cache:
-        from stan4bart_torch.ops.cuda_build import load
-
-        fn = getattr(load(name), f"{name}_info")
+        fn = _entry(name, "info", dtype)
         fn.restype = ctypes.c_int
         st, dy = ctypes.c_longlong(), ctypes.c_longlong()
         optin, clusters, on_chip = ctypes.c_int(), ctypes.c_int(), \
@@ -384,10 +423,11 @@ def kernel_smem(name: str, N: int, T: int, K: int,
 
 
 def _cluster(name: str, C: int, T: int, consts: SweepConsts, cluster,
-             regrow: bool = False) -> int:
+             regrow: bool = False, dtype=torch.float32) -> int:
     """The cluster size to launch: ``cluster`` when given, else
     ``cluster_size`` from the device's resident clusters at each K (of
-    the kernel with the regrow step when ``regrow``)."""
+    the kernel with the regrow step when ``regrow``, of its build for
+    ``dtype``)."""
     if cluster is not None:
         if not 1 <= cluster <= MAX_CLUSTER:
             raise ValueError(f"cluster must be in 1..{MAX_CLUSTER}, got "
@@ -395,17 +435,19 @@ def _cluster(name: str, C: int, T: int, consts: SweepConsts, cluster,
         return cluster
     N = consts.n_obs
     pad = consts.node_pad
-    resident = [kernel_smem(name, N, T, K, regrow, pad)["clusters"]
+    resident = [kernel_smem(name, N, T, K, regrow, pad, dtype)["clusters"]
                 if K == 1 or N / K >= MIN_OBS_PER_BLOCK else 0
                 for K in range(1, MAX_CLUSTER + 1)]
     return cluster_size(C, N, resident)
 
 
-def _counted(wrapper, cfg: BartConfig, consts: SweepConsts, K: int):
-    """One launch of ``wrapper``'s kernel in clusters of K: its counts."""
+def _counted(wrapper, cfg: BartConfig, consts: SweepConsts, K: int, dtype):
+    """One launch of ``wrapper``'s kernel in clusters of K, its build for
+    ``dtype``: its counts."""
     wrapper.launches += 1
     wrapper.regrow_launches += int(cfg.p_regrow > 0)
     wrapper.deep_launches += int(consts.node_pad > NODE_PAD)
+    wrapper.f64_launches += int(dtype == torch.float64)
     wrapper.last_cluster = K
 
 
@@ -413,13 +455,15 @@ def sweep_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
                tau2, u, zn, consts: SweepConsts, weights=None, cluster=None,
                rg=None):
     """Launch ``csrc/bart_sweep_batch.cu`` on the current stream; same
-    contract as ``sweep_plain`` (all float inputs float32).  ``cluster``
-    forces the blocks per chain (default: ``cluster_size``'s rule)."""
+    contract as ``sweep_plain`` (all float inputs in resid0's dtype,
+    float32 or float64).  ``cluster`` forces the blocks per chain
+    (default: ``cluster_size``'s rule)."""
     C, T = feature.shape[:2]
-    K = _cluster("bart_sweep_batch", C, T, consts, cluster, cfg.p_regrow > 0)
+    K = _cluster("bart_sweep_batch", C, T, consts, cluster, cfg.p_regrow > 0,
+                 resid0.dtype)
     out = _launch("bart_sweep_batch", cfg, feature, cut, lidx, tfit, resid0,
                   sigma2, tau2, u, zn, consts, weights, K, rg)
-    _counted(bart_sweep_fused_batch, cfg, consts, K)
+    _counted(bart_sweep_fused_batch, cfg, consts, K, resid0.dtype)
     return out
 
 
@@ -428,13 +472,14 @@ def sweep_tiled_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
                      weights=None, cluster=None, rg=None):
     """Launch the obs-tiled ``csrc/bart_sweep_tiled.cu`` on the current
     stream; same contract as ``sweep_plain`` at any n (all float inputs
-    float32).  ``cluster`` forces the blocks per chain (default:
-    ``cluster_size``'s rule)."""
+    in resid0's dtype, float32 or float64).  ``cluster`` forces the
+    blocks per chain (default: ``cluster_size``'s rule)."""
     C, T = feature.shape[:2]
-    K = _cluster("bart_sweep_tiled", C, T, consts, cluster, cfg.p_regrow > 0)
+    K = _cluster("bart_sweep_tiled", C, T, consts, cluster, cfg.p_regrow > 0,
+                 resid0.dtype)
     out = _launch("bart_sweep_tiled", cfg, feature, cut, lidx, tfit, resid0,
                   sigma2, tau2, u, zn, consts, weights, K, rg)
-    _counted(bart_sweep_fused_batch_tiled, cfg, consts, K)
+    _counted(bart_sweep_fused_batch_tiled, cfg, consts, K, resid0.dtype)
     return out
 
 
@@ -442,15 +487,16 @@ def sweep_chain_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
                      sigma2, tau2, u, zn, consts: SweepConsts,
                      weights=None, cluster=None, rg=None):
     """Launch the per-chain ``csrc/bart_sweep_chain.cu`` on the current
-    stream; same contract as ``sweep_plain`` up to n = 51840 (all float
-    inputs float32).  ``cluster`` forces the blocks per chain (default:
-    ``cluster_size``'s rule); a K whose slice does not fit on chip
-    raises."""
+    stream; same contract as ``sweep_plain`` up to its ceiling (all float
+    inputs in resid0's dtype, float32 or float64).  ``cluster`` forces
+    the blocks per chain (default: ``cluster_size``'s rule); a K whose
+    slice does not fit on chip raises."""
     C, T = feature.shape[:2]
-    K = _cluster("bart_sweep_chain", C, T, consts, cluster, cfg.p_regrow > 0)
+    K = _cluster("bart_sweep_chain", C, T, consts, cluster, cfg.p_regrow > 0,
+                 resid0.dtype)
     out = _launch("bart_sweep_chain", cfg, feature, cut, lidx, tfit, resid0,
                   sigma2, tau2, u, zn, consts, weights, K, rg)
-    _counted(bart_sweep_fused, cfg, consts, K)
+    _counted(bart_sweep_fused, cfg, consts, K, resid0.dtype)
     return out
 
 
@@ -472,25 +518,24 @@ def sweep_sharded_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
     opens in some chain (read from ``rg`` once per sweep) adds a regrow
     stats launch, a ``reduce`` of a second (C, 2, M + 1) block and a
     regrow apply launch.  Same contract as ``sweep_plain`` with the same
-    ``reduce`` (all float inputs float32); ``cluster`` forces the stats
-    launches' blocks per chain.  ``bart_sweep_fused_sharded.launches``
+    ``reduce`` (all float inputs, and the reduced blocks, in resid0's
+    dtype, float32 or float64); ``cluster`` forces the stats launches'
+    blocks per chain.  ``bart_sweep_fused_sharded.launches``
     counts tree updates (one stats and one apply launch each),
     ``.regrow_launches`` regrow updates (one regrow stats and one regrow
     apply launch each)."""
-    from stan4bart_torch.ops.cuda_build import load
-
     C, T, M = feature.shape
-    K = _cluster("bart_sweep_sharded", C, T, consts, cluster)
+    real = resid0.dtype
+    K = _cluster("bart_sweep_sharded", C, T, consts, cluster, dtype=real)
     nb = apply_blocks(C, consts.n_obs)
     outs, head, argtypes = _operands(cfg, feature, cut, lidx, tfit, resid0,
                                      sigma2, tau2, u, zn, consts, weights,
                                      rg)
-    lib = load("bart_sweep_sharded")
+    stats, apply_, regrow_stats, regrow_apply = (
+        _entry("bart_sweep_sharded", e, real)
+        for e in ("stats", "apply", "regrow_stats", "regrow_apply"))
     # each launcher's pointers between t and its last int (K or nb)
-    tail = ((lib.bart_sweep_sharded_stats, 2),
-            (lib.bart_sweep_sharded_apply, 2),
-            (lib.bart_sweep_sharded_regrow_stats, 3),
-            (lib.bart_sweep_sharded_regrow_apply, 2))
+    tail = ((stats, 2), (apply_, 2), (regrow_stats, 3), (regrow_apply, 2))
     for fn, ptrs in tail:
         fn.restype = ctypes.c_int
         fn.argtypes = (argtypes + [ctypes.c_int] + [ctypes.c_void_p] * ptrs
@@ -498,7 +543,7 @@ def sweep_sharded_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
     stream = ctypes.c_void_p(
         torch.cuda.current_stream(feature.device).cuda_stream)
     dev = feature.device
-    blk = torch.empty((C, 2, M + 2), dtype=torch.float32, device=dev)
+    blk = torch.empty((C, 2, M + 2), dtype=real, device=dev)
     rg = _regrow_variates(cfg, rg)
     # the trees whose regrow gate opens in some chain, and their scratch:
     # the tree's fixed-point scales and post-move sums and rows
@@ -507,7 +552,7 @@ def sweep_sharded_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
     scl = post = None
     if any(opens):
         scl = torch.empty((C, 2), dtype=torch.int32, device=dev)
-        post = torch.empty((C, 4, M), dtype=torch.float32, device=dev)
+        post = torch.empty((C, 4, M), dtype=real, device=dev)
 
     def check(err, what):
         if err != 0:
@@ -519,30 +564,28 @@ def sweep_sharded_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
             return x
         shape = x.shape
         x = reduce(x)
-        _check(x, "reduced block", torch.float32, shape)
+        _check(x, "reduced block", real, shape)
         return x
 
     for t in range(T + 1):
-        check(lib.bart_sweep_sharded_stats(*head, t, _ptr(blk), _ptr(scl),
-                                           K, stream), "stats")
+        check(stats(*head, t, _ptr(blk), _ptr(scl), K, stream), "stats")
         if t == T:
             break
         blk = reduced(blk)
         kept = post if opens[t] else None
-        check(lib.bart_sweep_sharded_apply(*head, t, _ptr(blk), _ptr(kept),
-                                           nb, stream), "apply")
+        check(apply_(*head, t, _ptr(blk), _ptr(kept), nb, stream), "apply")
         bart_sweep_fused_sharded.launches += 1
         bart_sweep_fused_sharded.deep_launches += int(
             consts.node_pad > NODE_PAD)
+        bart_sweep_fused_sharded.f64_launches += int(real == torch.float64)
         if not opens[t]:
             continue
-        rblk = torch.empty((C, 2, M + 1), dtype=torch.float32, device=dev)
-        check(lib.bart_sweep_sharded_regrow_stats(
-            *head, t, _ptr(rblk), _ptr(scl), _ptr(post), K, stream),
-            "regrow stats")
+        rblk = torch.empty((C, 2, M + 1), dtype=real, device=dev)
+        check(regrow_stats(*head, t, _ptr(rblk), _ptr(scl), _ptr(post), K,
+                           stream), "regrow stats")
         rblk = reduced(rblk)
-        check(lib.bart_sweep_sharded_regrow_apply(
-            *head, t, _ptr(rblk), _ptr(post), nb, stream), "regrow apply")
+        check(regrow_apply(*head, t, _ptr(rblk), _ptr(post), nb, stream),
+              "regrow apply")
         bart_sweep_fused_sharded.regrow_launches += 1
     bart_sweep_fused_sharded.last_cluster = K
     return outs
@@ -554,16 +597,24 @@ _LAUNCH = {"bart_sweep_batch": sweep_cuda,
            "bart_sweep_sharded": sweep_sharded_cuda}
 
 
+def check_kernel_dtype(dtype) -> None:
+    """Raise for a state type the CUDA sweep kernels are not built for
+    (they take float32 and float64)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the CUDA sweep kernels take float32 or float64 "
+                         f"state, not {dtype}")
+
+
 def check_kernel_supports(consts: SweepConsts, dtype,
                           kernel: str = "bart_sweep_batch") -> None:
-    """Raise for a sweep CUDA kernel ``kernel`` does not take: float32
-    state only; past the single-pass or per-chain kernel's ceiling
-    (``on_chip_ceilings``: npad 10368 and 51840 at depth <= 6) only the
-    obs-tiled kernel.  Every kernel takes the in-sweep regrow
+    """Raise for a sweep CUDA kernel ``kernel`` does not take: float32 or
+    float64 state only; past the single-pass or per-chain kernel's
+    ceiling (``on_chip_ceilings``: npad 10368 and 51840 at depth <= 6)
+    only the obs-tiled kernel.  Every kernel takes the in-sweep regrow
     (``p_regrow``)."""
-    if dtype != torch.float32:
-        raise ValueError("the CUDA sweep kernels require float32 state")
-    single, chain = on_chip_ceilings(consts.node_pad, consts.num_trees)
+    check_kernel_dtype(dtype)
+    single, chain = on_chip_ceilings(consts.node_pad, consts.num_trees,
+                                     dtype)
     limit = {"bart_sweep_batch": single,
              "bart_sweep_chain": chain}.get(kernel)
     if limit is not None and consts.npad > limit:
@@ -582,7 +633,8 @@ def _fused(kernel: str, cfg: BartConfig, state: BartState, y_target,
     on_cuda = dev.type == "cuda"
     if on_cuda:
         check_kernel_supports(consts, dtype, kernel)
-    work = torch.float32 if on_cuda else dtype
+    # the variates are drawn in float32 and consumed in the state's dtype
+    work = dtype
     if variates is None:
         variates = draw_variates(gen, C, T, torch.float32, dev,
                                  consts.node_pad)
@@ -631,10 +683,11 @@ def bart_sweep_fused_batch(cfg: BartConfig, state: BartState, y_target,
     gamma draws replacing those of the chi(df, scale) k update.  Returns
     (state, varcount (C, P)).
 
-    On a CUDA state this launches ``csrc/bart_sweep_batch.cu`` (float32
-    only, n <= 10368; wider fits raise and belong to
-    ``bart_sweep_fused_batch_tiled``); ``cluster`` forces its blocks per
-    chain.  On a CPU state it runs the plain version."""
+    On a CUDA state this launches ``csrc/bart_sweep_batch.cu``, its
+    build for the state's dtype (float32 or float64; n up to
+    ``on_chip_ceilings``, 10368 at depth <= 6; wider fits raise and
+    belong to ``bart_sweep_fused_batch_tiled``); ``cluster`` forces its
+    blocks per chain.  On a CPU state it runs the plain version."""
     return _fused("bart_sweep_batch", cfg, state, y_target, consts, sigma,
                   gen, weights, variates, gamma, cluster=cluster)
 
@@ -644,9 +697,9 @@ def bart_sweep_fused_batch_tiled(cfg: BartConfig, state: BartState,
                                  *, weights=None, variates=None, gamma=None,
                                  cluster=None):
     """``bart_sweep_fused_batch`` at any n: on a CUDA state this launches
-    the obs-tiled ``csrc/bart_sweep_tiled.cu`` (float32 only; ``cluster``
-    forces its blocks per chain); on a CPU state it runs the same plain
-    version."""
+    the obs-tiled ``csrc/bart_sweep_tiled.cu`` (float32 or float64;
+    ``cluster`` forces its blocks per chain); on a CPU state it runs the
+    same plain version."""
     return _fused("bart_sweep_tiled", cfg, state, y_target, consts, sigma,
                   gen, weights, variates, gamma, cluster=cluster)
 
@@ -661,17 +714,17 @@ def bart_sweep_fused(cfg: BartConfig, state: BartState, y_target,
     and ``step_batched`` consume the generator identically.
 
     On a CUDA state this launches the per-chain
-    ``csrc/bart_sweep_chain.cu`` (float32 only, n <= 51840; wider fits
-    raise and belong to ``bart_sweep_fused_batch_tiled``); ``cluster``
-    forces its blocks per chain.  On a CPU state it runs the same plain
-    version."""
+    ``csrc/bart_sweep_chain.cu`` (float32 or float64; n up to
+    ``on_chip_ceilings``, 51840 at depth <= 6; wider fits raise and belong
+    to ``bart_sweep_fused_batch_tiled``); ``cluster`` forces its blocks
+    per chain.  On a CPU state it runs the same plain version."""
     return _fused("bart_sweep_chain", cfg, state, y_target, consts, sigma,
                   gen, weights, variates, gamma, cluster=cluster)
 
 
 def bart_sweep_fused_sharded(cfg: BartConfig, state: BartState, y_target,
                              consts: SweepConsts, sigma, gen, *,
-                             weights=None, reduce=None):
+                             weights=None, reduce=None, variates=None):
     """The observation-sharded sweep: ``bart_sweep_fused_batch``'s contract
     on this rank's shard of the observations (y_target, the state's
     leaf_idx / tree_fit / allfit, the weights and ``consts`` are the
@@ -679,13 +732,14 @@ def bart_sweep_fused_sharded(cfg: BartConfig, state: BartState, y_target,
     ``reduce`` (one call per tree update; None on one rank).  The
     variates are drawn as the other wrappers draw them, from a generator
     that every rank of the data group holds in the same state, so the
-    forests are the same on every rank.
+    forests are the same on every rank (or given, as theirs, the same on
+    every rank).
 
     On a CUDA state this runs ``csrc/bart_sweep_sharded.cu``
-    (``sweep_sharded_cuda``, float32 only).  On a CPU state it runs the
-    plain sharded sweep (``sweep_plain`` with ``reduce``)."""
+    (``sweep_sharded_cuda``, float32 or float64).  On a CPU state it runs
+    the plain sharded sweep (``sweep_plain`` with ``reduce``)."""
     return _fused("bart_sweep_sharded", cfg, state, y_target, consts, sigma,
-                  gen, weights, None, None, reduce=reduce)
+                  gen, weights, variates, None, reduce=reduce)
 
 
 def ablate_plain(mode: str, feature, cut, lv, lidx, tfit, resid0,
@@ -786,6 +840,7 @@ for _wrapper in (bart_sweep_fused_batch, bart_sweep_fused_batch_tiled,
     _wrapper.launches = 0
     _wrapper.regrow_launches = 0
     _wrapper.deep_launches = 0
+    _wrapper.f64_launches = 0
 bart_sweep_ablate.launches = 0
 bart_sweep_fused_batch.last_cluster = None
 bart_sweep_fused_batch_tiled.last_cluster = None

@@ -3,10 +3,13 @@
 Each kernel source ``stan4bart_torch/csrc/<name>.cu`` exposes a plain C
 launcher.  It is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library under ``build/stan4bart_torch/`` at the root of the
-checkout on first use, and loaded with ``ctypes``.  The library's file
-name carries a hash of the source and of every ``csrc`` header it
-includes, so an edited source or header is rebuilt.  Nothing here runs
-when the module is imported.
+checkout on first use, and loaded with ``ctypes``.  The library
+``<name>_f64`` is the same source's double-precision build (compiled with
+``S4B_F64``: state in double, C symbols ending in ``_f64``), a library
+and an nvcc process of its own.  The library's file name carries a hash
+of the source, of every ``csrc`` header it includes and of the flags, so
+an edited source or header is rebuilt.  Nothing here runs when the
+module is imported.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ NVCC_FLAGS = [
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+# the suffix of a kernel's double-precision build
+F64 = "_f64"
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -43,11 +48,23 @@ def _nvcc() -> str:
     return nvcc
 
 
+def source(name: str) -> Path:
+    """The source of kernel library ``name`` (``<source>_f64``: the
+    double-precision build of ``<source>.cu``)."""
+    return CSRC / f"{name.removesuffix(F64)}.cu"
+
+
+def flags(name: str) -> list[str]:
+    """nvcc's flags for kernel library ``name``."""
+    return NVCC_FLAGS + (["-DS4B_F64"] if name.endswith(F64) else [])
+
+
 def sources(name: str) -> list[Path]:
-    """``csrc/<name>.cu`` and the ``csrc`` files it includes, directly or
-    through another include, in the order first met."""
+    """The source of kernel library ``name`` and the ``csrc`` files it
+    includes, directly or through another include, in the order first
+    met."""
     out: list[Path] = []
-    todo = [CSRC / f"{name}.cu"]
+    todo = [source(name)]
     while todo:
         path = todo.pop(0)
         if path in out:
@@ -61,7 +78,7 @@ def sources(name: str) -> list[Path]:
 
 
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     for path in sources(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
@@ -81,10 +98,10 @@ def build(names: list[str], verbose: bool = False) -> dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS]
+        cmd = [_nvcc(), *flags(name)]
         if verbose:
             cmd += ["-Xptxas", "-v"]
-        cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd += ["-o", str(tmp), str(source(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -35,6 +35,7 @@ from scipy.special import ndtr  # Phi: scipy.stats.norm.cdf's values, faster
 from stan4bart_torch.gibbs import GibbsProgram, tree_map
 from stan4bart_torch.models.assemble import build_parametric_model
 from stan4bart_torch.ops.bart import compute_ranks, predict_trees, walk_tree
+from stan4bart_torch.ops.bart_sweep_kernel import check_kernel_dtype
 from stan4bart_torch.utils.device import resolve_device
 
 # observations per block of the r_eff computation in loo(): bounds the
@@ -855,8 +856,8 @@ class Stan4bartFit:
         if payload.pop("rng_device") != dev.type:
             payload["rng_state"] = None
         pa = payload["program_args"]
-        if dev.type == "cuda" and pa["dtype"] != torch.float32:
-            raise ValueError("the CUDA path runs in float32")
+        if dev.type == "cuda":
+            check_kernel_dtype(pa["dtype"])
         mf = payload["mf"]
         pm, _, _ = build_parametric_model(
             mf, payload["family"], payload["stan_args"], dtype=pa["dtype"],

@@ -92,10 +92,13 @@ def test_kernel_limits_raise():
     with pytest.raises(ValueError, match="bart_sweep_fused_batch_tiled"):
         tk.check_kernel_supports(consts, torch.float32)
     tk.check_kernel_supports(consts, torch.float32, "bart_sweep_tiled")
+    # float32 and float64 state (each its own build), no other type
     for kernel in ("bart_sweep_batch", "bart_sweep_tiled"):
-        with pytest.raises(ValueError, match="float32"):
+        tk.check_kernel_supports(consts._replace(npad=128), torch.float64,
+                                 kernel)
+        with pytest.raises(ValueError, match="float32 or float64"):
             tk.check_kernel_supports(consts._replace(npad=128),
-                                     torch.float64, kernel)
+                                     torch.float16, kernel)
     tk.check_kernel_supports(consts._replace(npad=tk.MAX_NPAD),
                              torch.float32)
     # deeper trees: any depth on the CPU (zn rows of node_pad normals);
