@@ -192,18 +192,47 @@ printed), then:
    to the bit to the original's), and a short float64 fit at n = 20 000
    through the obs-tiled build.  13b runs in a process of its own beside
    11c's fit, as 12b does.
+14. runs trees of max_depth 10 and deeper, whose sweeps are the kernels'
+   heap builds (per-tree state in device memory, the heap size a run-time
+   argument): a. each heap build against the plain sweep on the card at
+   p_regrow 0 and 1 (``kernels_at_shape``: all chains but at most one
+   identical, the builds at each shape equal to the bit at the largest K
+   they pick, every gate shut equal to p_regrow 0 to the bit), from prior
+   forests (base 0.99, power 0.25 at depth 10; power 0.1 at 12 and 15)
+   that reach the depth: float32 at the bench shape at max_depth 10
+   (timed with the bound at M = 2047) beside the 1024-slot static builds
+   at max_depth 9 (timed, bound at M = 1023), float32 and float64 at
+   max_depth 12 and float64 at 10 at 10 000 x 64 chains x 20 trees,
+   weighted, the obs-tiled build at K = 1 with its residual in device
+   memory at 40 000 x 16 in both types, the four-byte leaf copy at
+   max_depth 15 (2000 x 4 x 10 trees), each heap build forced at max_depth
+   9 equal to the bit to the 1024-slot static build, the single-pass heap
+   build timed at 10 000 x 128 chains x 75 trees at max_depth 10, 12 and
+   14 under b's prior, and in phase 10a's two ranks the sharded heap
+   build at max_depth 10 in float32 (timed) and 12 in float64; b. the phase 3 fit at 128 chains with max_depth 12
+   and base 0.99, power 0.25, every sweep a launch of the single-pass heap
+   build: the gaussian gates, SATE within 1, Sigma positive definite,
+   nodes at depth >= 10 in the final forests (the deepest and their share
+   printed) and cor, sigma, SATE, RMSE and sweep seconds beside 11c's;
+   then a max_depth 12 fit at 2000 x 16 on the per-chain path saved,
+   loaded on the card and resumed (equal to the bit, whole and in chunks
+   of 4) and a short max_depth 10 fit at 40 000 x 8 through the obs-tiled
+   heap build.  14b runs in a process of its own beside 11c's fit, as 12b
+   and 13b do.
 
-The short option fits of phases 6, 8 and 9 run after phase 10a, in this
-process beside phase 10b's ranks (processes of their own), and phase
-12b's and 13b's fits run in processes of their own beside phase 11c's:
-the fits are host-bound, so each group takes about the wall time of the
-longest, and the per-phase seconds of 10b, 11c, 12b and 13b are taken
-under that load.
+Phase 6's fit runs in a process of its own beside phase 5's, and phase
+8's beside phase 7's; the short option fits of phases 6, 8 and 9 run
+after phase 10a, in this process beside phase 10b's ranks (processes of
+their own), and phase 12b's, 13b's and 14b's fits run in processes of
+their own beside phase 11c's: the fits are host-bound, so each group
+takes about the wall time of the longest, and the per-phase seconds of
+5-8, 10b, 11c, 12b, 13b and 14b are taken under that load.
 
 ``--phases 3,7,9`` runs the listed phases only (``--phases
-1,2,4,10a,11a,11b,12a,13a`` the kernel phases; the kernels line needs
+1,2,4,10a,11a,11b,12a,13a,14a`` the kernel phases; the kernels line needs
 those; ``10a`` to ``10c``, ``11a`` to ``11d``, ``12a``, ``12b``,
-``13a`` and ``13b`` run one part of phase 10, 11, 12 or 13).  Prints the
+``13a``, ``13b``, ``14a`` and ``14b`` run one part of phase 10, 11, 12,
+13 or 14).  Prints the
 card
 (``nvidia-smi``), a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -738,13 +767,14 @@ def launch_counters():
 
 def reset_counts():
     """Every launch count set to 0 (and every count of launches that ran
-    the in-sweep regrow, of the deep builds and of the float64 builds);
-    returns the wrappers by kernel."""
+    the in-sweep regrow, of the deep builds, of the heap builds and of
+    the float64 builds); returns the wrappers by kernel."""
     counts = launch_counters()
     for fn in counts.values():
         fn.launches = 0
         fn.regrow_launches = 0
         fn.deep_launches = 0
+        fn.heap_launches = 0
         fn.f64_launches = 0
     return counts
 
@@ -1652,7 +1682,7 @@ def _same_chains(a, b, sl_a=slice(None), sl_b=slice(None)):
 
 
 def _sharded_rank(rank, world, device, N, C, T, reps, path_shape,
-                  regrow=False, deep=False, f64=False):
+                  regrow=False, deep=False, f64=False, heap=False):
     """Phase 10a in one rank: the sharded kernel on this rank's shard
     against the plain sharded sweep (both all-reducing over the world)
     and against the obs-tiled kernel over the whole n, at (N, C) and at
@@ -1664,7 +1694,9 @@ def _sharded_rank(rank, world, device, N, C, T, reps, path_shape,
     (phase 12a), the kernel's build for 512-slot heaps at max_depth 8 at
     (N, C) with p_regrow 0 and 1 against the plain sharded sweep, and
     rank 0 times it; with ``f64`` (phase 13a) the same of its float64
-    build at depth 6."""
+    build at depth 6; with ``heap`` (phase 14a) the same of its heap
+    build at max_depth 10 in float32 (32 chains, 20 trees, timed by rank
+    0) and at max_depth 12 in float64 (16 chains, 20 trees)."""
     import torch.distributed as dist
 
     from stan4bart_torch.ops.bart_sweep_kernel import (
@@ -1821,20 +1853,60 @@ def _sharded_rank(rank, world, device, N, C, T, reps, path_shape,
                 sweep_bytes(C, T, N // world, fcfg.max_nodes, dtype=f64_)
                 / HBM_BYTES_PER_S * 1e3)
         dist.barrier()
+    if heap:
+        out["heap"] = {}
+        for tag, dt, Ch, kw, seed in (("float32", torch.float32, 32, HEAP10,
+                                       24),
+                                      ("float64", torch.float64, 16, HEAP12,
+                                       25)):
+            hcfg, hstate, _, hargs = sweep_args(N, 20, Ch, seed, device, dt,
+                                                **kw)
+            hl, _ = _local_args(hargs, rank, world)
+            hon, hrg = regrow_args(hl, 1.0, seed + 100)
+            axis = DataAxis()
+            before = bart_sweep_fused_sharded.heap_launches
+            k0 = sweep_sharded_cuda(*hl, reduce=axis.sum)
+            k1 = sweep_sharded_cuda(*hon, reduce=axis.sum, rg=hrg)
+            h = dict(updates=bart_sweep_fused_sharded.heap_launches - before,
+                     cluster=bart_sweep_fused_sharded.last_cluster,
+                     start=depth_note(hstate.feature, 10)[:2],
+                     chains=Ch, max_depth=hcfg.max_depth)
+            p0 = sweep_plain(*hl, reduce=axis.sum)
+            torch.cuda.synchronize()
+            h["same0"], h["err0"] = _same_chains(k0, p0)
+            del p0
+            p1 = sweep_plain(*hon, reduce=axis.sum, rg=hrg)
+            torch.cuda.synchronize()
+            h["same1"], h["err1"] = _same_chains(k1, p1)
+            del p1, k0, k1
+            dist.barrier()
+            if rank == 0 and dt == torch.float32:
+                h["ms"], h["all_ms"] = _time(
+                    lambda: sweep_sharded_cuda(*hl), reps)
+                h["ms_1"] = _time(lambda: sweep_sharded_cuda(*hon, rg=hrg),
+                                  reps)[0]
+                h["plain_ms"] = _time(lambda: sweep_plain(*hl), 1)[0]
+                h["bound_ms"] = (sweep_bytes(Ch, 20, N // world,
+                                             hcfg.max_nodes, HEAP_PAD)
+                                 / HBM_BYTES_PER_S * 1e3)
+            dist.barrier()
+            out["heap"][tag] = h
+            del hargs, hl, hon, hrg
     return out
 
 
 def phase_sharded_kernel(N=50_000, C=64, T=75, reps=7, label="phase 10a",
                          path_shape=(10_000, 128), regrow=False,
-                         deep=False, f64=False):
+                         deep=False, f64=False, heap=False):
     """The observation-sharded sweep kernel over 2 ranks on the card; with
     ``regrow``, phase 11b in the same ranks, with ``deep`` phase 12a's
-    sharded part, with ``f64`` phase 13a's."""
+    sharded part, with ``f64`` phase 13a's, with ``heap`` phase 14a's."""
     from stan4bart_torch.parallel import mesh
 
     t0 = time.perf_counter()
     r0, r1 = mesh.spawn(_sharded_rank, ["cuda:0", "cuda:0"], RANK_BACKEND,
-                        args=(N, C, T, reps, path_shape, regrow, deep, f64),
+                        args=(N, C, T, reps, path_shape, regrow, deep, f64,
+                              heap),
                         timeout_s=600)
     same_p = r0["same_plain"] & r1["same_plain"]
     same_t = r0["same_tiled"] & r1["same_tiled"]
@@ -1948,10 +2020,45 @@ def phase_sharded_kernel(N=50_000, C=64, T=75, reps=7, label="phase 10a",
                 or r1["f64_updates"] != 2 * T):
             raise AssertionError("phase 13a: the sharded kernel's float64 "
                                  "build disagrees")
+    heap_out = {}
+    if heap:
+        errs = []
+        for tag, h0 in r0["heap"].items():
+            h1 = r1["heap"][tag]
+            Ch = h0["chains"]
+            same0 = h0["same0"] & h1["same0"]
+            same1 = h0["same1"] & h1["same1"]
+            errs += [h[k] for h in (h0, h1) for k in ("err0", "err1")]
+            print(f"phase 14a: the sharded kernel's heap build in {tag} at "
+                  f"max_depth {h0['max_depth']}, n={N} over 2 ranks, "
+                  f"chains={Ch}, trees=20, stats K={h0['cluster']}, from a "
+                  f"forest whose deepest node is at depth {h0['start'][0]} "
+                  f"({h0['start'][1]} nodes at depth >= 10): "
+                  f"{int(same0.sum())}/{Ch} and {int(same1.sum())}/{Ch} "
+                  "chains identical to the plain sharded sweep at p_regrow 0 "
+                  f"and 1 (max |kernel - plain| {max(errs[-4:]):.3g}); "
+                  f"{h0['updates']} heap tree updates per rank (rank 1 "
+                  f"{h1['updates']})", flush=True)
+            if (same0.sum() < Ch - 1 or same1.sum() < Ch - 1
+                    or h0["updates"] != 40 or h1["updates"] != 40):
+                raise AssertionError("phase 14a: the sharded kernel's heap "
+                                     "build disagrees")
+        h0 = r0["heap"]["float32"]
+        print(f"phase 14a: sharded heap build, float32, max_depth 10, "
+              f"{N // 2} rows a rank x {h0['chains']} chains x 20 trees, "
+              f"kernels alone median {h0['ms']:.4f} ms "
+              f"{[round(x, 4) for x in h0['all_ms']]} at p_regrow 0, "
+              f"{h0['ms_1']:.4f} ms at 1; plain sharded sweep "
+              f"{h0['plain_ms']:.4f} ms; bound {h0['bound_ms']:.4f} ms; "
+              f"{card()}", flush=True)
+        heap_out = dict(heap_err=max(errs), heap_ms=h0["ms"],
+                        heap_ms_1=h0["ms_1"], heap_plain_ms=h0["plain_ms"],
+                        heap_bound_ms=h0["bound_ms"],
+                        heap_cluster=h0["cluster"])
     return dict(r0, max_abs_err=max(
         r0["err_w1"], *(r[k] for r in (r0, r1) for k in (
             "err_plain", "err_tiled", "path_err_plain", "path_err_tiled"))),
-        share=share, deep_err=deep_err, f64_err=f64_err)
+        share=share, deep_err=deep_err, f64_err=f64_err, **heap_out)
 
 
 def _digest(fit):
@@ -2363,15 +2470,15 @@ DEEP9 = dict(max_depth=9, power=0.5)
 DEEP_PAD = 512
 
 
-def depth_note(feature):
-    """(the deepest active node's depth, the active nodes at depth >= 7,
-    their share of the active nodes) of a (C, T, M) forest."""
+def depth_note(feature, at=7):
+    """(the deepest active node's depth, the active nodes at depth >=
+    ``at``, their share of the active nodes) of a (C, T, M) forest."""
     from stan4bart_torch.ops.bart import INACTIVE
 
     act = feature != INACTIVE
     used = act.flatten(0, 1).any(0).nonzero()[:, 0]
     deepest = int(used.max() + 1).bit_length() - 1
-    deep = int(act[..., 127:].sum())
+    deep = int(act[..., 2 ** at - 1:].sum())
     return deepest, deep, deep / max(int(act.sum()), 1)
 
 
@@ -2389,7 +2496,8 @@ def kernels_at_shape(device, label, N, C, kernels, seed, T=75,
     equal to the bit at the largest K they picked (a kernel that picked a
     smaller one runs again at it); every regrow gate shut equal to
     p_regrow 0 to the bit; past depth 6 from a prior forest that reaches
-    depth 7 (its deepest node and nodes at depth >= 7 printed).
+    depth 7 (past depth 9, depth 10; its deepest node and nodes at or
+    past that depth printed).
     ``weighted``: observation weights in [0.5, 2).  With ``times`` the
     kernels' CUDA-event
     times at p_regrow 0 and 1 and the plain sweep's at 0.  Returns the
@@ -2400,17 +2508,18 @@ def kernels_at_shape(device, label, N, C, kernels, seed, T=75,
     cfg, state, yt, args = sweep_args(N, T, C, seed, device, dtype,
                                       **cfg_kw)
     deep = cfg.max_depth > 6
+    at = 10 if cfg.max_depth > 9 else 7
     if args[-1].node_pad != node_pad(cfg) or deep != (node_pad(cfg) > 128):
         raise AssertionError(f"{label}: heap {args[-1].node_pad} slots")
-    deepest, n7, share = depth_note(state.feature)
+    deepest, n7, share = depth_note(state.feature, at)
     tag = (f"{label}{' float64' if dtype == torch.float64 else ''} "
            f"max_depth {cfg.max_depth} ({args[-1].node_pad}-slot "
            f"heaps) n={N} chains={C}" + (" weighted" if weighted else ""))
     if deep:
         print(f"{tag}: the starting forest's deepest node at depth "
-              f"{deepest}, {n7} nodes at depth >= 7 ({100 * share:.2f} % of "
-              "its active nodes)", flush=True)
-        if deepest < 7:
+              f"{deepest}, {n7} nodes at depth >= {at} ({100 * share:.2f} % "
+              "of its active nodes)", flush=True)
+        if deepest < at:
             raise AssertionError(f"{tag}: the starting forest stops at "
                                  f"depth {deepest}")
     w = None
@@ -2452,7 +2561,7 @@ def kernels_at_shape(device, label, N, C, kernels, seed, T=75,
                 print(f"{tag} p_regrow {p}: {x} forced to K={kmax} equals "
                       f"{ref} to the bit", flush=True)
         err = max(err, *(v[1] for v in res.values()))
-        after[p] = depth_note(outs["plain"][0])
+        after[p] = depth_note(outs["plain"][0], at)
         del outs
     print(f"{tag}: "
           + ", ".join(f"{k} (K={v})" for k, v in ks.items())
@@ -2462,7 +2571,8 @@ def kernels_at_shape(device, label, N, C, kernels, seed, T=75,
           "shut equal to p_regrow 0 to the bit"
           + (f"; after the sweep the deepest node at depth {after['0'][0]} "
              f"/ {after['1'][0]}, {after['0'][1]} / {after['1'][1]} nodes "
-             "at depth >= 7 (p_regrow 0 / 1)" if deep else ""), flush=True)
+             f"at depth >= {at} (p_regrow 0 / 1)" if deep else ""),
+          flush=True)
     out.update(err=err, clusters=ks, start_deep=n7, deepest=deepest)
     if times:
         for name, (launch, _) in kernels.items():
@@ -2615,29 +2725,33 @@ def phase_deep_fit(device, label="phase 12b", n=10_000, chains=128,
     return launches, q
 
 
-def _fit_child(out_q, phase):
-    """Host-bound fit phase ``phase`` ("12b" or "13b") in a process of
-    its own (``start_fit``): puts ("ok", its result) or ("error",
-    traceback) on out_q."""
+def _fit_child(out_q, phase, args):
+    """Host-bound fit phase ``phase`` ("6", "8", "12b", "13b" or "14b") in
+    a process of its own (``start_fit``), with ``args`` after the device:
+    puts ("ok", its result) or ("error", traceback) on out_q."""
     import traceback
 
     from stan4bart_torch.utils.device import resolve_device
 
     try:
-        fn = {"12b": phase_deep_fit, "13b": phase_f64_fit}[phase]
-        out_q.put(("ok", fn(resolve_device("cuda"))))
+        fn = {"6": phase_chain, "8": phase_all_options,
+              "12b": phase_deep_fit, "13b": phase_f64_fit,
+              "14b": phase_heap_fit}[phase]
+        out_q.put(("ok", fn(resolve_device("cuda"), *args)))
     except BaseException:
         out_q.put(("error", traceback.format_exc()))
 
 
-def start_fit(phase):
-    """Fit phase ``phase`` (12b or 13b) started in a child process, so
-    that its host-bound fit runs beside phase 11c's (the same fit at
-    depth 6 and in float32, their comparator: all run under the same
-    load); ``join_fit`` collects it."""
+def start_fit(phase, *args):
+    """Fit phase ``phase`` started in a child process, so that its
+    host-bound fit runs beside another phase's (12b, 13b and 14b beside
+    phase 11c's, the same fit at depth 6 and in float32, their
+    comparator, all under the same load; 6 beside 5 and 8 beside 7 to
+    keep the script in its time); ``join_fit`` collects it."""
     ctx = torch.multiprocessing.get_context("spawn")
     out_q = ctx.Queue()
-    proc = ctx.Process(target=_fit_child, args=(out_q, phase), daemon=True)
+    proc = ctx.Process(target=_fit_child, args=(out_q, phase, args),
+                       daemon=True)
     proc.start()
     return phase, proc, out_q
 
@@ -2662,15 +2776,24 @@ def join_fit(child, timeout_s=900):
     return value
 
 
-def deep_entries(deep, sharded, launches, paths):
+def deep_entries(deep, sharded, launches, paths, heap=None):
     """The kernels line's entries of the builds for 512-slot heaps
     (phase 12a's numbers at max_depth 8; launches of the deep builds on
-    the main paths: phase 12b's fit)."""
+    the main paths: phase 12b's fit), with the 1024-slot builds' times
+    and bound at max_depth 9 (phase 14a's) when ``heap`` is given."""
     bench = sweep_bytes(256, 75, 10_000, 511, DEEP_PAD)
     out = []
     for k, src, line in (("batch", "bart_sweep_batch", 859),
                          ("tiled", "bart_sweep_tiled", 1495),
                          ("chain", "bart_sweep_chain", 596)):
+        at9 = {} if heap is None else {
+            "ms_depth9": heap["depth9"][f"{k}_ms_0"],
+            "ms_depth9_p_regrow_1": heap["depth9"][f"{k}_ms_1"],
+            "plain_ms_depth9": heap["depth9"]["plain_ms"],
+            "bound_ms_depth9": heap["bound9_ms"],
+            "bound_ms_depth9_p_regrow_1": heap["bound19_ms"],
+            "cluster_depth9": heap["depth9"]["clusters"][k],
+        }
         out.append({
             "name": f"{src}_deep",
             "route": "cuda",
@@ -2691,6 +2814,7 @@ def deep_entries(deep, sharded, launches, paths):
             "library_ms": None,
             "cluster": deep["clusters"][k],
             "bound_bytes": bench,
+            **at9,
         })
     out.append({
         "name": "bart_sweep_sharded_deep",
@@ -2979,6 +3103,335 @@ def f64_entries(f64, sharded, launches, paths):
     return out
 
 
+# phase 14: trees of max_depth 10 and deeper, whose sweeps are the kernels'
+# heap builds (per-tree state in device memory).  Priors under which the
+# forests reach the depth: base 0.99 with power 0.25 at depth 10 (and in
+# 14b's fits), power 0.1 at 12 and 15
+HEAP_PRIOR = dict(base=0.99, power=0.25)
+HEAP10 = dict(max_depth=10, **HEAP_PRIOR)
+HEAP12 = dict(max_depth=12, base=0.99, power=0.1)
+HEAP15 = dict(max_depth=15, base=0.99, power=0.1)
+HEAP_PAD = 2048
+
+
+def heap_launchers():
+    """The four sweep launchers by short name, with their wrappers."""
+    from stan4bart_torch.ops.bart_sweep_kernel import (
+        bart_sweep_fused, bart_sweep_fused_batch,
+        bart_sweep_fused_batch_tiled, bart_sweep_fused_sharded,
+        sweep_chain_cuda, sweep_cuda, sweep_sharded_cuda, sweep_tiled_cuda)
+
+    return {"batch": (sweep_cuda, bart_sweep_fused_batch),
+            "tiled": (sweep_tiled_cuda, bart_sweep_fused_batch_tiled),
+            "chain": (sweep_chain_cuda, bart_sweep_fused),
+            "sharded": (sweep_sharded_cuda, bart_sweep_fused_sharded)}
+
+
+def heap_forced_at_depth9(device, label, N=10_000, C=64, T=20):
+    """Each kernel's heap build forced at max_depth 9 (1024 slots) against
+    its 1024-slot static build at the K the static one picks, float32, at
+    p_regrow 0 and 1 (the sharded kernel on one rank): equal to the bit.
+    Returns the Ks."""
+    _, _, _, args = sweep_args(N, T, C, 17, device, **DEEP9)
+    on, rg = regrow_args(args, 1.0, 117)
+    ks = {}
+    for name, (launch, wrapper) in heap_launchers().items():
+        for a, r in ((args, None), (on, rg)):
+            static = launch(*a, rg=r)
+            K = wrapper.last_cluster
+            before = wrapper.heap_launches
+            heap = launch(*a, rg=r, cluster=K, heap=True)
+            torch.cuda.synchronize()
+            if (wrapper.heap_launches == before
+                    or not all(torch.equal(x, y)
+                               for x, y in zip(static, heap))):
+                raise AssertionError(f"{label}: {name}'s heap build forced "
+                                     "at max_depth 9 differs from its "
+                                     "1024-slot build")
+            ks[name] = K
+            del static, heap
+    print(f"{label}: the heap builds forced at max_depth 9 (1024 slots), "
+          f"n={N} chains={C} trees={T}, equal to the bit to the 1024-slot "
+          "static builds at p_regrow 0 and 1: " + ", ".join(
+              f"{k} (K={v})" for k, v in ks.items())
+          + " (sharded on one rank)", flush=True)
+    return ks
+
+
+def phase_heap_kernels(device, reps=7):
+    """Phase 14a: the one-launch kernels' heap builds against the plain
+    sweep at p_regrow 0 and 1 (``kernels_at_shape``): float32 at the bench
+    shape at max_depth 10 (timed, with K, shared memory and the bound at
+    M = 2047) beside the 1024-slot static builds at max_depth 9 (timed,
+    bound at M = 1023); float32 and float64 at max_depth 12 and float64
+    at 10, 10 000 x 64 chains x 20 trees; the obs-tiled build at K = 1
+    with its residual in device memory, weighted, at 40 000 x 16 in both
+    types; the four-byte leaf copy at max_depth 15 (2000 x 4 x 10 trees);
+    each heap build forced at max_depth 9 against the 1024-slot build to
+    the bit; the single-pass heap build timed at 14b's shape and prior
+    (10 000 x 128 x 75 trees) at max_depth 10, 12 and 14."""
+    from functools import partial
+
+    from stan4bart_torch.ops.bart_sweep_kernel import (
+        bart_sweep_fused_batch_tiled, kernel_smem, sweep_tiled_cuda)
+
+    label = "phase 14a"
+    C, N, T = 256, 10_000, 75
+    launchers = heap_launchers()
+    three = {k: launchers[k] for k in ("batch", "tiled", "chain")}
+    streamed = (partial(sweep_tiled_cuda, cluster=1),
+                bart_sweep_fused_batch_tiled)
+    bench = kernels_at_shape(device, label, N, C, three, 3, T, times=True,
+                             reps=reps, cfg_kw=HEAP10)
+    bench9 = kernels_at_shape(device, label, N, C, three, 4, T, times=True,
+                              reps=reps, cfg_kw=DEEP9)
+    errs = [bench["err"], bench9["err"]]
+    for kw, dtype, seed in ((HEAP12, torch.float32, 5), (HEAP12, F64, 6),
+                            (HEAP10, F64, 7)):
+        errs.append(kernels_at_shape(device, label, N, 64, three, seed, 20,
+                                     weighted=True, cfg_kw=kw,
+                                     dtype=dtype)["err"])
+    for dtype in (torch.float32, F64):
+        if kernel_smem("bart_sweep_tiled", 40_000, 20, 1, True, HEAP_PAD,
+                       dtype)["resid_on_chip"]:
+            raise AssertionError(f"{label}: the heap obs-tiled kernel at "
+                                 "40 000 rows a block keeps the residual "
+                                 "on chip; its streaming kernel would go "
+                                 "unchecked")
+        errs.append(kernels_at_shape(
+            device, label, 40_000, 16,
+            {"tiled": three["tiled"], "tiled streamed": streamed}, 8, 20,
+            weighted=True, cfg_kw=HEAP10, dtype=dtype)["err"])
+    wide = kernels_at_shape(device, label, 2000, 4, three, 9, 10,
+                            cfg_kw=HEAP15)
+    if wide["deepest"] < 15:
+        raise AssertionError(f"{label}: the max_depth 15 forest stops at "
+                             f"depth {wide['deepest']}")
+    errs.append(wide["err"])
+    forced = heap_forced_at_depth9(device, label)
+    # the single-pass heap build at phase 14b's shape and prior, by depth:
+    # how its per-tree work over every heap slot grows with the heap
+    scaling = {}
+    for depth in (10, 12, 14):
+        _, st, _, args = sweep_args(N, T, 128, 30 + depth, device,
+                                    max_depth=depth, **HEAP_PRIOR)
+        scaling[depth] = (_time(lambda: launchers["batch"][0](*args), 3)[0],
+                          depth_note(st.feature, 10))
+        del st, args
+    print(f"{label} the single-pass heap build at n={N} chains=128 "
+          f"trees={T} from prior forests (base {HEAP_PRIOR['base']}, power "
+          f"{HEAP_PRIOR['power']}), median of 3: " + "; ".join(
+              f"max_depth {d} ({2 ** (d + 1)} slots) {ms:.4f} ms, deepest "
+              f"node {note[0]}, {note[1]} nodes at depth >= 10"
+              for d, (ms, note) in scaling.items()) + f"; {card()}",
+          flush=True)
+    for note in ([smem_note(f"bart_sweep_{k}", N, T, bench["clusters"][k], r,
+                            HEAP_PAD) for k in three for r in (False, True)]
+                 + [smem_note("bart_sweep_tiled", 40_000, 20, 1, True,
+                              HEAP_PAD, dt) for dt in (torch.float32, F64)]
+                 + [smem_note(f"bart_sweep_{k}", N, T, bench9["clusters"][k],
+                              r, 1024) for k in three
+                    for r in (False, True)]):
+        print(f"{label} {note}", flush=True)
+    out = {}
+    for key, res, M, pad in (("", bench, 2047, HEAP_PAD),
+                             ("9", bench9, 1023, 1024)):
+        nbytes = sweep_bytes(C, T, N, M, pad)
+        out[f"bound{key}_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        out[f"bound1{key}_ms"] = ((nbytes + regrow_bytes(C, T, M))
+                                  / HBM_BYTES_PER_S * 1e3)
+        lines = "; ".join(
+            f"{k} (K={res['clusters'][k]}) p_regrow 0 / 1: "
+            f"{res[k + '_ms_0']:.4f} / {res[k + '_ms_1']:.4f} ms"
+            for k in three)
+        what = ("the heap builds at max_depth 10" if not key else
+                "the 1024-slot static builds at max_depth 9")
+        print(f"{label} times of {what}, n={N} chains={C} trees={T}, median "
+              f"of {reps}: {lines}; plain sweep at p_regrow 0 "
+              f"{res['plain_ms']:.4f} ms; bound {out[f'bound{key}_ms']:.4f} "
+              f"ms ({nbytes / 1e9:.4f} GB at {HBM_BYTES_PER_S / 1e12} TB/s, "
+              f"M = {M}, {pad} leaf normals a tree), with the move "
+              f"{out[f'bound1{key}_ms']:.4f} ms; {card()}", flush=True)
+    print(f"{label}: every heap build equal to the plain sweep as above "
+          f"(max |kernel - plain| {max(errs):.3g})", flush=True)
+    return dict(bench, **out, max_abs_err=max(errs), forced=forced,
+                depth9={k: bench9[k] for k in bench9
+                        if k.endswith(("_ms_0", "_ms_1")) or k in (
+                            "plain_ms", "clusters")})
+
+
+def heap_resume(device, label="phase 14b resume", n=2000, chains=16,
+                trees=20, iters=20, warmup=10):
+    """A small max_depth 12 fit on the per-chain path (a callback) through
+    ``save``, ``load(device="cuda")`` and ``continue_sampling``: the
+    loaded fit's ``continue_sampling(10)``, whole and in chunks of 4,
+    equal to the bit to the original's whole one; every sweep a launch of
+    the per-chain kernel's heap build.  Returns its launches."""
+    import tempfile
+
+    import stan4bart_torch
+    from stan4bart_torch.ops.bart_sweep_kernel import bart_sweep_fused
+    from stan4bart_torch.utils.friedman import (
+        friedman_dataframe, generate_friedman_data)
+
+    df = friedman_dataframe(generate_friedman_data(n, ranef=True,
+                                                   causal=True))
+    bart_args = {"n_trees": trees, "max_depth": 12, **HEAP_PRIOR}
+    counts = reset_counts()
+    fit = stan4bart_torch.stan4bart(
+        FLAGSHIP, df, treatment="z", chains=chains, iter=iters,
+        warmup=warmup, seed=5, verbose=-1, device=device,
+        callback=lambda d: {"sigma": d["aux.1"]},
+        stan_args={"max_treedepth": 4}, bart_args=bart_args)
+    launches = check_launches(label, counts, "bart_sweep_chain", iters + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fit.pkl")
+        fit.save(path)
+        back = stan4bart_torch.Stan4bartFit.load(path, device=device)
+    if not (back.prog.device.type == "cuda"
+            and back.prog.sweep_consts.node_pad == 8192):
+        raise AssertionError(f"{label}: the loaded fit is not a max_depth 12 "
+                             "fit on the card")
+    resumed = {}
+    for which, f, kw in (("original", fit, {}), ("loaded", back, {}),
+                         ("loaded, chunked", back, {"chunk_size": 4})):
+        counts = reset_counts()
+        resumed[which] = f.continue_sampling(10, **kw)
+        launches += check_launches(f"{label} {which}", counts,
+                                   "bart_sweep_chain", 10)
+    heap = bart_sweep_fused.heap_launches
+    names = ("stan", "bart_train", "bart_test", "k")
+    diffs = {w: resume_equal(resumed["original"], resumed[w], names)
+             for w in ("loaded", "loaded, chunked")}
+    print(f"{label}: max_depth 12 fit n={n} chains={chains} on the per-chain "
+          "path, saved, loaded on the card; continue_sampling(10) of the "
+          "loaded fit against the original's whole one: " + "; ".join(
+              f"{w}: max difference {d:.3g}, equal to the bit {same}"
+              for w, (d, same) in diffs.items())
+          + f"; {heap} heap-build per-chain launches in the last resume",
+          flush=True)
+    if not all(same for _, same in diffs.values()) or heap != 10:
+        raise AssertionError(f"{label}: the max_depth 12 resume is not "
+                             "equal to the bit")
+    return launches
+
+
+def heap_tiled_fit(device, label="phase 14b tiled", n=40_000, chains=8,
+                   trees=20, iters=12, warmup=6):
+    """A short max_depth 10 fit past the heap single-pass build's ceiling:
+    every sweep a launch of the obs-tiled kernel's heap build, finite
+    draws.  Returns its launches."""
+    from stan4bart_torch.ops.bart_sweep_kernel import (
+        bart_sweep_fused_batch_tiled)
+
+    _, fit, launches = run_fit(
+        label, device, n, chains, "bart_sweep_tiled", iters, warmup, trees,
+        stan_args={"max_treedepth": 4},
+        bart_args={"n_trees": trees, "max_depth": 10, **HEAP_PRIOR})
+    finite_draws(label, fit)
+    if bart_sweep_fused_batch_tiled.heap_launches != launches:
+        raise AssertionError(f"{label}: a sweep ran another build")
+    return launches
+
+
+def phase_heap_fit(device, label="phase 14b", n=10_000, chains=128,
+                   iters=150, warmup=75, trees=75):
+    """Phase 14b: the phase 3 fit (at 128 chains) with max_depth 12 and
+    the prior ``HEAP_PRIOR`` (base 0.99, power 0.25), every sweep a launch
+    of the single-pass kernel's heap build: the gaussian gates, SATE
+    within 1, every posterior-mean Sigma positive definite, nodes at
+    depth >= 10 in the final forests (the deepest and their share
+    printed) and its ``fit_quality``; then ``heap_resume`` and
+    ``heap_tiled_fit``.  Returns the heap builds' launches by kernel and
+    its ``fit_quality``."""
+    from stan4bart_torch.ops.bart_sweep_kernel import bart_sweep_fused_batch
+
+    d, fit, launches = run_fit(
+        label, device, n, chains, "bart_sweep_batch", iters, warmup, trees,
+        bart_args={"n_trees": trees, "max_depth": 12, **HEAP_PRIOR})
+    heap = bart_sweep_fused_batch.heap_launches
+    finite_draws(label, fit)
+    if fit.prog.sweep_consts.node_pad != 8192 or heap != launches:
+        raise AssertionError(f"{label}: {heap} of {launches} launches ran "
+                             "the heap build")
+    q = fit_quality(d, fit)
+    check_gates(label, q["cor"], q["sigma"], "bart_sweep_batch", launches,
+                iters)
+    eig = {k: float(np.linalg.eigvalsh(S.mean(-1)).min())
+           for k, S in fit.extract("Sigma").items()}
+    deepest, n10, share = depth_note(fit.final_states.bart.feature, 10)
+    print(f"{label}: max_depth 12, prior base {HEAP_PRIOR['base']} power "
+          f"{HEAP_PRIOR['power']}, {heap} launches of the heap single-pass "
+          f"build (every sweep); {quality_line(q)}; the final forests' "
+          f"deepest node at depth {deepest}, {n10} nodes at depth >= 10 "
+          f"({100 * share:.3f} % of the active nodes); SATE truth "
+          f"{d['tau']}, within 1; smallest eigenvalue of the posterior-mean "
+          "Sigma by term: " + ", ".join(f"{k} {v:.4g}"
+                                        for k, v in eig.items()),
+          flush=True)
+    if (abs(q["sate"] - d["tau"]) >= 1.0 or min(eig.values()) <= 0
+            or deepest < 10):
+        raise AssertionError(f"{label}: SATE, Sigma or depth gate failed")
+    del fit
+    paths = {"bart_sweep_batch_heap": launches,
+             "bart_sweep_chain_heap": heap_resume(device),
+             "bart_sweep_tiled_heap": heap_tiled_fit(device)}
+    return paths, q
+
+
+def heap_entries(heap, sharded, launches, paths):
+    """The kernels line's entries of the heap builds (phase 14a's numbers
+    at the bench shape at max_depth 10, the sharded one's at 10a's rows a
+    rank; launches of the heap builds on the main paths: phase 14b's
+    fits)."""
+    bench = sweep_bytes(256, 75, 10_000, 2047, HEAP_PAD)
+    out = []
+    for k, src, line in (("batch", "bart_sweep_batch", 859),
+                         ("tiled", "bart_sweep_tiled", 1495),
+                         ("chain", "bart_sweep_chain", 596)):
+        out.append({
+            "name": f"{src}_heap",
+            "route": "cuda",
+            "source": f"stan4bart_torch/csrc/{src}.cu",
+            # the heap build of the port of this TPU kernel; the JAX
+            # package sweeps such trees with XLA (ops/bart.py:717)
+            "replaces": f"stan4bart_tpu/ops/bart_sweep_kernel.py:{line}",
+            "launches": launches.get(f"{src}_heap", 0),
+            "launches_by_path": paths.get(f"{src}_heap", {}),
+            "max_abs_err": heap["max_abs_err"],
+            "ms": heap[f"{k}_ms_0"],
+            "kernel_ms": heap[f"{k}_ms_0"],
+            "ms_p_regrow_1": heap[f"{k}_ms_1"],
+            "plain_ms": heap["plain_ms"],
+            "bound_ms": heap["bound_ms"],
+            "bound_ms_p_regrow_1": heap["bound1_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "cluster": heap["clusters"][k],
+            "bound_bytes": bench,
+            "max_depth": 10,
+        })
+    out.append({
+        "name": "bart_sweep_sharded_heap",
+        "route": "cuda",
+        "source": "stan4bart_torch/csrc/bart_sweep_sharded.cu",
+        "replaces": "stan4bart_tpu/ops/bart.py:717",
+        "launches": launches.get("bart_sweep_sharded_heap", 0),
+        "launches_by_path": paths.get("bart_sweep_sharded_heap", {}),
+        "max_abs_err": sharded["heap_err"],
+        "ms": sharded["heap_ms"],
+        "kernel_ms": sharded["heap_ms"],
+        "ms_p_regrow_1": sharded["heap_ms_1"],
+        "plain_ms": sharded["heap_plain_ms"],
+        "bound_ms": sharded["heap_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "cluster": sharded["heap_cluster"],
+        "max_depth": 10,
+    })
+    return out
+
+
 class Beside:
     """``fn()`` in a thread of this process, for a phase whose work runs
     in processes of its own, so that this process can run another phase
@@ -3005,12 +3458,13 @@ class Beside:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default all); "
-                    "1, 2, 4, 10a, 11a, 11b, 12a and 13a are the kernel "
-                    "phases, which the kernels line needs; 10a, 10b, 10c, "
-                    "11a to 11d, 12a, 12b, 13a and 13b run one part of "
-                    "phase 10, 11, 12 or 13")
+                    "1, 2, 4, 10a, 11a, 11b, 12a, 13a and 14a are the "
+                    "kernel phases, which the kernels line needs; 10a, 10b, "
+                    "10c, 11a to 11d, 12a, 12b, 13a, 13b, 14a and 14b run "
+                    "one part of phase 10, 11, 12, 13 or 14")
     args = ap.parse_args()
     run = set(args.phases.split(","))
     if "10" in run:
@@ -3021,6 +3475,8 @@ def main():
         run |= {"12a", "12b"}
     if "13" in run:
         run |= {"13a", "13b"}
+    if "14" in run:
+        run |= {"14a", "14b"}
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3076,20 +3532,26 @@ def main():
             {"tiled": (sweep_tiled_cuda, bart_sweep_fused_batch_tiled)},
             seed=7)["tiled"]
         lap("phase 4")
+    # phase 6's fit runs in a child process beside phase 5's, phase 8's
+    # beside phase 7's: all are host-bound
+    child6 = start_fit("6") if {"5", "6"} <= run else None
     if "5" in run:
         paths["bart_sweep_tiled"]["phase 5"], _ = phase_main(
             device, "phase 5", 50_000, 32, "bart_sweep_tiled", iters=225,
             warmup=150)
-        lap("phase 5")
+        lap("phase 5" + (" and 6 beside it" if child6 else ""))
     if "6" in run:
-        paths["bart_sweep_chain"]["phase 6"] = phase_chain(device)
-        lap("phase 6")
+        paths["bart_sweep_chain"]["phase 6"] = (
+            join_fit(child6) if child6 else phase_chain(device))
+        lap("phase 6" + (" (joined)" if child6 else ""))
+    child8 = start_fit("8", t3) if {"7", "8"} <= run else None
     if "7" in run:
         paths["bart_sweep_batch"]["phase 7"], ev7 = phase_probit(device)
-        lap("phase 7")
+        lap("phase 7" + (" and 8 beside it" if child8 else ""))
     if "8" in run:
-        paths["bart_sweep_batch"]["phase 8"] = phase_all_options(device, t3)
-        lap("phase 8")
+        paths["bart_sweep_batch"]["phase 8"] = (
+            join_fit(child8) if child8 else phase_all_options(device, t3))
+        lap("phase 8" + (" (joined)" if child8 else ""))
     if "9" in run:
         paths["bart_sweep_batch"]["phase 9"] = phase_algorithms(
             device, t3, fit3, ev7)
@@ -3102,12 +3564,14 @@ def main():
     # in 10a's
     torch.cuda.empty_cache()
     sharded = None
-    if {"10a", "11b", "12a", "13a"} & run:
+    if {"10a", "11b", "12a", "13a", "14a"} & run:
         sharded = phase_sharded_kernel(regrow="11b" in run,
-                                       deep="12a" in run, f64="13a" in run)
+                                       deep="12a" in run, f64="13a" in run,
+                                       heap="14a" in run)
         lap("phase 10a" + (" and 11b" if "11b" in run else "")
             + (" and 12a sharded" if "12a" in run else "")
-            + (" and 13a sharded" if "13a" in run else ""))
+            + (" and 13a sharded" if "13a" in run else "")
+            + (" and 14a sharded" if "14a" in run else ""))
     # 10b's ranks are processes of their own, waited on by a thread; the
     # short option fits of phases 6, 8 and 9 run beside them in this
     # process, each with its own launch counts (the ranks count theirs)
@@ -3133,9 +3597,9 @@ def main():
     if "11a" in run:
         regrow = phase_regrow_kernels(device)
         lap("phase 11a")
-    # 12b's and 13b's fits run in child processes beside 11c's, their
-    # comparator
-    children = [start_fit(p) for p in ("12b", "13b") if p in run]
+    # 12b's, 13b's and 14b's fits run in child processes beside 11c's,
+    # their comparator
+    children = [start_fit(p) for p in ("12b", "13b", "14b") if p in run]
     q6 = None     # 11c's fit_quality, printed beside 12b's and 13b's
     if "11c" in run:
         n11, q6 = phase_regrow_fit(device)
@@ -3153,13 +3617,21 @@ def main():
             paths["bart_sweep_batch_deep"] = {"phase 12b": n12}
             print("phase 12b, depth 8 against depth 6: " + quality_line(q8)
                   + comparator + f"; {card()}", flush=True)
-        else:
+        elif child[0] == "13b":
             n13, q13 = join_fit(child)
             # launches of the float64 builds, counted in their entries
             for k, v in n13.items():
                 paths.setdefault(k, {})["phase 13b"] = v
             print("phase 13b, float64 against float32: " + quality_line(q13)
                   + comparator + f"; {card()}", flush=True)
+        else:
+            n14, q14 = join_fit(child)
+            # launches of the heap builds, counted in their entries
+            for k, v in n14.items():
+                paths.setdefault(k, {})["phase 14b"] = v
+            print("phase 14b, max_depth 12 against depth 6: "
+                  + quality_line(q14) + comparator + f"; {card()}",
+                  flush=True)
         lap(f"phase {child[0]} (joined)")
     if "11d" in run:
         phase_profile(device, p11)
@@ -3175,17 +3647,25 @@ def main():
         f64 = phase_f64_kernels(device, full if "2" in run else None,
                                 regrow)
         lap("phase 13a")
+    heap = None
+    if "14a" in run:
+        heap = phase_heap_kernels(device)
+        lap("phase 14a")
     print("wall seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; {sum(walls.values()):.1f} in all", flush=True)
-    kernel_phases = {"1", "2", "4", "10a", "11a", "11b", "12a", "13a"}
+    kernel_phases = {"1", "2", "4", "10a", "11a", "11b", "12a", "13a",
+                     "14a"}
     launches = {k: (sum(v.values()) if run - kernel_phases else None)
                 for k, v in paths.items()}
     # each float64 build launched on the main path that runs it
     for k, phase in (("bart_sweep_batch_f64", "13b"),
                      ("bart_sweep_chain_f64", "13b"),
                      ("bart_sweep_tiled_f64", "13b"),
-                     ("bart_sweep_sharded_f64", "10c")):
+                     ("bart_sweep_sharded_f64", "10c"),
+                     ("bart_sweep_batch_heap", "14b"),
+                     ("bart_sweep_chain_heap", "14b"),
+                     ("bart_sweep_tiled_heap", "14b")):
         if phase in run and not launches.get(k):
             raise AssertionError(f"{k}: no launch in phase {phase}")
     if not kernel_phases - {"10a"} <= run or sharded is None:
@@ -3322,8 +3802,9 @@ def main():
         "sharded_plain_ms": sharded["rg_plain_ms"],
         "sharded_bound_ms": sharded["rg_bound_ms"],
         "sharded_regrow_updates": sharded["rg_updates"],
-    }] + deep_entries(deep, sharded, launches, paths)
-        + f64_entries(f64, sharded, launches, paths)}), flush=True)
+    }] + deep_entries(deep, sharded, launches, paths, heap)
+        + f64_entries(f64, sharded, launches, paths)
+        + heap_entries(heap, sharded, launches, paths)}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,7 +44,13 @@
 // leaf index copy per observation, so one block takes fewer observations
 // (n <= 23 424 at 512 and 14 592 at 1024, K = 1, 75 trees;
 // ops/bart_sweep_kernel.py:on_chip_ceilings) and fewer blocks fit on an
-// SM.
+// SM.  Deeper trees (max_depth 10 and up) run the heap builds
+// (sweep_common.cuh: heap_build), launched with a ``heap`` slab: the heap
+// size is the run-time pad, the per-tree state lives in the slab (device
+// memory, heap_bytes a block) and the tree rows are read from device
+// memory, so a block's shared memory holds the observations, the ring and
+// a few scalars (n <= 32 384 at K = 1, 75 trees); two instantiations, for
+// two-byte leaf copies up to 32 768 slots and four-byte ones past them.
 //
 // The source is also built for float64 state (S4B_F64: the library
 // bart_sweep_batch_f64, symbols ending in _f64), which the JAX package
@@ -93,15 +99,28 @@ int launch(const SweepArgs<Real>& a, int C, int K, void* stream) {
 }  // namespace
 
 // Writes the kernel's static and dynamic shared memory per block at N, T
-// and K (the build's real type, for heaps of ``pad`` slots, 128, 512 or
-// 1024; with
-// the regrow step when ``regrow``), the device's opt-in limit per block and
-// the number of clusters of K blocks that can be resident at once;
-// returns the CUDA error code.
+// and K (the build's real type, for heaps of ``pad`` slots: with ``heap``
+// the heap build, any power of two from 128, else the static build for
+// 128, 512 or 1024; with the regrow step when ``regrow``), the device's
+// opt-in limit per block, the number of clusters of K blocks that can be
+// resident at once and the heap build's slab bytes per block (0 in a
+// static build); returns the CUDA error code.
 extern "C" int S4B_SYM(bart_sweep_batch_info)(int N, int T, int K, int pad,
-                                              int regrow, long long* static_b,
+                                              int regrow, int heap,
+                                              long long* static_b,
                                               long long* dynamic_b,
-                                              int* optin, int* clusters) {
+                                              int* optin, int* clusters,
+                                              long long* heap_b) {
+  *heap_b = 0;
+  if (heap) {
+    if (!pad_ok(pad, 0, true)) return (int)cudaErrorInvalidValue;
+    *heap_b = (long long)heap_bytes<BuildReal>(pad, regrow);
+    return pad <= kPadHeap
+        ? info<BuildReal, kPadHeap>(N, T, K, regrow, static_b, dynamic_b,
+                                    optin, clusters)
+        : info<BuildReal, kPadHeapWide>(N, T, K, regrow, static_b,
+                                        dynamic_b, optin, clusters);
+  }
   switch (pad) {
     case kPadShallow:
       return info<BuildReal, kPadShallow>(N, T, K, regrow, static_b,
@@ -118,13 +137,18 @@ extern "C" int S4B_SYM(bart_sweep_batch_info)(int N, int T, int K, int pad,
 
 // Launches one sweep over C chains in clusters of K blocks on ``stream``
 // (the operands in the build's real type), the build for heaps of ``pad``
-// slots (128, 512 or 1024, at least M + 1;
-// zn rows of pad normals); returns the CUDA error code of the launch (0 on
+// slots (at least M + 1; zn rows of pad normals): with a ``heap`` slab
+// (heap_bytes with the regrow step when it runs, per block: C * K of
+// them) the heap build, any power of two from 128, else the static build
+// for 128, 512 or 1024; returns the CUDA error code of the launch (0 on
 // success).
 extern "C" int S4B_SYM(bart_sweep_batch_launch)(SWEEP_HEAD, int K,
                                                 void* stream) {
   const SweepArgs<BuildReal> a = SWEEP_ARGS;
-  if (M + 1 > pad) return (int)cudaErrorInvalidValue;
+  if (!pad_ok(pad, M, heap != nullptr)) return (int)cudaErrorInvalidValue;
+  if (heap != nullptr)
+    return pad <= kPadHeap ? launch<BuildReal, kPadHeap>(a, C, K, stream)
+                           : launch<BuildReal, kPadHeapWide>(a, C, K, stream);
   switch (pad) {
     case kPadShallow: return launch<BuildReal, kPadShallow>(a, C, K, stream);
     case kPadDeep: return launch<BuildReal, kPadDeep>(a, C, K, stream);

@@ -39,7 +39,9 @@
 // 116 736; ops/bart_sweep_kernel.py:on_chip_ceilings).  The float64
 // build (S4B_F64, bart_sweep_chain_f64) holds half the observations a
 // block; its ceilings are capped at the float32 ones (51 840 at 128
-// slots, where it runs at K >= 3).
+// slots, where it runs at K >= 3).  Trees of max_depth 10 and deeper run
+// the heap builds (bart_sweep_batch.cu says how), whose ceiling is what
+// eight blocks hold (259 840 at 75 trees).
 
 #include "sweep_cluster.cuh"
 
@@ -82,15 +84,29 @@ int launch(const SweepArgs<Real>& a, int C, int K, void* stream) {
 }  // namespace
 
 // Writes the kernel's static and dynamic shared memory per block at N, T
-// and K (the build's real type, for heaps of ``pad`` slots, 128, 512 or
-// 1024; with
-// the regrow step when ``regrow``), the device's opt-in limit per block and
-// the number of clusters of K blocks that can be resident at once (0
-// where a block's slice does not fit); returns the CUDA error code.
+// and K (the build's real type, for heaps of ``pad`` slots: with ``heap``
+// the heap build, any power of two from 128, else the static build for
+// 128, 512 or 1024; with the regrow step when ``regrow``), the device's
+// opt-in limit per block, the number of clusters of K blocks that can be
+// resident at once (0 where a block's slice does not fit) and the heap
+// build's slab bytes per block (0 in a static build); returns the CUDA
+// error code.
 extern "C" int S4B_SYM(bart_sweep_chain_info)(int N, int T, int K, int pad,
-                                              int regrow, long long* static_b,
+                                              int regrow, int heap,
+                                              long long* static_b,
                                               long long* dynamic_b,
-                                              int* optin, int* clusters) {
+                                              int* optin, int* clusters,
+                                              long long* heap_b) {
+  *heap_b = 0;
+  if (heap) {
+    if (!pad_ok(pad, 0, true)) return (int)cudaErrorInvalidValue;
+    *heap_b = (long long)heap_bytes<BuildReal>(pad, regrow);
+    return pad <= kPadHeap
+        ? info<BuildReal, kPadHeap>(N, T, K, regrow, static_b, dynamic_b,
+                                    optin, clusters)
+        : info<BuildReal, kPadHeapWide>(N, T, K, regrow, static_b,
+                                        dynamic_b, optin, clusters);
+  }
   switch (pad) {
     case kPadShallow:
       return info<BuildReal, kPadShallow>(N, T, K, regrow, static_b,
@@ -107,15 +123,20 @@ extern "C" int S4B_SYM(bart_sweep_chain_info)(int N, int T, int K, int pad,
 
 // Launches one sweep over C chains in clusters of K blocks on ``stream``
 // (the operands in the build's real type), the build for heaps of ``pad``
-// slots (128, 512 or 1024, at least M + 1;
-// zn rows of pad normals); returns the CUDA error code of the launch (0 on
+// slots (at least M + 1; zn rows of pad normals): with a ``heap`` slab
+// (heap_bytes with the regrow step when it runs, per block: C * K of
+// them) the heap build, any power of two from 128, else the static build
+// for 128, 512 or 1024; returns the CUDA error code of the launch (0 on
 // success), and an error code without launching for a K outside 1..8 or
 // one with no resident cluster (a slice that does not fit in shared
 // memory).
 extern "C" int S4B_SYM(bart_sweep_chain_launch)(SWEEP_HEAD, int K,
                                                 void* stream) {
   const SweepArgs<BuildReal> a = SWEEP_ARGS;
-  if (M + 1 > pad) return (int)cudaErrorInvalidValue;
+  if (!pad_ok(pad, M, heap != nullptr)) return (int)cudaErrorInvalidValue;
+  if (heap != nullptr)
+    return pad <= kPadHeap ? launch<BuildReal, kPadHeap>(a, C, K, stream)
+                           : launch<BuildReal, kPadHeapWide>(a, C, K, stream);
   switch (pad) {
     case kPadShallow: return launch<BuildReal, kPadShallow>(a, C, K, stream);
     case kPadDeep: return launch<BuildReal, kPadDeep>(a, C, K, stream);

@@ -68,6 +68,10 @@
 // 2, 513) and (C, 2, 512), and the static shared memory 22 976 B (stats)
 // and 35 520 B (the regrow launches); at 1024 the per-tree state is
 // dynamic shared memory (45 552 B, 70 656 B with the regrow step).
+// Deeper trees run one heap build (kPadSharded, any pad), whose per-tree
+// state is a slab of device memory per block of each launch (heap_bytes
+// with the regrow step's: C * max(K, nb) blocks); the blocks stay (C, 2,
+// M + 2) and (C, 2, M + 1).
 //
 // What bounds it: bytes.  Per observation and tree pass A moves 20 B
 // (residual in and out, the previous leaf index, the old fit in and the
@@ -94,6 +98,7 @@ sharded_stats_kernel(SweepArgs<Real> a, int K, int t, Real* blk, int* scl) {
   extern __shared__ float4 smem4[];
   TreeShared<kPad, Real>& s =
       tree_state<kPad, Real>(reinterpret_cast<unsigned char*>(smem4));
+  bind_state(a, s, static_cast<RegrowShared<kPad>*>(nullptr), K);
   // the proposed-right pair's fixed-point sums
   __shared__ unsigned long long rn[2];
 
@@ -242,6 +247,7 @@ sharded_apply_kernel(SweepArgs<Real> a, int nb, int t, const Real* blk,
   extern __shared__ float4 smem4[];
   TreeShared<kPad, Real>& s =
       tree_state<kPad, Real>(reinterpret_cast<unsigned char*>(smem4));
+  bind_state(a, s, static_cast<RegrowShared<kPad>*>(nullptr), 1);
 
   const int N = a.N, T = a.T, M = a.M;
   const int c = blockIdx.x / nb, b = blockIdx.x - c * nb;
@@ -319,7 +325,7 @@ template <int kPad, typename Real>
 __device__ inline void load_post_tree(TreeShared<kPad, Real>& s,
                                       const Real* post, int c, int M) {
   const Real* p = post + (size_t)c * 4 * M;
-  for (int m = threadIdx.x; m < kPad; m += kThreads) {
+  for (int m = threadIdx.x; m < pad_of(s); m += kThreads) {
     s.feat[m] = m < M ? (int)p[2 * M + m] : kInactive;
     s.cut[m] = m < M ? (int)p[3 * M + m] : 0;
   }
@@ -341,6 +347,7 @@ sharded_regrow_stats_kernel(SweepArgs<Real> a, int K, int t, Real* rblk,
   unsigned char* dyn = reinterpret_cast<unsigned char*>(smem4);
   TreeShared<kPad, Real>& s = tree_state<kPad, Real>(dyn);
   RegrowShared<kPad>& r = regrow_state<kPad, Real>(dyn);
+  bind_state(a, s, &r, K);
 
   const int N = a.N, T = a.T, M = a.M;
   const int tid = threadIdx.x;
@@ -368,7 +375,7 @@ sharded_regrow_stats_kernel(SweepArgs<Real> a, int K, int t, Real* rblk,
   regrow_pass(a, s, r, start, n, a.weights ? a.weights + start : nullptr,
               [&](int i) { return li_t[i]; }, [&](int i) { return R[i]; });
   __syncthreads();
-  if (K > 1) cluster_sync();
+  if (K > 1) state_sync<kPad>();
   if (rank == 0) {
     for (int m = tid; m <= M; m += kThreads) {
       Real cnt = Real(0), sm = Real(0);
@@ -396,6 +403,7 @@ sharded_regrow_apply_kernel(SweepArgs<Real> a, int nb, int t,
   unsigned char* dyn = reinterpret_cast<unsigned char*>(smem4);
   TreeShared<kPad, Real>& s = tree_state<kPad, Real>(dyn);
   RegrowShared<kPad>& r = regrow_state<kPad, Real>(dyn);
+  bind_state(a, s, &r, 1);
 
   const int N = a.N, T = a.T, M = a.M;
   const int c = blockIdx.x / nb, b = blockIdx.x - c * nb;
@@ -431,7 +439,7 @@ sharded_regrow_apply_kernel(SweepArgs<Real> a, int nb, int t,
       li_out[i] = regrow_leaf(a, r, eta, start + i);
   if (b != 0) return;
   regrow_accept(s, r);
-  const Real* zn = a.zn + ct * kPad;
+  const Real* zn = a.zn + ct * row_pad<kPad>(a);
   for (int m = threadIdx.x; m < M; m += kThreads) {
     const bool sub = bit(r.sub_bits, m);
     const Real n_m = sub ? nc[m] : oc[m], s_m = sub ? ns[m] : os[m];
@@ -496,18 +504,32 @@ int regrow_apply(const SweepArgs<Real>& a, int C, int nb, int t,
 
 }  // namespace
 
+// The build of the sharded kernels' heap builds: no copy of the leaf
+// indices, so one build takes every pad
+constexpr int kPadSharded = kPadHeapWide;
+
 // The stats kernel's shared memory per block (static, and dynamic for the
-// per-tree state above 512 slots) in the build for heaps of ``pad`` slots
-// (128, 512 or 1024), the device's opt-in limit per block and the number
-// of clusters of K blocks that can be resident at once; returns the CUDA
-// error code.
+// per-tree state at 1024 slots) in the build for heaps of ``pad`` slots
+// (with ``heap`` the heap build, any power of two from 128, else the
+// static build for 128, 512 or 1024), the device's opt-in limit per
+// block, the number of clusters of K blocks that can be resident at once
+// and the heap build's slab bytes per block, with the regrow launches'
+// state (0 in a static build); returns the CUDA error code.
 extern "C" int S4B_SYM(bart_sweep_sharded_info)(int N, int T, int K,
-                                                int pad,
+                                                int pad, int heap,
                                                 long long* static_b,
                                                 long long* dynamic_b,
-                                                int* optin, int* clusters) {
+                                                int* optin, int* clusters,
+                                                long long* heap_b) {
   (void)N;
   (void)T;
+  *heap_b = 0;
+  if (heap) {
+    if (!pad_ok(pad, 0, true)) return (int)cudaErrorInvalidValue;
+    *heap_b = (long long)heap_bytes<Real>(pad, true);
+    *dynamic_b = 0;
+    return info<kPadSharded>(K, static_b, optin, clusters);
+  }
   switch (pad) {
     case kPadShallow:
       *dynamic_b = (long long)state_bytes<kPadShallow, Real>(false);
@@ -523,10 +545,12 @@ extern "C" int S4B_SYM(bart_sweep_sharded_info)(int N, int T, int K,
 }
 
 // Every launcher takes the operands in the build's real type (SWEEP_HEAD)
-// and the build for heaps of ``pad`` slots (128, 512 or 1024, at least
-// M + 1: the stats launch's histograms keep the proposed-left pair in slot
-// M; zn rows of pad normals); its blocks blk, post and rblk are in the
-// real type too.
+// and the build for heaps of ``pad`` slots (at least M + 1: the stats
+// launch's histograms keep the proposed-left pair in slot M; zn rows of
+// pad normals): with a ``heap`` slab (heap_bytes with the regrow step's
+// state, per block: C * max(K, nb) of them) the heap build, any power of
+// two from 128, else the static build for 128, 512 or 1024; its blocks
+// blk, post and rblk are in the real type.
 
 // Launches the stats pass of tree t (t == T: the flush) over C chains in
 // clusters of K blocks on ``stream``, writing blk (C, 2, M + 2) and, when
@@ -536,7 +560,10 @@ extern "C" int S4B_SYM(bart_sweep_sharded_stats)(SWEEP_HEAD, int t,
                                                  Real* blk, int* scl, int K,
                                                  void* stream) {
   const SweepArgs<Real> a = SWEEP_ARGS;
-  if (t < 0 || t > T || M + 1 > pad) return (int)cudaErrorInvalidValue;
+  if (t < 0 || t > T || !pad_ok(pad, M, heap != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (heap != nullptr)
+    return stats<kPadSharded>(a, C, K, t, blk, scl, stream);
   switch (pad) {
     case kPadShallow: return stats<kPadShallow>(a, C, K, t, blk, scl, stream);
     case kPadDeep: return stats<kPadDeep>(a, C, K, t, blk, scl, stream);
@@ -553,8 +580,10 @@ extern "C" int S4B_SYM(bart_sweep_sharded_apply)(SWEEP_HEAD, int t,
                                                  const Real* blk, Real* post,
                                                  int nb, void* stream) {
   const SweepArgs<Real> a = SWEEP_ARGS;
-  if (t < 0 || t >= T || nb < 1 || M + 1 > pad)
+  if (t < 0 || t >= T || nb < 1 || !pad_ok(pad, M, heap != nullptr))
     return (int)cudaErrorInvalidValue;
+  if (heap != nullptr)
+    return apply<kPadSharded>(a, C, nb, t, blk, post, stream);
   switch (pad) {
     case kPadShallow:
       return apply<kPadShallow>(a, C, nb, t, blk, post, stream);
@@ -573,8 +602,10 @@ extern "C" int S4B_SYM(bart_sweep_sharded_regrow_stats)(
     SWEEP_HEAD, int t, Real* rblk, const int* scl, const Real* post, int K,
     void* stream) {
   const SweepArgs<Real> a = SWEEP_ARGS;
-  if (t < 0 || t >= T || rg == nullptr || M + 1 > pad)
+  if (t < 0 || t >= T || rg == nullptr || !pad_ok(pad, M, heap != nullptr))
     return (int)cudaErrorInvalidValue;
+  if (heap != nullptr)
+    return regrow_stats<kPadSharded>(a, C, K, t, rblk, scl, post, stream);
   switch (pad) {
     case kPadShallow:
       return regrow_stats<kPadShallow>(a, C, K, t, rblk, scl, post, stream);
@@ -593,8 +624,11 @@ extern "C" int S4B_SYM(bart_sweep_sharded_regrow_apply)(
     SWEEP_HEAD, int t, const Real* rblk, const Real* post, int nb,
     void* stream) {
   const SweepArgs<Real> a = SWEEP_ARGS;
-  if (t < 0 || t >= T || nb < 1 || rg == nullptr || M + 1 > pad)
+  if (t < 0 || t >= T || nb < 1 || rg == nullptr
+      || !pad_ok(pad, M, heap != nullptr))
     return (int)cudaErrorInvalidValue;
+  if (heap != nullptr)
+    return regrow_apply<kPadSharded>(a, C, nb, t, rblk, post, stream);
   switch (pad) {
     case kPadShallow:
       return regrow_apply<kPadShallow>(a, C, nb, t, rblk, post, stream);

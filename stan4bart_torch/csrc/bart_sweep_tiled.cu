@@ -48,7 +48,11 @@
 // RegrowShared in 35 520 B of static shared memory at 512 and in 70 656 B
 // of dynamic shared memory at 1024.  The float64 build (S4B_F64,
 // bart_sweep_tiled_f64) moves 8-byte residuals and tree fits, so its
-// slice fits to about half as many observations a block.
+// slice fits to about half as many observations a block.  Trees of
+// max_depth 10 and deeper run the heap builds (bart_sweep_batch.cu says
+// how): the on-chip kernel's slice fits to about 32 000 observations a
+// block, and one streaming kernel, with no copy of the leaf indices,
+// serves every heap size (kStreamPad).
 //
 // Both take every sum in the order of sweep_common.cuh over the same
 // observation ranges and per-thread order (tid + j * kThreads within a
@@ -114,13 +118,15 @@ __device__ __noinline__ Regrow regrow_streamed(RegrowArgs<Real> ra,
 template <typename Real, int kPad, bool kRegrow>
 __global__ void __launch_bounds__(kThreads)
 bart_sweep_tiled_stream_kernel(SweepArgs<Real> a, int K) {
-  // the per-tree state (dynamic shared memory above 512 heap slots) and
-  // the regrow step's, in the kernel that runs it
+  // the per-tree state (dynamic shared memory at 1024 heap slots, device
+  // memory in the heap builds) and the regrow step's, in the kernel that
+  // runs it
   extern __shared__ float4 smem4[];
   unsigned char* dyn = reinterpret_cast<unsigned char*>(smem4);
   TreeShared<kPad, Real>& s = tree_state<kPad, Real>(dyn);
   RegrowShared<kPad>* rs = nullptr;
   if constexpr (kRegrow) rs = &regrow_state<kPad, Real>(dyn);
+  bind_state(a, s, rs, K);
 
   const int N = a.N, T = a.T;
   const int rank = block_rank(K);
@@ -239,6 +245,11 @@ bart_sweep_tiled_stream_kernel(SweepArgs<Real> a, int K) {
   if (K > 1) cluster_sync();
 }
 
+// The streaming kernel of the build for kPad: the heap builds share one,
+// which keeps no copy of the leaf indices to size by the heap.
+template <int kPad>
+constexpr int kStreamPad = heap_build(kPad) ? kPadHeapWide : kPad;
+
 // The kernel that runs at N, T and K, with the regrow step or without
 // (on chip where its shared memory fits the device's opt-in limit per
 // block) and its dynamic shared memory, for heaps of kPad slots.
@@ -276,8 +287,9 @@ int info(int N, int T, int K, long long* static_b, long long* dynamic_b,
   return on_chip
       ? cluster_info(bart_sweep_tiled_on_chip_kernel<Real, kPad, kRegrow>, K,
                      dyn, static_b, optin, clusters)
-      : cluster_info(bart_sweep_tiled_stream_kernel<Real, kPad, kRegrow>, K,
-                     dyn, static_b, optin, clusters);
+      : cluster_info(
+            bart_sweep_tiled_stream_kernel<Real, kStreamPad<kPad>, kRegrow>,
+            K, dyn, static_b, optin, clusters);
 }
 
 template <typename Real, bool kRegrow, int kPad>
@@ -289,8 +301,9 @@ int launch(const SweepArgs<Real>& a, int C, int K, void* stream) {
   return on_chip
       ? launch_clusters(bart_sweep_tiled_on_chip_kernel<Real, kPad, kRegrow>,
                         a, C, K, dyn, stream)
-      : launch_clusters(bart_sweep_tiled_stream_kernel<Real, kPad, kRegrow>,
-                        a, C, K, dyn, stream);
+      : launch_clusters(
+            bart_sweep_tiled_stream_kernel<Real, kStreamPad<kPad>, kRegrow>,
+            a, C, K, dyn, stream);
 }
 
 template <typename Real, int kPad>
@@ -312,16 +325,31 @@ int launch_pad(const SweepArgs<Real>& a, int C, int K, void* stream) {
 }  // namespace
 
 // Writes the shared memory per block (static, dynamic) of the kernel that
-// runs at N, T and K (the build's real type, for heaps of ``pad`` slots,
-// 128, 512 or 1024; with the regrow step when ``regrow``), the device's
-// opt-in limit per block, the number of clusters of K blocks that can be
-// resident at once, and whether the residual stays on chip; returns the
+// runs at N, T and K (the build's real type, for heaps of ``pad`` slots:
+// with ``heap`` the heap build, any power of two from 128, else the static
+// build for 128, 512 or 1024; with the regrow step when ``regrow``), the
+// device's opt-in limit per block, the number of clusters of K blocks that
+// can be resident at once, whether the residual stays on chip and the
+// heap build's slab bytes per block (0 in a static build); returns the
 // CUDA error code.
 extern "C" int S4B_SYM(bart_sweep_tiled_info)(int N, int T, int K, int pad,
-                                              int regrow, long long* static_b,
+                                              int regrow, int heap,
+                                              long long* static_b,
                                               long long* dynamic_b,
                                               int* optin, int* clusters,
-                                              int* resid_on_chip) {
+                                              int* resid_on_chip,
+                                              long long* heap_b) {
+  *heap_b = 0;
+  if (heap) {
+    if (!pad_ok(pad, 0, true)) return (int)cudaErrorInvalidValue;
+    *heap_b = (long long)heap_bytes<BuildReal>(pad, regrow);
+    return pad <= kPadHeap
+        ? info_pad<BuildReal, kPadHeap>(N, T, K, regrow, static_b, dynamic_b,
+                                        optin, clusters, resid_on_chip)
+        : info_pad<BuildReal, kPadHeapWide>(N, T, K, regrow, static_b,
+                                            dynamic_b, optin, clusters,
+                                            resid_on_chip);
+  }
   switch (pad) {
     case kPadShallow:
       return info_pad<BuildReal, kPadShallow>(N, T, K, regrow, static_b,
@@ -341,14 +369,21 @@ extern "C" int S4B_SYM(bart_sweep_tiled_info)(int N, int T, int K, int pad,
 
 // Launches one sweep over C chains in clusters of K blocks on ``stream``
 // (the operands in the build's real type), the build for heaps of ``pad``
-// slots (128, 512 or 1024, at least M + 1; zn rows of pad normals);
-// returns the CUDA error code of the launch (0 on success).  resid_out
-// holds the final residual when the kernel ends (and, where the residual
-// does not fit on chip, serves as the running residual throughout).
+// slots (at least M + 1; zn rows of pad normals): with a ``heap`` slab
+// (heap_bytes with the regrow step when it runs, per block: C * K of
+// them) the heap build, any power of two from 128, else the static build
+// for 128, 512 or 1024; returns the CUDA error code of the launch (0 on
+// success).  resid_out holds the final residual when the kernel ends
+// (and, where the residual does not fit on chip, serves as the running
+// residual throughout).
 extern "C" int S4B_SYM(bart_sweep_tiled_launch)(SWEEP_HEAD, int K,
                                                 void* stream) {
   const SweepArgs<BuildReal> a = SWEEP_ARGS;
-  if (M + 1 > pad) return (int)cudaErrorInvalidValue;
+  if (!pad_ok(pad, M, heap != nullptr)) return (int)cudaErrorInvalidValue;
+  if (heap != nullptr)
+    return pad <= kPadHeap
+        ? launch_pad<BuildReal, kPadHeap>(a, C, K, stream)
+        : launch_pad<BuildReal, kPadHeapWide>(a, C, K, stream);
   switch (pad) {
     case kPadShallow:
       return launch_pad<BuildReal, kPadShallow>(a, C, K, stream);

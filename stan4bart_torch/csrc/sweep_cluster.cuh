@@ -63,12 +63,32 @@ struct Heads {
 // The byte copy of a block's leaf indices in sweep_on_chip: per
 // observation its leaf and, between pass 1 and pass 2, whether it goes
 // left of the proposed split (the top bit, kLeft).  One byte at 128 heap
-// slots (7 bits of node), two above (15 bits).
+// slots (7 bits of node), two up to 32 768 (15 bits: the builds for 512
+// and 1024 slots and the heap build kPadHeap), four in the heap build
+// kPadHeapWide (31 bits).
 template <int kPad>
 struct LeafCopy {
-  using T = typename std::conditional<(kPad <= 128), uint8_t, uint16_t>::type;
-  static constexpr int kLeft = 1 << (8 * sizeof(T) - 1);
+  using T = typename std::conditional<
+      (kPad <= 128), uint8_t,
+      typename std::conditional<(kPad <= kPadHeap), uint16_t,
+                                uint32_t>::type>::type;
+  // the top bit, as an int below four bytes (the code the builds had
+  // before the heap builds) and unsigned at four
+  using Bit = typename std::conditional<(sizeof(T) < 4), int,
+                                        unsigned>::type;
+  static constexpr Bit kLeft = Bit(1) << (8 * sizeof(T) - 1);
 };
+
+// Bytes of the tree rows in flight (Heads) of the build for kPad: none in
+// a heap build, whose sweeps read the rows from device memory.
+template <int kPad, typename Real>
+__host__ __device__ constexpr size_t heads_bytes() {
+  if constexpr (heap_build(kPad)) {
+    return 0;
+  } else {
+    return sizeof(Heads<kPad, Real>);
+  }
+}
 
 // Observations per block of a K-block cluster: ceil(N / K), rounded up to
 // 32 so that every range starts on a 128-byte boundary of a row.
@@ -89,12 +109,13 @@ __device__ inline void obs_range(int N, int K, int rank, int& start,
 }
 
 // Dynamic shared memory of sweep_on_chip at N, T and K with heaps of
-// kPad slots and state in Real: the ring, the tree rows in flight, the
-// residual slice, its copy of the leaf indices, the trees' variables.
+// kPad slots and state in Real: the ring, the tree rows in flight (none in
+// a heap build), the residual slice, its copy of the leaf indices, the
+// trees' variables.
 template <int kPad, typename Real>
 __host__ __device__ inline size_t on_chip_bytes(int N, int T, int K) {
   const size_t chunk = (size_t)obs_chunk(N, K);
-  return sizeof(Ring<Real>) + sizeof(Heads<kPad, Real>)
+  return sizeof(Ring<Real>) + heads_bytes<kPad, Real>()
       + chunk * sizeof(Real)
       + ((chunk * sizeof(typename LeafCopy<kPad>::T) + 15) & ~(size_t)15)
       + (((size_t)T * 4 + 15) & ~(size_t)15);
@@ -122,7 +143,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // observations still streams the tree rows).  Tile 0 of a tree also
 // brings the tree's input rows (heap rows, uniforms, leaf normals) into
 // heads[t % kStages], each thread the elements it reads itself (unless
-// heads is null: the ablation stubs read no tree rows).
+// heads is null: the ablation stubs read no tree rows, and a heap build
+// reads them from device memory).
 template <int kPad, typename Real>
 struct TileStream {
   const SweepArgs<Real>* a;
@@ -148,20 +170,23 @@ struct TileStream {
           cp_async(&ring->rk[st][e], rk + i);
         }
       }
-      if (heads != nullptr && j == 0) {
-        const int h = t % kStages;
-        const size_t ct = row0 + t;
+      if constexpr (!heap_build(kPad)) {
+        if (heads != nullptr && j == 0) {
+          const int h = t % kStages;
+          const size_t ct = row0 + t;
 #pragma unroll
-        for (int k = 0; k < (kPad + kThreads - 1) / kThreads; ++k) {
-          const int m = k * kThreads + threadIdx.x;
-          if (m < a->M) {
-            cp_async(&heads->feat[h][m], a->feature_in + ct * a->M + m);
-            cp_async(&heads->cut[h][m], a->cut_in + ct * a->M + m);
-            cp_async(&heads->zn[h][m], a->zn + ct * kPad + m);
+          for (int k = 0; k < (kPad + kThreads - 1) / kThreads; ++k) {
+            const int m = k * kThreads + threadIdx.x;
+            if (m < a->M) {
+              cp_async(&heads->feat[h][m], a->feature_in + ct * a->M + m);
+              cp_async(&heads->cut[h][m], a->cut_in + ct * a->M + m);
+              cp_async(&heads->zn[h][m], a->zn + ct * kPad + m);
+            }
           }
+          if (threadIdx.x < 8)
+            cp_async(&heads->u[h][threadIdx.x],
+                     a->u + ct * 8 + threadIdx.x);
         }
-        if (threadIdx.x < 8)
-          cp_async(&heads->u[h][threadIdx.x], a->u + ct * 8 + threadIdx.x);
       }
     }
     cp_async_commit();
@@ -231,7 +256,7 @@ __device__ inline void sweep_on_chip(const SweepArgs<Real>& a,
                                      unsigned char* smem, int K,
                                      RegrowShared<kPad>* rs = nullptr) {
   using LeafT = typename LeafCopy<kPad>::T;
-  constexpr int kLeft = LeafCopy<kPad>::kLeft;
+  constexpr auto kLeft = LeafCopy<kPad>::kLeft;
   const int N = a.N, T = a.T, M = a.M;
   const int tid = threadIdx.x;
   const int rank = block_rank(K);
@@ -241,9 +266,11 @@ __device__ inline void sweep_on_chip(const SweepArgs<Real>& a,
   const int chunk = obs_chunk(N, K);
   Ring<Real>* ring = reinterpret_cast<Ring<Real>*>(smem);
   Heads<kPad, Real>* heads =
-      reinterpret_cast<Heads<kPad, Real>*>(smem + sizeof(Ring<Real>));
+      heap_build(kPad) ? nullptr
+                       : reinterpret_cast<Heads<kPad, Real>*>(
+                             smem + sizeof(Ring<Real>));
   Real* R = reinterpret_cast<Real*>(smem + sizeof(Ring<Real>)
-                                    + sizeof(Heads<kPad, Real>)); // (chunk,)
+                                    + heads_bytes<kPad, Real>()); // (chunk,)
   LeafT* lidx_s = reinterpret_cast<LeafT*>(R + chunk);            // (chunk,)
   int* vsel = reinterpret_cast<int*>(
       reinterpret_cast<unsigned char*>(lidx_s)
@@ -270,13 +297,17 @@ __device__ inline void sweep_on_chip(const SweepArgs<Real>& a,
     // this thread's copies of the tree's rows (the oldest group in
     // flight) have landed; begin_tree's barrier shows them to the block
     cp_async_wait<kStages - 2>();
-    const int h = t % kStages;
-    const TreeRows<Real> rows{heads->feat[h], heads->cut[h], heads->u[h],
-                              heads->zn[h]};
+    TreeRows<Real> rows;
+    if constexpr (heap_build(kPad)) {
+      rows = global_rows<kPad>(a, ct);
+    } else {
+      const int h = t % kStages;
+      rows = {heads->feat[h], heads->cut[h], heads->u[h], heads->zn[h]};
+    }
     // the chain's regrow gate, loaded now and read after pass 2
     const bool regrow = kRegrow && regrow_gate(a, ct);
     Move mv{};
-    if (kBody == Body::kFull) {
+    if constexpr (kBody == Body::kFull) {
       mv = begin_tree(a, s, rows);
     } else {
       // the stubs: the tree's rows copied out
@@ -416,8 +447,9 @@ __device__ inline void sweep_on_chip(const SweepArgs<Real>& a,
 // The body of an on-chip sweep kernel with heaps of kPad slots and state
 // in Real: the sweep with the regrow step (kRegrow, its state in a second
 // shared block) or without.  The per-tree state is static up to 512
-// slots; above, it takes the head of ``smem`` (state_bytes) and the
-// sweep's buffers follow it.
+// slots; at 1024, it takes the head of ``smem`` (state_bytes) and the
+// sweep's buffers follow it; a heap build's is its slab of device memory,
+// seen through static views (bind_state).
 template <bool kRegrow, int kPad, typename Real>
 __device__ inline void on_chip_kernel(const SweepArgs<Real>& a, int K,
                                       unsigned char* smem) {
@@ -425,8 +457,10 @@ __device__ inline void on_chip_kernel(const SweepArgs<Real>& a, int K,
     __shared__ TreeShared<kPad, Real> s;
     if constexpr (kRegrow) {
       __shared__ RegrowShared<kPad> r;
+      bind_state(a, s, &r, K);
       sweep_on_chip<Body::kFull, true, kPad>(a, s, smem, K, &r);
     } else {
+      bind_state(a, s, static_cast<RegrowShared<kPad>*>(nullptr), K);
       sweep_on_chip<Body::kFull, false, kPad>(a, s, smem, K);
     }
   } else {
@@ -491,7 +525,8 @@ inline int launch_clusters(Kernel kernel, const Args& a, int C, int K,
 
 // The C launchers' common head (bart_sweep_batch.cu, bart_sweep_chain.cu,
 // bart_sweep_tiled.cu, bart_sweep_sharded.cu): the sweep's operands,
-// shapes and constants in the build's real type, and the heap slots, as
+// shapes and constants in the build's real type, the heap slots and the
+// heap builds' state slabs (null: a static build), as
 // ops/bart_sweep_kernel.py:_operands passes them.
 #define SWEEP_HEAD                                                          \
     const int32_t *feature_in, const int32_t *cut_in,                       \
@@ -505,7 +540,7 @@ inline int launch_clusters(Kernel kernel, const Args& a, int C, int K,
     int T, int N, int P, int M, int max_depth, int n_cuts,                  \
     BuildReal p_grow, BuildReal p_prune, BuildReal trans_grow0,             \
     BuildReal trans_prune0, BuildReal p_regrow, const BuildReal *rg,        \
-    int pad
+    int pad, void *heap
 // SWEEP_HEAD's operands as the kernels' SweepArgs
 #define SWEEP_ARGS                                                          \
   SweepArgs<BuildReal> {                                                    \
@@ -513,8 +548,18 @@ inline int launch_clusters(Kernel kernel, const Args& a, int C, int K,
         ranks_t, spcum, psplit, weights, feature_out, cut_out, lv_out,      \
         lidx_out, tfit_out, resid_out, T, N, P, M, max_depth, n_cuts,       \
         p_grow, p_prune, trans_grow0, trans_prune0, nullptr, nullptr,       \
-        p_regrow, rg                                                        \
+        p_regrow, rg, static_cast<unsigned char *>(heap), pad               \
   }
+
+// Whether a launcher takes ``pad`` heap slots for M nodes: a heap build
+// any power of two from 128 holding M + 1 slots, a static one 128, 512 or
+// 1024 holding M + 1.
+inline bool pad_ok(int pad, int M, bool heap) {
+  const bool pow2 = pad >= kPadShallow && (pad & (pad - 1)) == 0;
+  return M + 1 <= pad && (heap ? pow2
+                               : pad == kPadShallow || pad == kPadDeep
+                                     || pad == kPadDeepest);
+}
 
 // A kernel's shared memory per block (static, and the dynamic ``dyn``), the
 // device's opt-in limit per block, and how many clusters of K blocks can be

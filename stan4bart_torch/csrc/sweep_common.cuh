@@ -56,8 +56,26 @@
 // shared memory (9 168 B at 128), within the 48 KB a kernel may declare
 // statically; a 1024-slot heap's take 70 656 B, so that build keeps them
 // at the head of the block's dynamic shared memory (static_state,
-// state_bytes).  A 2048-slot heap's would leave no room for a tile of
-// observations in a block's 227 KB.
+// state_bytes).
+//
+// A 2048-slot heap's would leave no room for a tile of observations in a
+// block's 227 KB, so every kernel has heap builds (heap_build: kPad
+// kPadHeap or kPadHeapWide, the largest heap each takes) whose heap size
+// is the run-time SweepArgs::pad, any power of two from 128 up (launched
+// for pads past 1024, max_depth 10 and deeper), and whose per-tree state
+// lives in a slab of device memory, one per block (heap_bytes, SweepArgs::
+// heap; bind_state points the block at its own).  Their TreeShared and
+// RegrowShared in shared memory are views of the slab (the arrays) and the
+// few scalars and warp sums; a histogram pair is a HeapHist, indexed as
+// the static builds' arrays are.  Every step runs the static builds'
+// arithmetic in the same order, so at equal K a heap build gives their
+// forests to the bit: the node masks are built by every warp and counted
+// by integer atomics, pick_marked_warp finds the same set bit, and the
+// fixed-point histograms take global integer atomics, whose sums do not
+// depend on order.  The blocks of a cluster still gather each other's
+// histograms (gather_hist, hist_sums), from device memory past an L1
+// that other SMs' writes do not reach (__ldcg), after a fenced cluster
+// barrier (state_sync).
 
 #pragma once
 
@@ -74,6 +92,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPadShallow = 128;
 constexpr int kPadDeep = 512;
 constexpr int kPadDeepest = 1024;
+// the heap builds, the largest heap each takes: two-byte copies of the
+// leaf indices (sweep_cluster.cuh:LeafCopy) hold nodes below 32 768 slots
+// (max_depth 14), four-byte ones any
+constexpr int kPadHeap = 1 << 15;
+constexpr int kPadHeapWide = 1 << 30;
 constexpr int kLeaf = -1;
 constexpr int kInactive = -2;
 constexpr unsigned kFull = 0xffffffffu;
@@ -122,7 +145,27 @@ struct SweepArgs {
   // null when p_regrow is 0
   Real p_regrow;
   const Real* rg;              // (C, T, 3 + 3 M)
+  // the heap builds' per-block state slabs (heap_bytes each) and heap
+  // slots; null and unread in the static builds, whose slots are kPad
+  unsigned char* heap;
+  int pad;
 };
+
+// Whether kernels built for kPad keep the per-tree state in device memory
+// with the heap size at run time.
+__host__ __device__ constexpr bool heap_build(int kPad) {
+  return kPad > kPadDeepest;
+}
+
+// The heap slots of a launch of the build for kPad.
+template <int kPad, typename Real>
+__device__ inline int row_pad(const SweepArgs<Real>& a) {
+  if constexpr (heap_build(kPad)) {
+    return a.pad;
+  } else {
+    return kPad;
+  }
+}
 
 // The block's per-tree state, in shared memory.
 template <int kPad, typename Real>
@@ -161,13 +204,82 @@ struct RegrowShared {
   int rsc[3];
 };
 
+// A histogram pair of a heap build's state in device memory: h[j][m] as
+// in the static builds' arrays (row j of pad words from p); row j of rank
+// k's pair (block k of the cluster) at row(j, k).
+struct HeapHist {
+  unsigned long long* p;
+  unsigned long long* rank0;   // rank 0's pair
+  long long step;              // words from one block's slab to the next
+  int pad;
+
+  __device__ unsigned long long* operator[](int j) const {
+    return p + (size_t)j * pad;
+  }
+  __device__ const unsigned long long* row(int j, int k) const {
+    return rank0 + k * step + (size_t)j * pad;
+  }
+};
+
+// TreeShared of the heap builds: views of the block's slab (the rows, the
+// leaf values, the histograms, the NOG and leaf masks) beside the warp
+// sums and scalars, in shared memory.
+template <typename Real>
+struct TreeHeap {
+  int* feat;
+  int* cut;
+  Real* lv;
+  HeapHist hist;
+  HeapHist hsum;
+  unsigned* nog_bits;
+  unsigned* leaf_bits;
+  int pad;
+  Real red[kWarps][8];
+  Real tot[8];
+  Real part[8];
+  int sc[11];
+};
+
+template <typename Real>
+struct TreeShared<kPadHeap, Real> : TreeHeap<Real> {};
+template <typename Real>
+struct TreeShared<kPadHeapWide, Real> : TreeHeap<Real> {};
+
+// RegrowShared of the heap builds: views of the block's slab.
+struct RegrowHeap {
+  int* rfeat;
+  int* rcut;
+  HeapHist hist2;
+  unsigned *sub_bits, *act_bits, *new_bits, *want_bits;
+  int rsc[3];
+};
+
+template <>
+struct RegrowShared<kPadHeap> : RegrowHeap {};
+template <>
+struct RegrowShared<kPadHeapWide> : RegrowHeap {};
+
+// Bytes of a heap build's slab per block at ``pad`` slots (a power of two,
+// at least 128), with the regrow step's state when ``regrow``: the
+// histogram pairs hist and hsum (and hist2), the leaf values, the rows
+// feat and cut (and rfeat and rcut), the NOG and leaf masks (and the
+// regrow's four), in that order; 256-aligned.
+template <typename Real>
+__host__ __device__ constexpr size_t heap_bytes(int pad, bool regrow) {
+  const size_t p = (size_t)pad;
+  const size_t b = p * (32 + sizeof(Real) + 8) + p / 4
+      + (regrow ? p * 24 + p / 2 : 0);
+  return (b + 255) & ~(size_t)255;
+}
+
 // Whether a build keeps its per-tree state (TreeShared and, with the
 // regrow step, RegrowShared) in static shared memory: up to kPadDeep
-// slots; a larger heap's state is past the 48 KB a kernel may declare
-// statically and lives at the head of the block's dynamic shared memory.
+// slots, and the heap builds' views; a 1024-slot heap's state is past the
+// 48 KB a kernel may declare statically and lives at the head of the
+// block's dynamic shared memory.
 template <int kPad>
 __host__ __device__ constexpr bool static_state() {
-  return kPad <= kPadDeep;
+  return kPad != kPadDeepest;
 }
 
 // The dynamic shared memory a build's per-tree state takes (0 when
@@ -210,6 +322,68 @@ __device__ inline RegrowShared<kPad>& regrow_state(unsigned char* dyn) {
   }
 }
 
+// A histogram view of ``pad``-word rows at byte ``off`` of each block's
+// slab (``stride`` bytes from base), for block ``blk`` of a cluster whose
+// rank 0 is block ``first``.
+__device__ inline HeapHist heap_hist(unsigned char* base, size_t stride,
+                                     size_t off, int blk, int first,
+                                     int pad) {
+  return {reinterpret_cast<unsigned long long*>(base + blk * stride + off),
+          reinterpret_cast<unsigned long long*>(base + first * stride + off),
+          (long long)(stride / 8), pad};
+}
+
+// Points a heap build's state views (s, and r when not null) at this
+// block's slab of a.heap (heap_bytes with the regrow step's state when r
+// is given: every block of a launch takes the same); the blocks of a
+// cluster of K are consecutive.  Nothing in the static builds.  Called by
+// every thread; ends on a block barrier in the heap builds.
+template <int kPad, typename Real>
+__device__ inline void bind_state(const SweepArgs<Real>& a,
+                                  TreeShared<kPad, Real>& s,
+                                  RegrowShared<kPad>* r, int K) {
+  if constexpr (heap_build(kPad)) {
+    if (threadIdx.x == 0) {
+      const int pad = a.pad, blk = blockIdx.x, first = blk - blk % K;
+      const size_t p = (size_t)pad;
+      const size_t stride = heap_bytes<Real>(pad, r != nullptr);
+      const size_t hists = 16 * p * (r ? 3 : 2);
+      unsigned char* mine = a.heap + blk * stride;
+      s.hist = heap_hist(a.heap, stride, 0, blk, first, pad);
+      s.hsum = heap_hist(a.heap, stride, 16 * p, blk, first, pad);
+      s.lv = reinterpret_cast<Real*>(mine + hists);
+      s.feat = reinterpret_cast<int*>(mine + hists + sizeof(Real) * p);
+      s.cut = s.feat + p;
+      unsigned* bits = reinterpret_cast<unsigned*>(s.cut + p + (r ? 2 * p
+                                                                  : 0));
+      s.nog_bits = bits;
+      s.leaf_bits = bits + p / 32;
+      s.pad = pad;
+      if (r != nullptr) {
+        r->hist2 = heap_hist(a.heap, stride, 32 * p, blk, first, pad);
+        r->rfeat = s.cut + p;
+        r->rcut = s.cut + 2 * p;
+        r->sub_bits = bits + 2 * (p / 32);
+        r->act_bits = bits + 3 * (p / 32);
+        r->new_bits = bits + 4 * (p / 32);
+        r->want_bits = bits + 5 * (p / 32);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The heap slots of a block's state.
+template <int kPad, typename Real>
+__device__ inline int pad_of(const TreeShared<kPad, Real>& s) {
+  if constexpr (heap_build(kPad)) {
+    return s.pad;
+  } else {
+    return kPad;
+  }
+}
+
+
 // What the regrow step of a tree did: not run (its gate shut or the move
 // off), run and refused, run and accepted.
 enum class Regrow { kNone, kRefused, kAccepted };
@@ -233,7 +407,7 @@ template <int kPad, typename Real>
 __device__ inline TreeRows<Real> global_rows(const SweepArgs<Real>& a,
                                              size_t ct) {
   return {a.feature_in + ct * a.M, a.cut_in + ct * a.M, a.u + ct * 8,
-          a.zn + ct * kPad};
+          a.zn + ct * row_pad<kPad>(a)};
 }
 
 // The proposed move of the current tree, as every thread reads it.
@@ -258,6 +432,36 @@ __device__ inline int pick_marked(const unsigned* bits, int count, Real u) {
       return 32 * k + (__ffs(b) - 1);
     }
     target -= pc;
+  }
+  return 0;
+}
+
+// pick_marked over a mask of ``words`` words in memory, by the 32 lanes of
+// a warp together, 32 words at a time: the same node, for every lane.
+template <typename Real>
+__device__ inline int pick_marked_warp(const unsigned* bits, int words,
+                                       int count, Real u) {
+  const int lane = threadIdx.x & 31;
+  int target = (int)floor(u * (Real)count);
+  target = min(target, count - 1);
+  if (target < 0) return 0;
+  for (int k0 = 0; k0 < words; k0 += 32) {
+    const unsigned b = k0 + lane < words ? bits[k0 + lane] : 0u;
+    const int pc = __popc(b);
+    int incl = pc;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += y;
+    }
+    const int total = __shfl_sync(kFull, incl, 31);
+    if (target < total) {
+      const int src = __ffs(__ballot_sync(kFull, target < incl)) - 1;
+      const int before = __shfl_sync(kFull, incl - pc, src);
+      unsigned w = __shfl_sync(kFull, b, src);
+      for (int j = 0; j < target - before; ++j) w &= w - 1;
+      return 32 * (k0 + src) + (__ffs(w) - 1);
+    }
+    target -= total;
   }
   return 0;
 }
@@ -288,6 +492,14 @@ __device__ inline void cluster_sync() {
   cooperative_groups::this_cluster().sync();
 }
 
+// A cluster barrier after which the blocks read each other's state: a
+// heap build's is device memory, whose writes are fenced first.
+template <int kPad>
+__device__ inline void state_sync() {
+  if constexpr (heap_build(kPad)) __threadfence();
+  cluster_sync();
+}
+
 template <typename Real>
 __device__ inline Real leaf_marginal(Real n, Real s, Real s2, Real t2) {
   Real denom = s2 + n * t2;
@@ -297,22 +509,63 @@ __device__ inline Real leaf_marginal(Real n, Real s, Real s2, Real t2) {
 // Loads the tree's heap rows, clears the leaf histograms and picks the
 // move: node picks by warp ballots over the leaf and NOG masks, the
 // variable by inverse CDF, the cut uniformly.  Ends on a block barrier.
+// A heap build's masks go to its slab, built by every warp and counted by
+// shared integer atomics; warp 0 picks from them (pick_marked_warp).
 template <int kPad, typename Real>
 __device__ inline Move begin_tree(const SweepArgs<Real>& a,
                                   TreeShared<kPad, Real>& s,
                                   const TreeRows<Real>& rows) {
-  constexpr int kWords = kPad / 32;
-  const int M = a.M;
+  const int M = a.M, pad = pad_of(s);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const Real* u = rows.u;
-  for (int m = tid; m < kPad; m += kThreads) {
+  for (int m = tid; m < pad; m += kThreads) {
     s.feat[m] = m < M ? rows.feat[m] : kInactive;
     s.cut[m] = m < M ? rows.cut[m] : 0;
   }
-  for (int j = tid; j < 2 * kPad; j += kThreads) (&s.hist[0][0])[j] = 0;
+  for (int j = tid; j < 2 * pad; j += kThreads) (&s.hist[0][0])[j] = 0;
+  if (heap_build(kPad) && tid == 0) {
+    s.sc[7] = 0;
+    s.sc[8] = 0;
+  }
   __syncthreads();
 
-  if (warp == 0) {
+  if constexpr (heap_build(kPad)) {
+    for (int k = warp; k < pad / 32; k += kWarps) {
+      const int node = 32 * k + lane;
+      const int f = s.feat[node];
+      const int lc = 2 * node + 1, rc = 2 * node + 2;
+      const int fl = lc < M ? s.feat[lc] : kInactive;
+      const int fr = rc < M ? s.feat[rc] : kInactive;
+      const unsigned lb = __ballot_sync(kFull, f == kLeaf);
+      const unsigned nb = __ballot_sync(kFull, f >= 0 && fl == kLeaf &&
+                                                   fr == kLeaf);
+      if (lane == 0) {
+        s.leaf_bits[k] = lb;
+        s.nog_bits[k] = nb;
+        atomicAdd(&s.sc[7], __popc(lb));
+        atomicAdd(&s.sc[8], __popc(nb));
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int n_leaf = s.sc[7], n_nog = s.sc[8];
+      const bool grow = u[0] < a.p_grow;
+      const bool prune = !grow && u[0] < a.p_grow + a.p_prune;
+      const int eta =
+          grow ? pick_marked_warp(s.leaf_bits, pad / 32, n_leaf, u[1])
+               : pick_marked_warp(s.nog_bits, pad / 32, max(n_nog, 1),
+                                  u[2]);
+      if (lane == 0) {
+        s.sc[0] = eta;
+        s.sc[1] = min(2 * eta + 1, M - 1);
+        s.sc[2] = min(2 * eta + 2, M - 1);
+        s.sc[3] = grow ? 0 : (prune ? 1 : 2);
+        s.sc[5] = pick_var(a, u[3]);
+        s.sc[6] = pick_cut(u[4], a.n_cuts);
+      }
+    }
+  } else if (warp == 0) {
+    constexpr int kWords = kPad / 32;
     unsigned leaf_bits[kWords], nog_bits[kWords];
     for (int k = 0; k < kWords; ++k) {
       int node = 32 * k + lane;
@@ -574,13 +827,13 @@ __device__ inline long long group_sum(unsigned grp, long long v) {
 
 // Adds W observations per lane (weight w[k] and weighted residual wr[k]
 // in leaf li[k], ignored unless in[k]) to the histogram pair h (of the
-// block's shared memory), in the fixed-point scales chain_stats set.
+// block's shared memory, or a heap build's HeapHist in device memory), in
+// the fixed-point scales chain_stats set.
 // Every lane of the warp calls it together.  The W observations are
 // independent, so their warp reductions overlap.  Unweighted (every w 1),
 // the weights' sum is the group's size times 2^scale, exactly.
-template <int W, int kPad, typename Real>
-__device__ inline void hist_add(unsigned long long (&h)[2][kPad],
-                                const TreeShared<kPad, Real>& s,
+template <int W, typename H, int kPad, typename Real>
+__device__ inline void hist_add(H& h, const TreeShared<kPad, Real>& s,
                                 const bool (&in)[W],
                                 const int (&li)[W], const Real (&w)[W],
                                 const Real (&wr)[W], bool weighted) {
@@ -616,6 +869,17 @@ __device__ inline void hist_add(TreeShared<kPad, Real>& s,
   hist_add<W>(s.hist, s, in, li, w, wr, weighted);
 }
 
+// Word m of row j of a histogram pair of this block: a heap build's, the
+// sum of global atomics, read from L2, past an L1 that atomics bypass.
+template <int kPad, typename H>
+__device__ inline unsigned long long hist_at(H& h, int j, int m) {
+  if constexpr (heap_build(kPad)) {
+    return __ldcg(h[j] + m);
+  } else {
+    return h[j][m];
+  }
+}
+
 // In a cluster of K > 1 blocks, publishes the block's leaf histograms and
 // waits on a cluster barrier.  Called by every thread after a block
 // barrier.
@@ -623,27 +887,32 @@ template <int kPad, typename Real>
 __device__ inline void gather_hist(TreeShared<kPad, Real>& s, int M, int K) {
   if (K == 1) return;
   for (int m = threadIdx.x; m < M; m += kThreads) {
-    s.hsum[0][m] = s.hist[0][m];
-    s.hsum[1][m] = s.hist[1][m];
+    s.hsum[0][m] = hist_at<kPad>(s.hist, 0, m);
+    s.hsum[1][m] = hist_at<kPad>(s.hist, 1, m);
   }
-  cluster_sync();
+  state_sync<kPad>();
 }
 
 // Node m's sums (weight and weighted residual) in the histogram pair h
 // over the chain: this block's (K = 1) or, in a cluster, every block's in
-// rank order, in the fixed-point scales of chain_stats.
-template <int kPad, typename Real>
-__device__ inline void hist_sums(TreeShared<kPad, Real>& s,
-                                 unsigned long long (&h)[2][kPad], int m,
+// rank order (a heap build's read past L1), in the fixed-point scales of
+// chain_stats.
+template <int kPad, typename Real, typename H>
+__device__ inline void hist_sums(TreeShared<kPad, Real>& s, H& h, int m,
                                  int K, Real& cnt, Real& sm) {
   unsigned long long c = 0, r = 0;
   if (K == 1) {
-    c = h[0][m];
-    r = h[1][m];
+    c = hist_at<kPad>(h, 0, m);
+    r = hist_at<kPad>(h, 1, m);
   } else {
     for (int k = 0; k < K; ++k) {
-      c += in_rank(&h[0][0], k)[m];
-      r += in_rank(&h[1][0], k)[m];
+      if constexpr (heap_build(kPad)) {
+        c += __ldcg(h.row(0, k) + m);
+        r += __ldcg(h.row(1, k) + m);
+      } else {
+        c += in_rank(&h[0][0], k)[m];
+        r += in_rank(&h[1][0], k)[m];
+      }
     }
   }
   cnt = from_fixed<Real>(c, s.sc[9]);
@@ -749,6 +1018,76 @@ __device__ inline bool regrow_gate(const SweepArgs<Real>& a, size_t ct) {
   return a.rg != nullptr && regrow_row(a, ct)[0] < a.p_regrow;
 }
 
+// regrow_propose of a heap build, whose nodes are too many to keep a
+// thread's in registers: the masks are built by every warp (the active
+// nodes counted by a shared integer atomic) and warp 0 picks eta from them
+// (pick_marked_warp); then one pass over the nodes sets the subtree and
+// split masks, and a second reads them back and writes the proposal, its
+// variables and cuts drawn from the same uniforms as the static builds'.
+template <int kPad, typename Real>
+__device__ inline void regrow_propose_heap(const SweepArgs<Real>& a,
+                                           const TreeShared<kPad, Real>& s,
+                                           RegrowShared<kPad>& r,
+                                           const Real* row) {
+  const int M = a.M, pad = pad_of(s), words = pad / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Real* u3 = row + 3;
+  for (int j = tid; j < 2 * pad; j += kThreads) (&r.hist2[0][0])[j] = 0;
+  if (tid == 0) r.rsc[2] = 0;
+  __syncthreads();
+  for (int k = warp; k < words; k += kWarps) {
+    const unsigned b = __ballot_sync(kFull, s.feat[32 * k + lane] !=
+                                                kInactive);
+    if (lane == 0) {
+      r.act_bits[k] = b;
+      atomicAdd(&r.rsc[2], __popc(b));
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int eta = pick_marked_warp(r.act_bits, words, r.rsc[2], row[1]);
+    if (lane == 0) r.rsc[0] = eta;
+  }
+  __syncthreads();
+  const int eta = r.rsc[0];
+  // a warp's 32 nodes of one pass are one mask word
+  for (int m = tid; m < pad; m += kThreads) {
+    bool in = false, want = false;
+    if (m < M) {
+      for (int x = m;; x = (x - 1) >> 1) {
+        if (x == eta) {
+          in = true;
+          break;
+        }
+        if (x == 0) break;
+      }
+      want = u3[m] < a.psplit[31 - __clz(m + 1)];
+    }
+    const unsigned wb = __ballot_sync(kFull, want);
+    const unsigned sb = __ballot_sync(kFull, in);
+    if (lane == 0) {
+      r.want_bits[m >> 5] = wb;
+      r.sub_bits[m >> 5] = sb;
+    }
+  }
+  __syncthreads();
+  for (int m = tid; m < pad; m += kThreads) {
+    bool act = bit(r.sub_bits, m);
+    for (int x = m; act && x != eta;) {
+      x = (x - 1) >> 1;
+      act = bit(r.want_bits, x);
+    }
+    const int f = act ? (bit(r.want_bits, m) ? pick_var(a, u3[M + m])
+                                             : kLeaf)
+                      : kInactive;
+    r.rfeat[m] = f;
+    r.rcut[m] = f >= 0 ? pick_cut(u3[2 * M + m], a.n_cuts) : 0;
+    const unsigned nb = __ballot_sync(kFull, act);
+    if (lane == 0) r.new_bits[m >> 5] = nb;
+  }
+  __syncthreads();
+}
+
 // Proposes the regrow of the post-move tree in s.feat / s.cut from its
 // uniforms ``row``: eta picked among the active nodes by pick_marked, and
 // over eta's subtree a draw from the CGM prior (split where the split
@@ -760,10 +1099,9 @@ __device__ inline bool regrow_gate(const SweepArgs<Real>& a, size_t ct) {
 // nodes a thread (node j * kThreads + tid), a warp's 32 nodes one mask
 // word.  Called by every thread; ends on a block barrier.
 template <int kPad, typename Real>
-__device__ inline void regrow_propose(const SweepArgs<Real>& a,
-                                      const TreeShared<kPad, Real>& s,
-                                      RegrowShared<kPad>& r,
-                                      const Real* row) {
+__device__ inline void regrow_propose_static(
+    const SweepArgs<Real>& a, const TreeShared<kPad, Real>& s,
+    RegrowShared<kPad>& r, const Real* row) {
   constexpr int kWords = kPad / 32;
   constexpr int kNodes = (kPad + kThreads - 1) / kThreads;
   const int M = a.M;
@@ -835,6 +1173,20 @@ __device__ inline void regrow_propose(const SweepArgs<Real>& a,
   __syncthreads();
 }
 
+// The regrow proposal of a static build (regrow_propose_static) or of a
+// heap build (regrow_propose_heap).
+template <int kPad, typename Real>
+__device__ inline void regrow_propose(const SweepArgs<Real>& a,
+                                      const TreeShared<kPad, Real>& s,
+                                      RegrowShared<kPad>& r,
+                                      const Real* row) {
+  if constexpr (heap_build(kPad)) {
+    regrow_propose_heap(a, s, r, row);
+  } else {
+    regrow_propose_static(a, s, r, row);
+  }
+}
+
 // The leaf of the proposed subtree that observation ``obs`` (of the N),
 // whose post-move leaf lies under eta, lands in: the walk down from eta.
 template <int kPad, typename Real>
@@ -888,11 +1240,14 @@ __device__ inline void regrow_mh(const TreeShared<kPad, Real>& s,
                                  RegrowShared<kPad>& r, const Real* row,
                                  int M, Real s2, Real t2, Old old,
                                  Prop prop) {
-  constexpr int kWords = kPad / 32;
+  const int words = pad_of(s) / 32;
   const int lane = threadIdx.x & 31;
   Real m_old = Real(0), m_new = Real(0);
   bool empty = false;
-  for (int k = 0; k < kWords; ++k) {
+  for (int k = 0; k < words; ++k) {
+    // a heap build skips the words outside eta's subtree, whose terms
+    // are zeros that leave both sums as they are
+    if (heap_build(kPad) && r.sub_bits[k] == 0u) continue;
     const int m = 32 * k + lane;
     Real to = Real(0), tn = Real(0);
     if (m < M && bit(r.sub_bits, m)) {
@@ -913,11 +1268,21 @@ __device__ inline void regrow_mh(const TreeShared<kPad, Real>& s,
     }
   }
   empty = __any_sync(kFull, empty);
-  if (lane == 0) {
-    int n_sub = 0, n_new = 0;
-    for (int k = 0; k < kWords; ++k) {
+  int n_sub = 0, n_new = 0;
+  if constexpr (heap_build(kPad)) {
+    for (int k = lane; k < words; k += 32) {
       n_sub += __popc(r.act_bits[k] & r.sub_bits[k]);
       n_new += __popc(r.new_bits[k]);
+    }
+    n_sub = __reduce_add_sync(kFull, n_sub);
+    n_new = __reduce_add_sync(kFull, n_new);
+  }
+  if (lane == 0) {
+    if constexpr (!heap_build(kPad)) {
+      for (int k = 0; k < words; ++k) {
+        n_sub += __popc(r.act_bits[k] & r.sub_bits[k]);
+        n_new += __popc(r.new_bits[k]);
+      }
     }
     const int n_act = r.rsc[2], n_act_new = n_act - n_sub + n_new;
     const Real log_accept = m_new - m_old + log((Real)n_act)
@@ -937,7 +1302,7 @@ __device__ inline bool regrow_decide(const SweepArgs<Real>& a,
                                      TreeShared<kPad, Real>& s,
                                      RegrowShared<kPad>& r, const Real* row,
                                      Real s2, Real t2, int K) {
-  if (K > 1) cluster_sync();
+  if (K > 1) state_sync<kPad>();
   if (threadIdx.x < 32) {
     regrow_mh(s, r, row, a.M, s2, t2,
               [&](int m, Real& cnt, Real& sm) {
@@ -956,7 +1321,7 @@ __device__ inline bool regrow_decide(const SweepArgs<Real>& a,
 template <int kPad, typename Real>
 __device__ inline void regrow_accept(TreeShared<kPad, Real>& s,
                                      const RegrowShared<kPad>& r) {
-  for (int m = threadIdx.x; m < kPad; m += kThreads) {
+  for (int m = threadIdx.x; m < pad_of(s); m += kThreads) {
     if (bit(r.sub_bits, m)) {
       s.feat[m] = r.rfeat[m];
       s.cut[m] = r.rcut[m];

@@ -394,7 +394,7 @@ class GibbsProgram:
         """One sweep of every chain.  ``step_batched`` (not per_chain)
         takes the single-pass kernel, the obs-tiled one past npad 10368;
         ``step`` (per_chain) the per-chain kernel up to npad 51840 (past
-        max_depth 6 the deep builds' own ceilings).  Past
+        max_depth 6 the deep and heap builds' own ceilings).  Past
         that the JAX package's ``step`` runs its XLA sweep; the port must
         not run its plain sweep on the card, so it takes the obs-tiled
         kernel, which computes the same function.  The three kernels run

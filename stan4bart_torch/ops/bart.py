@@ -69,10 +69,11 @@ class BartConfig(NamedTuple):
 LEAF = -1
 INACTIVE = -2
 
-# heap slots of the CUDA sweep kernels' builds: 128 (max_depth <= 6,
-# max_nodes <= 127), 512 (max_depth 7 and 8) and 1024 (max_depth 9); a
+# heap slots of the CUDA sweep kernels' static builds: 128 (max_depth <=
+# 6, max_nodes <= 127), 512 (max_depth 7 and 8) and 1024 (max_depth 9); a
 # heap of pad slots holds max_nodes + 1 <= pad (the sharded kernel keeps
-# a pair in slot M)
+# a pair in slot M).  Deeper trees take 2 ** (max_depth + 1) slots, the
+# kernels' heap builds
 HEAP_PADS = (128, 512, 1024)
 
 
@@ -80,7 +81,7 @@ def node_pad(cfg: BartConfig) -> int:
     """Heap slots per tree row of the sweep's variates and kernels: 128
     up to max_depth 6, the smallest of ``HEAP_PADS`` that holds
     ``max_nodes + 1`` above that, and ``max_nodes + 1`` past the deepest
-    (a depth only the plain sweep takes)."""
+    (max_depth 10 and up: the kernels' heap builds)."""
     need = cfg.max_nodes + 1
     return next((p for p in HEAP_PADS if p >= need), need)
 
@@ -456,15 +457,29 @@ def tree_step(cfg: BartConfig, feature, cut, lidx, r, sigma2, tau2, u6, zn,
     return feature, cut, lidx, leaf_value, fit
 
 
+# the most elements of one one-hot block of ``node_stats``
+NODE_STATS_BLOCK = 1 << 27
+
+
 def node_stats(lidx, wr, max_nodes: int, w=None):
     """Per-node (count, sum of w r) of C chains: lidx (C, N) int, wr (C,
     N) the weighted residual, w (N,) optional weights (unit counts
     otherwise) -> two (C, M).  A one-hot product, so every sum is taken
-    in one fixed order (a scatter-add of floats on the card is not)."""
-    onehot = (lidx.long()[..., None]
-              == torch.arange(max_nodes, device=lidx.device)).to(wr.dtype)
+    in one fixed order (a scatter-add of floats on the card is not); past
+    ``NODE_STATS_BLOCK`` elements the one-hot is made for a block of
+    nodes at a time (deep trees at large n), each node's sum still one
+    product over all N."""
+    C, N = lidx.shape
+    lidx = lidx.long()
     cw = torch.ones_like(wr) if w is None else w.expand_as(wr)
-    out = torch.bmm(torch.stack([cw, wr], 1), onehot)
+    pair = torch.stack([cw, wr], 1)
+    width = max(1, min(max_nodes, NODE_STATS_BLOCK // max(C * N, 1)))
+    outs = []
+    for lo in range(0, max_nodes, width):
+        ids = torch.arange(lo, min(lo + width, max_nodes),
+                           device=lidx.device)
+        outs.append(torch.bmm(pair, (lidx[..., None] == ids).to(wr.dtype)))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, 2)
     return out[:, 0], out[:, 1]
 
 
@@ -853,14 +868,15 @@ def chi_k_update(cfg: BartConfig, feature, leaf_value, k, sigma_mu, gen,
 
 
 def count_variable_use(feature, n_vars: int):
-    """varcount (C, P) int32: splits per variable across all trees."""
+    """varcount (C, P) int32: splits per variable across all trees.  One
+    histogram of the internal nodes' (chain, variable) keys: a scatter of
+    every heap slot into C x (P + 1) counters made deep heaps' mostly
+    inactive slots contend for one counter a chain on the card."""
     C = feature.shape[0]
     f = feature.reshape(C, -1).long()
-    idx = torch.where(f >= 0, f, n_vars)
-    out = torch.zeros((C, n_vars + 1), dtype=torch.int32,
-                      device=feature.device)
-    out.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
-    return out[:, :n_vars]
+    keys = (f + n_vars * torch.arange(C, device=f.device)[:, None])[f >= 0]
+    return torch.bincount(keys, minlength=C * n_vars).reshape(
+        C, n_vars).to(torch.int32)
 
 
 def _ndtr(x):

@@ -23,7 +23,8 @@ of every chain:
 
 All consume the same pre-drawn variates ``(u (C, T, 8), zn (C, T,
 pad))`` (``pad = ops/bart.py:node_pad(cfg)``: 128 up to max_depth 6, 512
-at depth 7 and 8, 1024 at 9) and, with ``cfg.p_regrow > 0``, the
+at depth 7 and 8, 1024 at 9, 2 ** (max_depth + 1) deeper) and, with
+``cfg.p_regrow > 0``, the
 in-sweep regrow's ``rg (C, T, 3 + 3 M)``
 (``ops/bart.py:draw_tree_regrow_variates``), drawn here from the
 caller's generator in that order when not supplied, so they compare
@@ -36,7 +37,8 @@ get no regrow variates and run as without the move.
 
 Each wrapper's ``launches`` counts its kernel's launches,
 ``regrow_launches`` those that ran the in-sweep regrow,
-``deep_launches`` those of the deep builds, 512 or 1024 heap slots, and
+``deep_launches`` those of the deep builds, 512 or 1024 heap slots,
+``heap_launches`` those of the heap builds (state in device memory) and
 ``f64_launches`` those of the double-precision builds (for the sharded
 sweep: tree updates and regrow updates).
 
@@ -51,12 +53,19 @@ built for three heap sizes (``HEAP_PADS``): 128 slots up to max_depth 6,
 512 for max_depth 7 and 8 and 1024 for max_depth 9, whose per-tree state
 and copy of the leaf indices (two bytes) take more shared memory, so
 their ceilings on n (``on_chip_ceilings``) and their K come from their
-own shared memory.  Deeper trees run on the CPU only (a 2048-slot heap's
-state would leave no room for observations in a block); on the card
-``make_sweep_consts`` refuses them.  Every K gives a
-deterministic forest, and the three sweep kernels are bit-identical at
-equal K.  A K whose slice does not fit on chip has no resident cluster
-and is never chosen; forced, its launch raises.
+own shared memory.  Deeper trees (``heap_build``: pads past 1024,
+max_depth 10 and up) launch the heap builds, whose heap size is a
+run-time argument and whose per-tree state lives in a slab of device
+memory (``csrc/sweep_common.cuh:heap_bytes`` a block, allocated per
+launch); their shared memory holds the observations, the ring and a few
+scalars (two-byte copies of the leaf indices up to 32 768 slots,
+four-byte past them), so they have ceilings of their own.  No depth is
+refused: a forest that does not fit in device memory raises PyTorch's
+out-of-memory error.  Every K gives a deterministic forest, the three
+sweep kernels are bit-identical at equal K, and a heap build equals the
+static build of its pad to the bit (``heap=True`` forces it at 512 or
+1024 slots, for tests).  A K whose slice does not fit on chip has no
+resident cluster and is never chosen; forced, its launch raises.
 
 The kernels take float32 or float64 state.  Each source is built twice
 (``ops/cuda_build.py``): the float32 library and ``<name>_f64``, whose
@@ -106,8 +115,9 @@ from stan4bart_torch.utils.device import resolve_device
 
 # heap slots of the depth <= 6 builds; the deep builds have 512 and 1024
 NODE_PAD = HEAP_PADS[0]
-# the deepest tree the card takes (the deep builds' heap)
-MAX_KERNEL_DEPTH = HEAP_PADS[-1].bit_length() - 2
+# the largest heap whose heap build keeps two-byte copies of the leaf
+# indices (15 bits of node and the left flag: max_depth 14); past it four
+HEAP_PAD_2B = 1 << 15
 # widest observation row the single-pass kernel takes at depth <= 6 (the
 # JAX package's single-pass limit); wider fits go to the obs-tiled kernel
 MAX_NPAD = 10_368
@@ -148,11 +158,9 @@ def make_sweep_consts(cfg: BartConfig, ranks, split_probs,
                       device="cuda", dtype=torch.float32) -> SweepConsts:
     """Static operands of the sweep from the model data (ranks (N, P)),
     the split probabilities in the state's ``dtype`` (the cumsum taken in
-    it).  The plain sweep takes any depth; on the card the kernels' heaps
-    go to max_depth ``MAX_KERNEL_DEPTH``, and a deeper tree raises."""
+    it).  Every sweep takes any depth: on the card past max_depth 9 the
+    kernels' heap builds."""
     device = resolve_device(device)
-    if device.type == "cuda":
-        check_kernel_depth(cfg)
     ranks = np.asarray(ranks)
     n = ranks.shape[0]
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
@@ -172,13 +180,19 @@ def make_sweep_consts(cfg: BartConfig, ranks, split_probs,
     )
 
 
-def check_kernel_depth(cfg: BartConfig) -> None:
-    """Raise for trees deeper than the CUDA kernels' heaps hold."""
-    if node_pad(cfg) not in HEAP_PADS:
-        raise ValueError(
-            f"the CUDA sweep kernels hold trees up to max_depth "
-            f"{MAX_KERNEL_DEPTH} ({HEAP_PADS[-1]}-slot heaps in shared "
-            f"memory); max_depth {cfg.max_depth} runs on the CPU only")
+def heap_build(pad: int) -> bool:
+    """Whether a sweep of ``pad`` heap slots launches the kernels' heap
+    builds (state in device memory): past the static builds' pads."""
+    return pad > HEAP_PADS[-1]
+
+
+def leaf_copy_bytes(pad: int) -> int:
+    """Bytes an observation of the on-chip sweep's copy of the leaf
+    indices takes at ``pad`` heap slots (its top bit the left flag): 1 at
+    128, 2 up to ``HEAP_PAD_2B``, 4 past it (a heap build's only)."""
+    if pad <= NODE_PAD:
+        return 1
+    return 2 if pad <= HEAP_PAD_2B else 4
 
 
 def _round(x: int, k: int) -> int:
@@ -194,12 +208,16 @@ def _real_bytes(dtype) -> int:
 def on_chip_state(pad: int, dtype=torch.float32) -> int:
     """Shared memory per block of the per-tree state of a sweep kernel
     built for ``pad`` heap slots and state of ``dtype`` with the regrow
-    step (static up to 512 slots, dynamic above): ``sizeof`` of
+    step (static up to 512 slots, dynamic at 1024): ``sizeof`` of
     ``csrc/sweep_common.cuh``'s TreeShared (two int rows and a row of
     leaf values, two fixed-point histograms, the warp sums, the NOG mask,
     the scalars) and RegrowShared (two rows, a histogram, four masks,
-    three ints)."""
+    three ints).  A heap build's (past 1024) are TreeHeap and RegrowHeap,
+    its views of the slab (pointers) beside the warp sums and scalars,
+    the same at every pad: 576 B in float32, 896 B in float64."""
     b = _real_bytes(dtype)
+    if heap_build(pad):
+        return _round(112 + 80 * b + 44, 8) + 96
     return (_round((40 + b) * pad + pad // 8 + 80 * b + 44, 8)
             + _round(24 * pad + pad // 2 + 12, 8))
 
@@ -210,14 +228,16 @@ def on_chip_block_obs(pad: int, T: int, dtype=torch.float32) -> int:
     ``SMEM_OPTIN`` bytes, a multiple of 32: what is left after the
     per-tree state, the ring (3 tiles of 1024 observations x (8 + b) B,
     b the real type's bytes: 4, or 8 for float64), the tree rows in
-    flight (3 x (8 + b) B x pad + 24 b B) and the trees' variables (4 B x
-    T), at b B of residual and 1 (pad 128) or 2 B of leaf index copy per
+    flight (3 x (8 + b) B x pad + 24 b B; none in a heap build, which
+    reads them from device memory) and the trees' variables (4 B x T), at
+    b B of residual and ``leaf_copy_bytes`` of leaf index copy per
     observation (``on_chip_bytes``)."""
     b = _real_bytes(dtype)
+    heads = 0 if heap_build(pad) else 3 * (8 + b) * pad + 24 * b
     left = (SMEM_OPTIN - on_chip_state(pad, dtype) - 3072 * (8 + b)
-            - (3 * (8 + b) * pad + 24 * b) - _round(4 * T, 16))
+            - heads - _round(4 * T, 16))
     # a multiple of 32 observations needs no padding of its copy
-    return max(left // (b + (1 if pad <= 128 else 2)) // 32 * 32, 0)
+    return max(left // (b + leaf_copy_bytes(pad)) // 32 * 32, 0)
 
 
 def on_chip_ceilings(pad: int, T: int,
@@ -314,11 +334,11 @@ def _entry(name: str, entry: str, dtype):
 def _operands(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
               tau2, u, zn, consts: SweepConsts, weights, rg=None):
     """Check a sweep kernel's operands and allocate its outputs; returns
-    (outputs, the launcher's leading ctypes arguments, their argtypes).
-    Every float operand is in resid0's dtype, float32 or float64, the
-    kernel's real type; the scalars go as that type.  The regrow
-    variates go to the kernel only when ``cfg.p_regrow > 0`` (else a null
-    pointer: the move is off)."""
+    (outputs, the launcher's leading ctypes arguments up to the heap
+    slots, the argtypes up to the state slab's).  Every float operand is
+    in resid0's dtype, float32 or float64, the kernel's real type; the
+    scalars go as that type.  The regrow variates go to the kernel only
+    when ``cfg.p_regrow > 0`` (else a null pointer: the move is off)."""
     C, T, M = feature.shape
     N = consts.n_obs
     P = consts.ranks_t.shape[0]
@@ -360,24 +380,43 @@ def _operands(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
                cfg.p_regrow, _ptr(rg), consts.node_pad])
     scalar = ctypes.c_double if real == torch.float64 else ctypes.c_float
     argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
-                + [scalar] * 5 + [ctypes.c_void_p, ctypes.c_int])
+                + [scalar] * 5 + [ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_void_p])
     return outs, head, argtypes
+
+
+def _use_heap(consts: SweepConsts, heap) -> bool:
+    """Whether to launch the heap build: past the static builds' pads,
+    or where ``heap`` forces it."""
+    return heap_build(consts.node_pad) if heap is None else bool(heap)
+
+
+def _slab(name: str, consts: SweepConsts, blocks: int, regrow: bool,
+          dtype, device):
+    """The heap build's state slab of ``blocks`` blocks (its bytes a
+    block from ``kernel_smem``: the build's own ``heap_bytes``)."""
+    per = kernel_smem(name, consts.n_obs, consts.num_trees, 1, regrow,
+                      consts.node_pad, dtype, heap=True)["heap"]
+    return torch.empty(blocks * per, dtype=torch.uint8, device=device)
 
 
 def _launch(name: str, cfg: BartConfig, feature, cut, lidx, tfit, resid0,
             sigma2, tau2, u, zn, consts: SweepConsts, weights, K: int,
-            rg=None):
+            rg=None, heap=False):
     """Check the operands and launch kernel ``csrc/<name>.cu`` (its
-    build for resid0's dtype) on the current stream in clusters of K
-    blocks per chain; returns its fresh outputs."""
+    build for resid0's dtype; the heap build with a state slab of C * K
+    blocks when ``heap``) on the current stream in clusters of K blocks
+    per chain; returns its fresh outputs."""
     outs, head, argtypes = _operands(cfg, feature, cut, lidx, tfit, resid0,
                                      sigma2, tau2, u, zn, consts, weights,
                                      rg)
+    slab = (_slab(name, consts, feature.shape[0] * K, cfg.p_regrow > 0,
+                  resid0.dtype, feature.device) if heap else None)
     fn = _entry(name, "launch", resid0.dtype)
     fn.restype = ctypes.c_int
     fn.argtypes = argtypes + [ctypes.c_int, ctypes.c_void_p]
     stream = torch.cuda.current_stream(feature.device).cuda_stream
-    err = fn(*head, K, ctypes.c_void_p(stream))
+    err = fn(*head, _ptr(slab), K, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return outs
@@ -388,46 +427,54 @@ _info_cache: dict = {}
 
 def kernel_smem(name: str, N: int, T: int, K: int,
                 regrow: bool = False, pad: int = NODE_PAD,
-                dtype=torch.float32) -> dict:
+                dtype=torch.float32, heap=None) -> dict:
     """Shared memory per block of the sweep kernel ``name``
     (``bart_sweep_batch``, ``bart_sweep_tiled``, ``bart_sweep_chain`` or,
     its stats launch, ``bart_sweep_sharded``)
     at N observations, T trees and clusters of K blocks, on the current
-    CUDA device, for the build with ``pad`` heap slots and state of
-    ``dtype`` and, for the one-launch kernels, the instantiation with the
-    in-sweep regrow when ``regrow``: static and dynamic bytes, the
-    device's opt-in limit, how many clusters can be resident at once (0
-    where the on-chip kernels' slice does not fit), and whether the
-    residual stays on chip."""
-    regrow = bool(regrow) and name != "bart_sweep_sharded"
-    key = (name, dtype, N, T, K, regrow, pad, torch.cuda.current_device())
+    CUDA device, for the build with ``pad`` heap slots (the heap build
+    past 1024 or where ``heap`` forces it) and state of ``dtype`` and,
+    for the one-launch kernels, the instantiation with the in-sweep
+    regrow when ``regrow``: static and dynamic bytes, the device's opt-in
+    limit, how many clusters can be resident at once (0 where the on-chip
+    kernels' slice does not fit), whether the residual stays on chip, and
+    ``heap``, the heap build's state slab a block (0 in a static build;
+    the sharded kernel's with its regrow launches' state)."""
+    sharded = name == "bart_sweep_sharded"
+    regrow = bool(regrow) and not sharded
+    heap = heap_build(pad) if heap is None else bool(heap)
+    key = (name, dtype, N, T, K, regrow, pad, heap,
+           torch.cuda.current_device())
     if key not in _info_cache:
         fn = _entry(name, "info", dtype)
         fn.restype = ctypes.c_int
-        st, dy = ctypes.c_longlong(), ctypes.c_longlong()
+        st, dy, hb = ctypes.c_longlong(), ctypes.c_longlong(), \
+            ctypes.c_longlong()
         optin, clusters, on_chip = ctypes.c_int(), ctypes.c_int(), \
             ctypes.c_int(1)
-        args = [N, T, K, pad] + ([int(regrow)]
-                                 if name != "bart_sweep_sharded" else []) + [
-            ctypes.byref(st), ctypes.byref(dy), ctypes.byref(optin),
-            ctypes.byref(clusters)]
+        args = ([N, T, K, pad] + ([] if sharded else [int(regrow)])
+                + [int(heap), ctypes.byref(st), ctypes.byref(dy),
+                   ctypes.byref(optin), ctypes.byref(clusters)])
         if name == "bart_sweep_tiled":
             args.append(ctypes.byref(on_chip))
+        args.append(ctypes.byref(hb))
         err = fn(*args)
         if err != 0:
             raise RuntimeError(f"{name}_info failed: CUDA error {err}")
         _info_cache[key] = dict(static=st.value, dynamic=dy.value,
                                 optin=optin.value, clusters=clusters.value,
-                                resid_on_chip=bool(on_chip.value))
+                                resid_on_chip=bool(on_chip.value),
+                                heap=hb.value)
     return _info_cache[key]
 
 
 def _cluster(name: str, C: int, T: int, consts: SweepConsts, cluster,
-             regrow: bool = False, dtype=torch.float32) -> int:
+             regrow: bool = False, dtype=torch.float32,
+             heap: bool = False) -> int:
     """The cluster size to launch: ``cluster`` when given, else
     ``cluster_size`` from the device's resident clusters at each K (of
     the kernel with the regrow step when ``regrow``, of its build for
-    ``dtype``)."""
+    ``dtype``, of the heap build when ``heap``)."""
     if cluster is not None:
         if not 1 <= cluster <= MAX_CLUSTER:
             raise ValueError(f"cluster must be in 1..{MAX_CLUSTER}, got "
@@ -435,69 +482,79 @@ def _cluster(name: str, C: int, T: int, consts: SweepConsts, cluster,
         return cluster
     N = consts.n_obs
     pad = consts.node_pad
-    resident = [kernel_smem(name, N, T, K, regrow, pad, dtype)["clusters"]
+    resident = [kernel_smem(name, N, T, K, regrow, pad, dtype,
+                            heap)["clusters"]
                 if K == 1 or N / K >= MIN_OBS_PER_BLOCK else 0
                 for K in range(1, MAX_CLUSTER + 1)]
     return cluster_size(C, N, resident)
 
 
-def _counted(wrapper, cfg: BartConfig, consts: SweepConsts, K: int, dtype):
+def _counted(wrapper, cfg: BartConfig, consts: SweepConsts, K: int, dtype,
+             heap: bool):
     """One launch of ``wrapper``'s kernel in clusters of K, its build for
-    ``dtype``: its counts."""
+    ``dtype`` (the heap build when ``heap``): its counts."""
     wrapper.launches += 1
     wrapper.regrow_launches += int(cfg.p_regrow > 0)
-    wrapper.deep_launches += int(consts.node_pad > NODE_PAD)
+    wrapper.deep_launches += int(consts.node_pad > NODE_PAD and not heap)
+    wrapper.heap_launches += int(heap)
     wrapper.f64_launches += int(dtype == torch.float64)
     wrapper.last_cluster = K
 
 
+def _one_launch(name: str, wrapper, cfg: BartConfig, args, weights, cluster,
+                rg, heap):
+    """Launch one-launch sweep kernel ``name`` on ``args`` (feature, cut,
+    lidx, tfit, resid0, sigma2, tau2, u, zn, consts) at ``cluster_size``'s
+    K (or ``cluster``), its heap build past 1024 slots or where ``heap``
+    forces it; counts the launch on ``wrapper``."""
+    feature, resid0, consts = args[0], args[4], args[-1]
+    heap = _use_heap(consts, heap)
+    C, T = feature.shape[:2]
+    K = _cluster(name, C, T, consts, cluster, cfg.p_regrow > 0,
+                 resid0.dtype, heap)
+    out = _launch(name, cfg, *args, weights, K, rg, heap)
+    _counted(wrapper, cfg, consts, K, resid0.dtype, heap)
+    return out
+
+
 def sweep_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0, sigma2,
                tau2, u, zn, consts: SweepConsts, weights=None, cluster=None,
-               rg=None):
+               rg=None, heap=None):
     """Launch ``csrc/bart_sweep_batch.cu`` on the current stream; same
     contract as ``sweep_plain`` (all float inputs in resid0's dtype,
     float32 or float64).  ``cluster`` forces the blocks per chain
-    (default: ``cluster_size``'s rule)."""
-    C, T = feature.shape[:2]
-    K = _cluster("bart_sweep_batch", C, T, consts, cluster, cfg.p_regrow > 0,
-                 resid0.dtype)
-    out = _launch("bart_sweep_batch", cfg, feature, cut, lidx, tfit, resid0,
-                  sigma2, tau2, u, zn, consts, weights, K, rg)
-    _counted(bart_sweep_fused_batch, cfg, consts, K, resid0.dtype)
-    return out
+    (default: ``cluster_size``'s rule); ``heap=True`` forces the heap
+    build at 512 or 1024 slots (a test aid: it runs past 1024 anyway)."""
+    return _one_launch("bart_sweep_batch", bart_sweep_fused_batch, cfg,
+                       (feature, cut, lidx, tfit, resid0, sigma2, tau2, u,
+                        zn, consts), weights, cluster, rg, heap)
 
 
 def sweep_tiled_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
                      sigma2, tau2, u, zn, consts: SweepConsts,
-                     weights=None, cluster=None, rg=None):
+                     weights=None, cluster=None, rg=None, heap=None):
     """Launch the obs-tiled ``csrc/bart_sweep_tiled.cu`` on the current
     stream; same contract as ``sweep_plain`` at any n (all float inputs
     in resid0's dtype, float32 or float64).  ``cluster`` forces the
-    blocks per chain (default: ``cluster_size``'s rule)."""
-    C, T = feature.shape[:2]
-    K = _cluster("bart_sweep_tiled", C, T, consts, cluster, cfg.p_regrow > 0,
-                 resid0.dtype)
-    out = _launch("bart_sweep_tiled", cfg, feature, cut, lidx, tfit, resid0,
-                  sigma2, tau2, u, zn, consts, weights, K, rg)
-    _counted(bart_sweep_fused_batch_tiled, cfg, consts, K, resid0.dtype)
-    return out
+    blocks per chain (default: ``cluster_size``'s rule), ``heap=True``
+    the heap build."""
+    return _one_launch("bart_sweep_tiled", bart_sweep_fused_batch_tiled,
+                       cfg, (feature, cut, lidx, tfit, resid0, sigma2, tau2,
+                             u, zn, consts), weights, cluster, rg, heap)
 
 
 def sweep_chain_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
                      sigma2, tau2, u, zn, consts: SweepConsts,
-                     weights=None, cluster=None, rg=None):
+                     weights=None, cluster=None, rg=None, heap=None):
     """Launch the per-chain ``csrc/bart_sweep_chain.cu`` on the current
     stream; same contract as ``sweep_plain`` up to its ceiling (all float
     inputs in resid0's dtype, float32 or float64).  ``cluster`` forces
     the blocks per chain (default: ``cluster_size``'s rule); a K whose
-    slice does not fit on chip raises."""
-    C, T = feature.shape[:2]
-    K = _cluster("bart_sweep_chain", C, T, consts, cluster, cfg.p_regrow > 0,
-                 resid0.dtype)
-    out = _launch("bart_sweep_chain", cfg, feature, cut, lidx, tfit, resid0,
-                  sigma2, tau2, u, zn, consts, weights, K, rg)
-    _counted(bart_sweep_fused, cfg, consts, K, resid0.dtype)
-    return out
+    slice does not fit on chip raises.  ``heap=True`` forces the heap
+    build."""
+    return _one_launch("bart_sweep_chain", bart_sweep_fused, cfg,
+                       (feature, cut, lidx, tfit, resid0, sigma2, tau2, u,
+                        zn, consts), weights, cluster, rg, heap)
 
 
 def apply_blocks(C: int, N: int) -> int:
@@ -509,7 +566,8 @@ def apply_blocks(C: int, N: int) -> int:
 
 def sweep_sharded_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
                        sigma2, tau2, u, zn, consts: SweepConsts,
-                       weights=None, reduce=None, cluster=None, rg=None):
+                       weights=None, reduce=None, cluster=None, rg=None,
+                       heap=None):
     """The observation-sharded sweep of ``csrc/bart_sweep_sharded.cu`` on
     the current stream: per tree a stats launch (clusters of K blocks per
     chain over this rank's observations), ``reduce`` of the (C, 2, M + 2)
@@ -520,17 +578,24 @@ def sweep_sharded_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
     regrow apply launch.  Same contract as ``sweep_plain`` with the same
     ``reduce`` (all float inputs, and the reduced blocks, in resid0's
     dtype, float32 or float64); ``cluster`` forces the stats launches'
-    blocks per chain.  ``bart_sweep_fused_sharded.launches``
+    blocks per chain, ``heap=True`` the heap build (which runs past 1024
+    slots, its slab of C x max(K, apply blocks) blocks allocated once a
+    sweep).  ``bart_sweep_fused_sharded.launches``
     counts tree updates (one stats and one apply launch each),
     ``.regrow_launches`` regrow updates (one regrow stats and one regrow
     apply launch each)."""
     C, T, M = feature.shape
     real = resid0.dtype
-    K = _cluster("bart_sweep_sharded", C, T, consts, cluster, dtype=real)
+    heap = _use_heap(consts, heap)
+    K = _cluster("bart_sweep_sharded", C, T, consts, cluster, dtype=real,
+                 heap=heap)
     nb = apply_blocks(C, consts.n_obs)
     outs, head, argtypes = _operands(cfg, feature, cut, lidx, tfit, resid0,
                                      sigma2, tau2, u, zn, consts, weights,
                                      rg)
+    slab = (_slab("bart_sweep_sharded", consts, C * max(K, nb), True, real,
+                  feature.device) if heap else None)
+    head = head + [_ptr(slab)]
     stats, apply_, regrow_stats, regrow_apply = (
         _entry("bart_sweep_sharded", e, real)
         for e in ("stats", "apply", "regrow_stats", "regrow_apply"))
@@ -576,7 +641,8 @@ def sweep_sharded_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
         check(apply_(*head, t, _ptr(blk), _ptr(kept), nb, stream), "apply")
         bart_sweep_fused_sharded.launches += 1
         bart_sweep_fused_sharded.deep_launches += int(
-            consts.node_pad > NODE_PAD)
+            consts.node_pad > NODE_PAD and not heap)
+        bart_sweep_fused_sharded.heap_launches += int(heap)
         bart_sweep_fused_sharded.f64_launches += int(real == torch.float64)
         if not opens[t]:
             continue
@@ -611,7 +677,7 @@ def check_kernel_supports(consts: SweepConsts, dtype,
     float64 state only; past the single-pass or per-chain kernel's
     ceiling (``on_chip_ceilings``: npad 10368 and 51840 at depth <= 6)
     only the obs-tiled kernel.  Every kernel takes the in-sweep regrow
-    (``p_regrow``)."""
+    (``p_regrow``) and any depth (past max_depth 9 its heap build)."""
     check_kernel_dtype(dtype)
     single, chain = on_chip_ceilings(consts.node_pad, consts.num_trees,
                                      dtype)
@@ -840,6 +906,7 @@ for _wrapper in (bart_sweep_fused_batch, bart_sweep_fused_batch_tiled,
     _wrapper.launches = 0
     _wrapper.regrow_launches = 0
     _wrapper.deep_launches = 0
+    _wrapper.heap_launches = 0
     _wrapper.f64_launches = 0
 bart_sweep_ablate.launches = 0
 bart_sweep_fused_batch.last_cluster = None

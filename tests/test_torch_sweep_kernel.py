@@ -101,19 +101,18 @@ def test_kernel_limits_raise():
                                      torch.float16, kernel)
     tk.check_kernel_supports(consts._replace(npad=tk.MAX_NPAD),
                              torch.float32)
-    # deeper trees: any depth on the CPU (zn rows of node_pad normals);
-    # on the card up to the deepest build's 1024-slot heaps, each build's
-    # own shared memory setting its single-pass ceiling (past 10368)
+    # deeper trees: any depth on the CPU and on the card (zn rows of
+    # node_pad normals): the static builds' 512- and 1024-slot heaps, past
+    # them the heap builds, each build's own shared memory setting its
+    # single-pass ceiling (past 10368)
     for depth, pad in ((7, 512), (8, 512), (9, 1024), (10, 2048)):
         deep = tk.make_sweep_consts(tb.BartConfig(num_trees=2,
                                                   max_depth=depth),
                                     ranks, np.full(3, 1 / 3), device="cpu")
         assert deep.node_pad == pad
-        if pad in tb.HEAP_PADS:
-            tk.check_kernel_depth(tb.BartConfig(max_depth=depth))
-    with pytest.raises(ValueError, match="up to max_depth 9"):
-        tk.check_kernel_depth(tb.BartConfig(max_depth=10))
-    for pad in (512, 1024):
+        assert tk.heap_build(pad) == (pad not in tb.HEAP_PADS)
+        tk.check_kernel_supports(deep._replace(npad=128), torch.float32)
+    for pad in (512, 1024, 2048):
         single, chain = tk.on_chip_ceilings(pad, 2)
         assert tk.MAX_NPAD < single < tk.MAX_N_CHAIN < chain
         tk.check_kernel_supports(deep._replace(node_pad=pad), torch.float32)
