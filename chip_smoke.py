@@ -27,7 +27,10 @@ printed), then:
    on the flagship Friedman model at n = 10000 with 256 chains on the card
    (150 iterations, 75 of them warmup), checks that every sweep went
    through that kernel, that the draws are finite and that the fit passes
-   the reference's quality gates, and prints the K it used;
+   every gate of the reference's continuous e2e test but its held-out
+   RMSE (``gaussian_gates``: cor(indiv.bart / fixef / ranef, truth),
+   sigma, SATE, the ppd noise ratio, Sigma, the fixef names and values,
+   the divergences), and prints the K it used;
 4. holds the obs-tiled kernel, at its default K and at K = 1 (residual in
    device memory), against the plain version at the reference's large-n
    shapes (n = 50000 with 64 chains, n = 200000 with 16 chains; 75
@@ -46,11 +49,11 @@ printed), then:
    blocks it prints show it), and at 150 / 75 the posterior-mean sigma
    misses the gate;
 6. runs the per-chain path: the phase 3 fit (at 128 chains) with
-   ``keep_fits=False`` and a callback returning each draw's sigma and BART
-   fit, so every
+   ``keep_fits=False`` and a callback returning every field of each
+   draw (its stan row, both BART fits, varcount and k), so every
    iteration is ``GibbsProgram.step`` and every sweep the per-chain
-   kernel; no raw draws may be stored, and the quality gates are computed
-   from the callback's outputs; then a short per-chain fit on the card
+   kernel; no raw draws may be stored, and the gaussian gates run on the
+   fit the callback's outputs make; then a short per-chain fit on the card
    (n = 2000, 16 chains, 40 iterations) with the options that path
    serves: a callback beside the raw draws, pooled adaptation of stepsize
    and metric, and the chi(df, scale) hyperprior on k, with its forests
@@ -92,8 +95,11 @@ printed), then:
    treatment's fixed effect within 1.5 of 5, sigma below 3), its
    milliseconds per VI update beside phase 3's NUTS milliseconds per
    iteration and its peak device memory; ``"vi"`` on phase 7's probit data
-   with the binary gates and, when phase 7 ran, the deviance ladder (phase
-   7's fit at most the probit IRLS fit's deviance and 1.35 x the VI fit's);
+   with the binary gates and, when phase 7 ran, a BART-only probit fit on
+   the same data (``y ~ bart(. - g.1 - g.2)``: an empty parametric
+   vector) with the binary gates, and the reference's whole deviance
+   ladder (phase 7's fit at most the probit IRLS fit's deviance, 1.35 x
+   the BART-only fit's and 1.35 x the VI fit's);
    and, when phase 3 ran, ``adjudicate_parametric_smc`` of its fit at 1024
    particles with the reference's gates; then short VI fits at n = 2000
    with 16 chains: one with a callback (the per-chain kernel only), one
@@ -792,10 +798,10 @@ def check_launches(label, counts, kernel, expected):
 
 
 def run_fit(label, device, n, chains, kernel, iters, warmup, trees,
-            binary=False, data=None, **fit_kw):
-    """The flagship fit at full width through the user entry point, with
-    the launch counts read just after it: every sweep must launch
-    ``kernel`` and no other sweep kernel."""
+            binary=False, data=None, formula=FLAGSHIP, **fit_kw):
+    """The flagship fit (or ``formula``'s) at full width through the user
+    entry point, with the launch counts read just after it: every sweep
+    must launch ``kernel`` and no other sweep kernel."""
     import stan4bart_torch
     from stan4bart_torch.utils.friedman import (
         friedman_dataframe, generate_friedman_data)
@@ -808,7 +814,7 @@ def run_fit(label, device, n, chains, kernel, iters, warmup, trees,
     kw = dict(stan_args={"max_treedepth": 6}, bart_args={"n_trees": trees})
     kw.update(fit_kw)
     fit = stan4bart_torch.stan4bart(
-        FLAGSHIP, df, treatment="z", chains=chains, iter=iters,
+        formula, df, treatment="z", chains=chains, iter=iters,
         warmup=warmup, seed=11, verbose=-1, device=device, **kw)
     wall = time.perf_counter() - t0
     launches = check_launches(label, counts, kernel,
@@ -827,17 +833,78 @@ def run_fit(label, device, n, chains, kernel, iters, warmup, trees,
     return d, fit, launches
 
 
+def launch_note(kernel, launches, iters):
+    return (f"{kernel} launches {launches} = {iters} iterations + 1 init, "
+            "other sweep kernels 0")
+
+
 def check_gates(label, cor, sigma, kernel, launches, iters):
     print(f"{label} quality: cor(indiv.bart, mu_bart) {cor:.4f} (>= 0.95), "
-          f"sigma {sigma:.4f} (0.8 < sigma < 1.4); {kernel} launches "
-          f"{launches} = {iters} iterations + 1 init, other sweep kernels "
-          "0", flush=True)
+          f"sigma {sigma:.4f} (0.8 < sigma < 1.4); "
+          + launch_note(kernel, launches, iters), flush=True)
     if cor < 0.95 or not 0.8 < sigma < 1.4:
         raise AssertionError(f"{label} quality gates failed")
 
 
 def centered_cor(a, b):
     return float(np.corrcoef(a - a.mean(), b - b.mean())[0, 1])
+
+
+def gaussian_gates(label, fit, d):
+    """Every gate of the reference's continuous e2e test
+    (tests/test_e2e_continuous.py:72-138) on a fit of the flagship model
+    but the held-out RMSE, which needs a split of its own:
+    cor(indiv.bart, mu_bart) >= 0.95, cor(indiv.fixef) >= 0.99,
+    cor(indiv.ranef) >= 0.68, 0.8 < sigma < 1.4, SATE within 1 of tau,
+    sd(ppd - ev) / sigma within 1.15, Sigma's terms and shapes and its
+    posterior mean positive definite, the fixef names and values (X4
+    within 3 of 10, z within 1.5 of 5), divergences below 20 % of the
+    draws.  Prints them with the seconds the extracts took; raises when
+    one fails."""
+    t0 = time.perf_counter()
+    z = d["z"]
+    mu_fx = np.where(z == 1, d["mu_fixef_1"], d["mu_fixef_0"])
+    q = dict(
+        cor_bart=centered_cor(fit.fitted("indiv.bart"), d["mu_bart"]),
+        cor_fixef=centered_cor(fit.fitted("indiv.fixef"), mu_fx),
+        cor_ranef=float(np.corrcoef(fit.fitted("indiv.ranef"),
+                                    d["mu_ranef"])[0, 1]),
+        sigma=float(fit.fitted("sigma")))
+    ev = fit.extract("ev")
+    q["sate"] = float(np.mean((ev - fit.extract("ev", sample="test"))
+                              * (2 * z - 1)[:, None]))
+    q["ppd_ratio"] = float((fit.extract("ppd") - ev).std() / q["sigma"])
+    del ev
+    Sig = fit.extract("Sigma")
+    shapes = {k: v.shape[:2] for k, v in Sig.items()}
+    q["min_eig"] = float(np.linalg.eigvalsh(Sig["g.1"].mean(-1)).min())
+    fx = fit.extract("fixef").mean(-1)
+    stan = fit.extract("stan")
+    q["divergent"] = float(
+        stan[fit.stan_names.index("divergent__")].mean())
+    secs = time.perf_counter() - t0
+    print(f"{label} gaussian gates over {stan.shape[1]} draws "
+          f"(tests/test_e2e_continuous.py:72-138): cor(indiv.bart) "
+          f"{q['cor_bart']:.4f} (>= 0.95), cor(indiv.fixef) "
+          f"{q['cor_fixef']:.4f} (>= 0.99), cor(indiv.ranef) "
+          f"{q['cor_ranef']:.4f} (>= 0.68), sigma {q['sigma']:.4f} (0.8 < "
+          f"sigma < 1.4), SATE {q['sate']:.4f} (truth {d['tau']}, within "
+          f"1), sd(ppd - ev) / sigma {q['ppd_ratio']:.4f} (within 1.15), "
+          f"Sigma {shapes} (g.1 2 x 2, g.2 1 x 1), smallest eigenvalue of "
+          f"mean Sigma g.1 {q['min_eig']:.4g} (> 0), fixef "
+          f"{fit.mf.X_names} {fx[0]:.4f} (within 3 of 10), {fx[1]:.4f} "
+          f"(within 1.5 of 5), divergent {q['divergent']:.4f} (< 0.2); "
+          f"the gates' extracts took {secs:.1f} s", flush=True)
+    if not (q["cor_bart"] >= 0.95 and q["cor_fixef"] >= 0.99
+            and q["cor_ranef"] >= 0.68 and 0.8 < q["sigma"] < 1.4
+            and abs(q["sate"] - d["tau"]) < 1.0
+            and 1 / 1.15 < q["ppd_ratio"] < 1.15
+            and shapes == {"g.1": (2, 2), "g.2": (1, 1)}
+            and q["min_eig"] > 0 and fit.mf.X_names == ["X4", "z"]
+            and abs(fx[0] - 10.0) < 3.0 and abs(fx[1] - 5.0) < 1.5
+            and q["divergent"] < 0.2):
+        raise AssertionError(f"{label}: gaussian gates failed")
+    return q
 
 
 def phase_main(device, label, n, chains, kernel, iters=150, warmup=75,
@@ -850,17 +917,15 @@ def phase_main(device, label, n, chains, kernel, iters=150, warmup=75,
         arr = getattr(fit.draws, name)
         if not np.all(np.isfinite(arr)):
             raise AssertionError(f"{label}: non-finite {name} draws")
-    cor = centered_cor(fit.fitted("indiv.bart"), d["mu_bart"])
-    sigma = float(fit.fitted("sigma"))
     trace = fit.extract("sigma", combine_chains=False, include_warmup=True)
     blocks = " ".join(f"{b.mean():.3f}/{int((b.mean(0) > 1.4).sum())}"
                       for b in np.split(trace, range(25, iters, 25)))
     stan = fit.extract("stan")
     td = float(stan[fit.stan_names.index("treedepth__")].mean())
     print(f"{label}: mean treedepth {td:.2f}; sigma by 25-iteration block, "
-          f"warmup included (mean over chains/chains above 1.4): {blocks}",
-          flush=True)
-    check_gates(label, cor, sigma, kernel, launches, iters)
+          f"warmup included (mean over chains/chains above 1.4): {blocks}; "
+          + launch_note(kernel, launches, iters), flush=True)
+    gaussian_gates(label, fit, d)
     return launches, fit
 
 
@@ -868,10 +933,16 @@ def phase_chain(device, label="phase 6", n=10_000, chains=128, iters=150,
                 warmup=75, trees=75):
     """The per-chain path at full width: the phase 3 fit with
     ``keep_fits=False`` and a callback, so every iteration runs
-    ``GibbsProgram.step`` and every sweep the per-chain kernel; the gates
-    come from the callback's outputs."""
+    ``GibbsProgram.step`` and every sweep the per-chain kernel.  The
+    callback returns every field of the draw (its stan row, both BART
+    fits, varcount and k), and the gaussian gates run on the fit those
+    outputs make, as on phase 3's raw draws."""
+    from stan4bart_torch.gibbs import GibbsDraw
+
     def callback(draw):
-        return {"sigma": draw["aux.1"], "yhat": draw.yhat_train}
+        return {"stan": draw.stan_pars, "bart_train": draw.yhat_train,
+                "bart_test": draw.yhat_test, "varcount": draw.raw.varcount,
+                "k": draw.raw.k}
 
     d, fit, launches = run_fit(label, device, n, chains, "bart_sweep_chain",
                                iters, warmup, trees, keep_fits=False,
@@ -885,13 +956,15 @@ def phase_chain(device, label="phase 6", n=10_000, chains=128, iters=150,
     else:
         raise AssertionError(f"{label}: extract('ev') did not raise")
     out = fit.extract("callback")          # post-warmup draws
-    yhat, sigma = out["yhat"], out["sigma"]
-    if yhat.shape != (n, chains * (iters - warmup)) or \
-            not np.all(np.isfinite(yhat)) or not np.all(np.isfinite(sigma)):
+    yhat = out["bart_train"]
+    if yhat.shape != (n, chains * (iters - warmup)) or not all(
+            np.all(np.isfinite(a)) for a in out.values()):
         raise AssertionError(f"{label}: callback outputs {yhat.shape}, "
                              "or not finite")
-    check_gates(label, centered_cor(yhat.mean(-1), d["mu_bart"]),
-                float(sigma.mean()), "bart_sweep_chain", launches, iters)
+    print(f"{label}: " + launch_note("bart_sweep_chain", launches, iters),
+          flush=True)
+    gaussian_gates(label, replace(fit, draws=GibbsDraw(**fit.draws),
+                                  keep_fits=True), d)
     return launches
 
 
@@ -1180,7 +1253,7 @@ def option_costs(fit, reps=3):
     gen = torch.Generator(device=prog.device)
     gen.manual_seed(0)
     c, _ = prog.pm.layout.constrain(st.nuts.q)
-    sigma = prog.pm.transformed(c)["aux"]
+    sigma = prog.pm.transformed(c, st.nuts.q.shape[0])["aux"]
     calls = {
         "sigma_gibbs": lambda: prog._sigma_gibbs_update(
             st.nuts.q, st.stan_offset, prog.y, gen),
@@ -1272,7 +1345,8 @@ def beta_unrotated(fit):
     """The final state's rotated coefficients in the original coordinates,
     R_inv beta_qr, per chain."""
     c, _ = fit.pm.layout.constrain(fit.final_states.nuts.q)
-    beta = fit.pm.transformed(c)["beta"].double().cpu().numpy()
+    beta = fit.pm.transformed(
+        c, fit.final_states.nuts.q.shape[0])["beta"].double().cpu().numpy()
     return beta @ fit.R_inv.T
 
 
@@ -1494,9 +1568,12 @@ def phase_algorithms(device, t3, fit3, ev7, label="phase 9", n=10_000,
     (warns that sigma is biased high), b. "advi" meanfield, c. "advi"
     fullrank, each with the reference's VI gates; d. "vi" on phase 7's
     probit data with the binary gates and, when phase 7 ran (``ev7``),
-    the two rungs of the reference's deviance ladder that need no other
-    fit; e. SMC adjudication of phase 3's fit (``fit3``) with the
-    reference's gates.  100 iterations, 50 of them warmup (150 / 75 met
+    the BART-only probit fit of the reference's ladder on the same data
+    (its fixed-effect columns moved into ``bart()``, its random effects
+    dropped: an empty parametric vector), with the binary gates, and the
+    reference's whole deviance ladder (tests/test_e2e_binary.py:54-89);
+    e. SMC adjudication of phase 3's fit (``fit3``) with the reference's
+    gates.  100 iterations, 50 of them warmup (150 / 75 met
     the same gates but took 183 s on an H100).
     Returns the single-pass kernel's launches."""
     from stan4bart_torch.fit import _init_parametric_fit
@@ -1528,15 +1605,32 @@ def phase_algorithms(device, t3, fit3, ev7, label="phase 9", n=10_000,
     if ev7 is not None:
         y = d["y"]
         eta_glm, _ = _init_parametric_fit(fit.mf, "binomial")
+        del fit
+        bart_sub = f"{sub} bart-only"
+        t0 = time.perf_counter()
+        _, bart_only, got = run_fit(
+            bart_sub, device, n, chains, "bart_sweep_batch", iters, warmup,
+            trees, data=d, formula="y ~ bart(. - g.1 - g.2)")
+        launches += got
+        if bart_only.pm.num_upars != 0:
+            raise AssertionError(f"{bart_sub}: parametric vector of "
+                                 f"{bart_only.pm.num_upars}, not empty")
+        ev_bart = binary_gates(bart_sub, bart_only, d)
+        print(f"{bart_sub}: {time.perf_counter() - t0:.1f} s with its "
+              f"gates; {card()}", flush=True)
+        del bart_only
         dev7, dev_glm = deviance(ev7, y), deviance(ndtr(eta_glm), y)
-        dev_vi = deviance(ev, y)
-        print(f"{sub}: deviance ladder (tests/test_e2e_binary.py:54-93): "
+        dev_bart, dev_vi = deviance(ev_bart, y), deviance(ev, y)
+        print(f"{sub}: deviance ladder (tests/test_e2e_binary.py:54-89): "
               f"phase 7's NUTS fit {dev7:.1f} <= probit IRLS {dev_glm:.1f}, "
-              f"and <= 1.35 x this VI fit's {dev_vi:.1f} "
-              f"({1.35 * dev_vi:.1f})", flush=True)
-        if not (dev7 <= dev_glm and dev7 <= 1.35 * dev_vi):
+              f"<= 1.35 x the BART-only fit's {dev_bart:.1f} "
+              f"({1.35 * dev_bart:.1f}) and <= 1.35 x this VI fit's "
+              f"{dev_vi:.1f} ({1.35 * dev_vi:.1f})", flush=True)
+        if not (dev7 <= dev_glm and dev7 <= 1.35 * dev_bart
+                and dev7 <= 1.35 * dev_vi):
             raise AssertionError(f"{sub}: deviance ladder")
-    del fit
+    else:
+        del fit
 
     if fit3 is not None:
         sub = f"{label}e smc"

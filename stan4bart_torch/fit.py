@@ -220,6 +220,29 @@ def _per_chain_callback(callback, names, has_test):
     return batched
 
 
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def _resolve_dtype(dtype) -> torch.dtype:
+    """``stan4bart``'s ``dtype``: None (float32), or float32 / float64 as
+    a torch dtype, its name or a numpy dtype, as the JAX package takes."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).removeprefix("torch.")
+    else:
+        try:
+            name = np.dtype(dtype).name
+        except TypeError:
+            name = None
+    if name not in _DTYPES:
+        raise ValueError(
+            f"dtype must be float32 or float64 (torch.float32, "
+            f"torch.float64, 'float32', 'float64' or a numpy dtype of "
+            f"either), not {dtype!r}")
+    return _DTYPES[name]
+
+
 def _data_columns(data) -> dict:
     return {k: np.asarray(v).copy() for k, v in (
         data.items() if isinstance(data, dict)
@@ -288,8 +311,9 @@ def stan4bart(
     pooled adaptation).  A fit from several ranks keeps its final states
     on the ranks (``final_states`` is None), so it cannot
     ``continue_sampling``.  ``dtype`` is float32 (the default) or
-    float64; on the card each sweep launches the CUDA kernels' build for
-    it (``ops/bart_sweep_kernel.py``: a float64 fit runs their
+    float64, as a torch dtype, its name or a numpy dtype; on the card
+    each sweep launches the CUDA kernels' build for it
+    (``ops/bart_sweep_kernel.py``: a float64 fit runs their
     double-precision builds).  ``chunk_size`` bounds the iterations
     between progress reports and interrupt checks.
 
@@ -309,6 +333,7 @@ def stan4bart(
 
     if cores is not None and cores <= 0:
         raise ValueError("'cores' must be a positive integer")
+    dtype = _resolve_dtype(dtype)
     world_size, _ = multihost.world()
     # as in the JAX package, chains spread over cores only where the
     # device type has more than one device; on one device (the CPU, or a
@@ -365,8 +390,6 @@ def stan4bart(
         skip_stan = int(skip[1] if len(skip) > 1 else skip[0])
     else:
         skip_bart = skip_stan = int(skip)
-    if dtype is None:
-        dtype = torch.float32
     if dev.type == "cuda":
         check_kernel_dtype(dtype)
 

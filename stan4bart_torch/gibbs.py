@@ -737,8 +737,8 @@ class GibbsProgram:
         pm, cfg = self.pm, self.bart_cfg
         y_stan = latents if self.is_binary else self.y
         c, _ = pm.layout.constrain(nuts.q)
-        tp = pm.transformed(c)
         C = nuts.q.shape[0]
+        tp = pm.transformed(c, C)
         sigma = (torch.ones(C, dtype=self.dtype, device=self.device)
                  if self.is_binary else tp["aux"])
         inv_s2 = 1.0 / (sigma * sigma)
@@ -967,7 +967,7 @@ class GibbsProgram:
             info = info._replace(lp=logp(q_lg))
 
         c, _ = pm.layout.constrain(nuts.q)
-        tp = pm.transformed(c)
+        tp = pm.transformed(c, nuts.q.shape[0])
         bart_offset = self._bart_offset_from_draw(c, tp)
         sigma = torch.ones_like(tp["aux"]) if self.is_binary else tp["aux"]
 
@@ -995,7 +995,7 @@ class GibbsProgram:
                 sigma = torch.ones_like(bart_state.k)
             else:
                 c, _ = pm.layout.constrain(nuts.q)
-                sigma = pm.transformed(c)["aux"]
+                sigma = pm.transformed(c, nuts.q.shape[0])["aux"]
             for _ in range(self.leaf_gibbs):
                 bart_state = self._leaf_gibbs_update(
                     bart_state, bart_offset, latents, sigma, gen)

@@ -503,19 +503,19 @@ class ParametricModel:
             aux = aux + float(h["prior_mean_for_aux"])
         return aux
 
-    def _empty(self, c):
-        C = next(iter(c.values())).shape[0] if c else 1
+    def _empty(self, C):
         return torch.zeros((C, 0), dtype=self.dtype, device=self.device)
 
-    def transformed(self, c):
-        """-> dict(aux (C,), beta (C, K), theta_L (C, L), b (C, q))."""
+    def transformed(self, c, C):
+        """-> dict(aux (C,), beta (C, K), theta_L (C, L), b (C, q)) for
+        the blocks ``c`` of C chains (``c`` is empty where the model has
+        no parametric part, so C comes from the unconstrained vector)."""
         cfg, h = self.cfg, self.hyper
-        C = next(iter(c.values())).shape[0]
         aux = (torch.ones(C, dtype=self.dtype, device=self.device)
                if cfg.is_binary else self._aux(c))
         beta = (compute_beta(cfg, c, h, aux) if cfg.K > 0
-                else self._empty(c))
-        get = lambda n: c.get(n, self._empty(c))  # noqa: E731
+                else self._empty(C))
+        get = lambda n: c.get(n, self._empty(C))  # noqa: E731
         rho_log = (get("rho_log"), get("rho_log1m"))
         if cfg.cov_prior == 1:
             theta_L = make_theta_L_lkj(cfg, get("sds"), get("rho"), rho_log,
@@ -566,7 +566,7 @@ class ParametricModel:
         (C, D), with constraint Jacobians: (C,)."""
         cfg = self.cfg
         c, log_jac = self.layout.constrain(u)
-        tp = self.transformed(c)
+        tp = self.transformed(c, u.shape[0])
         eta = offset_ + self.parametric_mean(c, tp)
         aux = tp["aux"]
         if self.obs_axis is not None:
@@ -736,14 +736,15 @@ class ParametricModel:
         self._gram_ready = True
         return True
 
-    def _coef_vector(self, c, tp):
+    def _coef_vector(self, tp):
         """v = [beta | b] per chain, matching dense_design's columns."""
         parts = []
         if self.cfg.K > 0:
             parts.append(tp["beta"])
         if self.cfg.q > 0:
             parts.append(tp["b"])
-        return torch.cat(parts, -1) if parts else self._empty(c)
+        return (torch.cat(parts, -1) if parts
+                else self._empty(tp["aux"].shape[0]))
 
     def gram_anchor(self, u, offset_, y):
         """Per-iteration sufficient statistics of the gaussian likelihood
@@ -751,8 +752,8 @@ class ParametricModel:
         with rr = ||y - offset - A v_hat||_W^2 and g = A' W r_hat."""
         with torch.no_grad():
             c, _ = self.layout.constrain(u)
-            tp = self.transformed(c)
-            vhat = self._coef_vector(c, tp)
+            tp = self.transformed(c, u.shape[0])
+            vhat = self._coef_vector(tp)
             r = y - (offset_ + vhat @ self.gram_A.T)
             rw = r * self.weights if self.cfg.has_weights else r
             rr = (r * rw).sum(-1)
@@ -769,9 +770,9 @@ class ParametricModel:
         cfg = self.cfg
         vhat, rr, g = anchor
         c, log_jac = self.layout.constrain(u)
-        tp = self.transformed(c)
+        tp = self.transformed(c, u.shape[0])
         aux = tp["aux"]
-        d = self._coef_vector(c, tp) - vhat
+        d = self._coef_vector(tp) - vhat
         quad = (rr - 2.0 * (d * g).sum(-1)
                 + (d * (d @ self.gram_G)).sum(-1))
         lp = (-0.5 * cfg.N * torch.log(2.0 * math.pi * aux * aux)
@@ -831,9 +832,9 @@ class ParametricModel:
         cfg = self.cfg
         with torch.no_grad():
             c, _ = self.layout.constrain(u)
-            tp = self.transformed(c)
+            tp = self.transformed(c, u.shape[0])
             aux = tp["aux"]
-            vhat = self._coef_vector(c, tp)
+            vhat = self._coef_vector(tp)
             C, D = vhat.shape
             r = y - (offset_ + vhat @ self.gram_A.T)
             rw = r * self.weights if cfg.has_weights else r
@@ -942,7 +943,7 @@ class ParametricModel:
     def constrained_draw(self, u):
         """(C, S) constrained draws: upars then aux, beta, b, theta_L."""
         c, _ = self.layout.constrain(u)
-        tp = self.transformed(c)
+        tp = self.transformed(c, u.shape[0])
         parts = [c[name] for name, _, _ in self.layout.blocks]
         if not self.cfg.is_binary:
             parts.append(tp["aux"][:, None])
@@ -951,7 +952,7 @@ class ParametricModel:
         if self.cfg.q > 0:
             parts.append(tp["b"])
             parts.append(tp["theta_L"])
-        return torch.cat(parts, -1)
+        return torch.cat(parts, -1) if parts else self._empty(u.shape[0])
 
     def constrained_names(self) -> list[str]:
         names = []

@@ -83,10 +83,14 @@ class NutsInfo(NamedTuple):
 
 
 def value_and_grad(fn: Callable, q):
-    """Per-chain log-density (C,) and its gradient (C, D)."""
+    """Per-chain log-density (C,) and its gradient (C, D); at D = 0 (a
+    probit model with no parametric part) the log-density does not
+    depend on q and the gradient is empty."""
     with torch.enable_grad():
         x = q.detach().requires_grad_(True)
         lp = fn(x)
+        if q.shape[-1] == 0:
+            return lp.detach(), torch.zeros_like(q)
         (g,) = torch.autograd.grad(lp.sum(), x)
     return lp.detach(), g
 

@@ -72,7 +72,7 @@ def profile_phases(prog, states, n_iter: int = 25, repeats: int = 3):
 
     def bart_loop(state):
         c, _ = prog.pm.layout.constrain(state.nuts.q)
-        aux = prog.pm.transformed(c)["aux"]
+        aux = prog.pm.transformed(c, state.nuts.q.shape[0])["aux"]
         sigma = torch.ones_like(aux) if prog.is_binary else aux
         y_target = ((state.latents if prog.is_binary else prog.y)
                     - state.bart_offset)

@@ -94,7 +94,7 @@ def test_offsets_match_reference(models, offset_type, offset):
     want_s = np.asarray(jax.vmap(rprog._stan_offset_from_fit)(
         jnp.asarray(fit)))
     c, _ = ppm.layout.constrain(torch.as_tensor(U))
-    got_b = pprog._bart_offset_from_draw(c, ppm.transformed(c))
+    got_b = pprog._bart_offset_from_draw(c, ppm.transformed(c, C))
     got_s = pprog._stan_offset_from_fit(torch.as_tensor(fit))
     assert got_b.shape == got_s.shape == (C, N)
     np.testing.assert_allclose(got_b.numpy(), want_b, **EXACT)

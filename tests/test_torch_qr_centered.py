@@ -94,7 +94,7 @@ def _beta_qr(fit, q):
     """The rotated coefficients of unconstrained q in the original
     coordinates, beta = R_inv beta_qr (X beta = X_qr beta_qr)."""
     c, _ = fit.pm.layout.constrain(q)
-    beta = fit.pm.transformed(c)["beta"].double().numpy()
+    beta = fit.pm.transformed(c, q.shape[0])["beta"].double().numpy()
     return beta @ fit.R_inv.T
 
 
@@ -344,7 +344,8 @@ def test_float32_linear_refresh_with_a_wide_ranef_prior(frames):
         assert torch.isfinite(new).all()
         assert (new.double().numpy() != U).any(1).all()
         c, _ = p.layout.constrain(new)
-        eta[dt] = p.parametric_mean(c, p.transformed(c)).double().numpy()
+        eta[dt] = p.parametric_mean(
+            c, p.transformed(c, new.shape[0])).double().numpy()
     np.testing.assert_allclose(eta[torch.float32], eta[torch.float64],
                                rtol=0, atol=0.05)
 
@@ -397,7 +398,7 @@ def test_float32_level_interweave_with_a_wide_ranef_prior(frames):
             z=torch.as_tensor(z, dtype=dt))
         assert torch.isfinite(pn.q).all()
         c, _ = p.layout.constrain(pn.q)
-        total[dt] = (pb.allfit + p.parametric_mean(c, p.transformed(c))
+        total[dt] = (pb.allfit + p.parametric_mean(c, p.transformed(c, C))
                      ).double().numpy()
     np.testing.assert_allclose(total[torch.float32], total[torch.float64],
                                rtol=0, atol=0.05)

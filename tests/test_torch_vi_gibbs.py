@@ -232,7 +232,7 @@ def test_float32_model_at_an_extreme_correlation(u_rho, singular):
     q = st.nuts.q.clone()
     q[:, ppm.layout.slices["rho"][0]] = torch.tensor([u_rho, 0.3])
     c, _ = ppm.layout.constrain(q)
-    theta_L = ppm.transformed(c)["theta_L"]
+    theta_L = ppm.transformed(c, C)["theta_L"]
     assert bool((theta_L[0] == 0).any()) == singular
     with torch.enable_grad():
         qg = q.clone().requires_grad_(True)
