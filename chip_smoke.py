@@ -225,9 +225,37 @@ printed), then:
    of 4) and a short max_depth 10 fit at 40 000 x 8 through the obs-tiled
    heap build.  14b runs in a process of its own beside 11c's fit, as 12b
    and 13b do.
+15. runs simulation-based calibration of the composed sampler
+   (``stan4bart_torch.utils.sbc``, the counterpart of benchmarks/sbc.py)
+   at SBC_r05.json's size: 160 reps as one program of 160 chains, each
+   chain fitting its own response simulated from the prior (n = 100, 8
+   trees of max_depth 3), warmup 300 and 495 iterations thinned by 5
+   (L = 99), seed 20260819; first each kernel the cells sweep through
+   against the plain sweep at that shape, and the CUDA graph of the Gram
+   log-density's value and gradient (``GramGraph``, which NUTS replays on
+   the card in every fit) against its eager form at each cell's shape,
+   equal to the bit (``graph_check`` holds it so at the first and final
+   states of phases 3, 5, 7 and 13b's fits and of phase 8's prior fits);
+   then every sweep of a cell a
+   launch of its kernel, its ranks' chi-square p and counts per quantity
+   printed (a p under 1e-3, the artifact's alpha, marked).  a. (in the
+   default run, in two processes of their own beside phases 3 and 5 to
+   9, after phase 4, which runs before phase 3)
+   cells ``kernel_f32`` and ``kernel_f32_probit`` through the single-pass
+   kernel, every p above 1e-4 (tests/test_sbc.py:28-41's gate); b. (not
+   in the default run; ``--sbc-cells`` chooses; the cells run side by
+   side, in up to two processes fewer than the host's cores)
+   ``kernel_f32_tiled`` through the forced
+   obs-tiled kernel, ``kernel_f32/chain`` through the per-chain driver
+   and kernel, and the seven float64 cells through the single-pass
+   kernel's double build, written to ``--sbc-out`` (SBC_r05.json's schema
+   with the card's name and power limit, beside the cells
+   SBC_torch_h100.json holds); a p at most 1e-4 fails it after writing.
 
-Phase 6's fit runs in a process of its own beside phase 5's, and phase
-8's beside phase 7's; the short option fits of phases 6, 8 and 9 run
+Phase 4 runs before phase 3.  Phase 6's fit runs in a process of its
+own beside phase 5's, phase 8's beside phase 7's and phase 15a's two
+cells beside phases 3 and 5 to 9; the
+short option fits of phases 6, 8 and 9 run
 after phase 10a, in this process beside phase 10b's ranks (processes of
 their own), and phase 12b's, 13b's and 14b's fits run in processes of
 their own beside phase 11c's: the fits are host-bound, so each group
@@ -237,8 +265,9 @@ takes about the wall time of the longest, and the per-phase seconds of
 ``--phases 3,7,9`` runs the listed phases only (``--phases
 1,2,4,10a,11a,11b,12a,13a,14a`` the kernel phases; the kernels line needs
 those; ``10a`` to ``10c``, ``11a`` to ``11d``, ``12a``, ``12b``,
-``13a``, ``13b``, ``14a`` and ``14b`` run one part of phase 10, 11, 12,
-13 or 14).  Prints the
+``13a``, ``13b``, ``14a``, ``14b``, ``15a`` and ``15b`` run one part of
+phase 10, 11, 12, 13, 14 or 15; the default runs every phase but 15b).
+Prints the
 card
 (``nvidia-smi``), a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -528,13 +557,16 @@ def smem_note(name, N, T, K, regrow=False, pad=128, dtype=torch.float32):
             f"{where}")
 
 
-def hold_at_path_shape(device, label, N, C, kernels, seed, T=75):
+def hold_at_path_shape(device, label, N, C, kernels, seed, T=75,
+                       dtype=torch.float32, **cfg_kw):
     """Each kernel of ``kernels`` (its name in ``check_sweep``'s lines ->
     (launcher, wrapper)) at a main path's cut shape, at the K its wrapper
-    picks there, against the plain version; the largest error per name."""
+    picks there, against the plain version, in ``dtype`` (``cfg_kw``:
+    BartConfig fields other than the trees); the largest error per
+    name."""
     from stan4bart_torch.ops.bart_sweep_kernel import sweep_plain
 
-    _, state, yt, args = sweep_args(N, T, C, seed, device)
+    _, state, yt, args = sweep_args(N, T, C, seed, device, dtype, **cfg_kw)
     outs, ks = {}, {}
     for name, (launch, wrapper) in kernels.items():
         outs[name] = launch(*args)
@@ -913,6 +945,7 @@ def phase_main(device, label, n, chains, kernel, iters=150, warmup=75,
     sweep must launch ``kernel`` and no other sweep kernel."""
     d, fit, launches = run_fit(label, device, n, chains, kernel, iters,
                                warmup, trees)
+    graph_check(label, fit)
     for name in ("stan", "bart_train", "bart_test", "k"):
         arr = getattr(fit.draws, name)
         if not np.all(np.isfinite(arr)):
@@ -1131,6 +1164,7 @@ def phase_probit(device, label="phase 7", n=10_000, chains=128,
     d, fit, launches = run_fit(
         label, device, n, chains, "bart_sweep_batch", iters, warmup, trees,
         binary=True, bart_args={"n_trees": trees, "keep_trees": True})
+    graph_check(label, fit)
     for name in ("stan", "bart_train", "bart_test", "k", "tree_leaf_value"):
         if not np.all(np.isfinite(getattr(fit.draws, name))):
             raise AssertionError(f"{label}: non-finite {name} draws")
@@ -1383,6 +1417,7 @@ def phase_option_fits(device, label="phase 8 options", n=2000, chains=16,
                               stan_args={"max_treedepth": 4, **sa})
         launches["bart_sweep_batch"] += got
         finite_draws(sub, fit)
+        graph_check(sub, fit)
         fixef = np.round(fit.fitted("fixef").astype(float), 3).tolist()
         print(f"{sub}: finite draws; posterior-mean fixef {fixef}, sigma "
               f"{float(fit.fitted('sigma')):.4f}; {option_flags(fit)}",
@@ -2819,10 +2854,259 @@ def phase_deep_fit(device, label="phase 12b", n=10_000, chains=128,
     return launches, q
 
 
+# phase 15: simulation-based calibration of the composed sampler
+# (stan4bart_torch/utils/sbc.py) at the reps and seed of SBC_r05.json
+SBC_REPS = 160
+SBC_SEED = 20260819
+SBC_15A = ("kernel_f32", "kernel_f32_probit")
+SBC_15B = ("kernel_f32_tiled", "kernel_f32/chain", "continuous", "probit",
+           "weights", "qr", "lkj", "interweave", "leaf_block")
+# every quantity's p above tests/test_sbc.py:28-41's gate (a fixed-seed
+# run of about 22 quantities fails it by chance well under 1 % of the
+# time); p under the artifact's alpha is marked on the cell's line
+SBC_GATE = 1e-4
+SBC_ALPHA = 1e-3
+
+
+def sbc_kernel(spec):
+    """The sweep kernel every sweep of SBC cell ``spec`` (``<cell>`` or
+    ``<cell>/chain``) launches: the per-chain one on the per-chain driver,
+    the obs-tiled one where the cell forces it, else the single-pass
+    one (the float64 cells its double build)."""
+    from stan4bart_torch.utils.sbc import CELLS
+
+    cell, _, driver = spec.partition("/")
+    if driver == "chain":
+        return "bart_sweep_chain"
+    return "bart_sweep_tiled" if CELLS[cell].get("tiled") else \
+        "bart_sweep_batch"
+
+
+def sbc_hold(device, label, specs):
+    """Each kernel the SBC cells ``specs`` sweep through, in each dtype
+    they run, against the plain sweep at their shape (n = 100, 160 chains,
+    8 trees of max_depth 3, 50 cuts); the largest error by kernel."""
+    from stan4bart_torch.ops.bart_sweep_kernel import (
+        _LAUNCH, bart_sweep_fused, bart_sweep_fused_batch,
+        bart_sweep_fused_batch_tiled)
+    from stan4bart_torch.utils.sbc import CELLS, DTYPES, N_OBS
+
+    wrappers = {"bart_sweep_batch": bart_sweep_fused_batch,
+                "bart_sweep_tiled": bart_sweep_fused_batch_tiled,
+                "bart_sweep_chain": bart_sweep_fused}
+    by_dtype = {}
+    for spec in specs:
+        k = sbc_kernel(spec)
+        dt = DTYPES[CELLS[spec.partition("/")[0]].get("dtype", "float64")]
+        by_dtype.setdefault(dt, {})[k] = (_LAUNCH[k], wrappers[k])
+    err = {}
+    for dt, kernels in by_dtype.items():
+        tag = "float64" if dt == F64 else "float32"
+        res = hold_at_path_shape(device, f"{label} {tag}", N_OBS, SBC_REPS,
+                                 kernels, seed=15, T=8, dtype=dt,
+                                 max_depth=3, n_cuts=50)
+        for k, e in res.items():
+            err[k if dt != F64 else f"{k}_f64"] = e
+    return err
+
+
+def sbc_cell(device, label, spec):
+    """SBC cell ``spec`` at SBC_REPS reps (``utils.sbc.run_cell``: one
+    program of SBC_REPS chains, each fitting its own simulated data),
+    every sweep a launch of its kernel (``sbc_kernel``; the float64 cells
+    every one of its double build).  Returns the harness's record with
+    the kernel, its launches and the driver."""
+    from stan4bart_torch.utils import sbc
+
+    cell, _, driver = spec.partition("/")
+    counts = reset_counts()
+    out = sbc.run_cell(spec, sbc.CELLS[cell], SBC_REPS, SBC_SEED,
+                       device=device, driver=driver or "batched")
+    kernel = sbc_kernel(spec)
+    launches = check_launches(f"phase 15 {spec}", counts, kernel,
+                              sbc.WARMUP + sbc.ITERS + 1)
+    f64 = counts[kernel].f64_launches
+    if f64 != (launches if sbc.CELLS[cell].get("dtype") is None else 0):
+        raise AssertionError(f"phase 15 {spec}: {f64} of {launches} "
+                             "launches ran the float64 build")
+    out.update(driver=driver or "batched", kernel=kernel,
+               launches=launches, f64_launches=f64)
+    print(sbc_line(label, out), flush=True)
+    return out
+
+
+def sbc_line(label, out):
+    """One line of a cell's record: every quantity's chi2, p and counts
+    (a p under SBC_ALPHA marked ``<alpha``), min_p and the wall."""
+    t = ", ".join(f"{k} {v}" for k, v in out["timings"].items())
+    n = ", ".join(f"{k} {v}" for k, v in out["nuts"].items())
+    qs = "; ".join(
+        f"{q} chi2 {v['chi2']} p {v['p']:.4g}"
+        + (" <alpha" if v["p"] < SBC_ALPHA else "") + f" {v['counts']}"
+        for q, v in out["quantities"].items())
+    return (f"{label} SBC {out['cell']}: {out['reps']} reps, L {out['L']}, "
+            f"{out['launches']} launches of {out['kernel']}"
+            + (" (float64 build)" if out["f64_launches"] else "")
+            + f"; {qs}; min_p {out['min_p']:.4g} (gate p > {SBC_GATE}, "
+            f"alpha {SBC_ALPHA}); wall {out['wall_s']} s, fit s {t}; "
+            f"sampling NUTS {n}; {card()}")
+
+
+def hold_graph(prog, st, gen):
+    """``prog``'s graphed Gram log-density (``models/parametric.py``
+    ``GramGraph``) against its eager form at state ``st``'s anchor, at
+    its q and at 3 points about it: whether value and gradient are equal
+    to the bit everywhere, and the largest relative difference."""
+    from stan4bart_torch.ops.nuts import value_and_grad
+
+    y_stan = st.latents if prog.is_binary else prog.y
+    logp = prog._logp(st.nuts.q, st.stan_offset, y_stan)
+    same, err = True, 0.0
+    for k in range(4):
+        q = st.nuts.q + 0.1 * k * torch.randn(
+            st.nuts.q.shape, generator=gen, dtype=prog.dtype,
+            device=st.nuts.q.device)
+        got = logp.replay(q)
+        want = value_and_grad(lambda u: logp(u), q)
+        for a, b in zip(got, want):
+            same = same and torch.equal(a, b)
+            err = max(err, float(((a - b).abs()
+                                  / b.abs().clamp(min=1.0)).max()))
+    return same, err
+
+
+def graph_check(label, fit):
+    """``hold_graph`` on ``fit``'s own program at a first state
+    (``init_state``, seed 11) and at the fit's final states; raises
+    unless the graph equals the eager form to the bit at both."""
+    prog = fit.prog
+    if not prog.use_gram or prog.pm.num_upars == 0:
+        return
+    C = fit.final_states.nuts.q.shape[0]
+    gen = torch.Generator(device=prog.device)
+    gen.manual_seed(11)
+    first = prog.init_state(gen, C)
+    res = [hold_graph(prog, st, gen) for st in (first, fit.final_states)]
+    print(f"{label}: the graphed Gram log-density and gradient at "
+          f"{C} chains, {prog.dtype}, against the eager form at the first "
+          "and final states: equal to the bit "
+          f"{[r[0] for r in res]}, max relative difference "
+          f"{max(r[1] for r in res):.3g}", flush=True)
+    if not all(r[0] for r in res):
+        raise AssertionError(f"{label}: the graphed log-density differs "
+                             "from the eager one")
+
+
+def gram_graph_check(device, label, specs):
+    """``hold_graph`` at each cell's shape (160 chains of its simulated
+    data, at its first state); raises unless equal to the bit."""
+    from stan4bart_torch.utils import sbc
+
+    worst = {}
+    for spec in specs:
+        cell = sbc.CELLS[spec.partition("/")[0]]
+        _, pm, prog, _ = sbc.build_cell(cell, seed=SBC_SEED, device=device)
+        rng = np.random.default_rng(SBC_SEED)
+        _, _, prog.y = sbc.simulate(pm, prog, cell["binary"], rng, SBC_REPS)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SBC_SEED)
+        same, worst[spec] = hold_graph(prog, prog.init_state(gen, SBC_REPS),
+                                       gen)
+        if not same:
+            raise AssertionError(f"{label} {spec}: the graphed log-density "
+                                 f"differs from the eager one by "
+                                 f"{worst[spec]:.3g}")
+    print(f"{label}: the graphed Gram log-density and gradient against the "
+          "eager form at 160 chains equal to the bit in "
+          + ", ".join(worst), flush=True)
+    return worst
+
+
+def phase_sbc(device, label, specs):
+    """Phase 15a / 15b in this process: ``sbc_hold`` of the cells'
+    kernels and ``gram_graph_check`` at their shapes, then each cell
+    (``sbc_cell``).  Returns (the hold's errors, the cells' records)."""
+    err = sbc_hold(device, label, specs)
+    gram_graph_check(device, label, specs)
+    return err, [sbc_cell(device, label, s) for s in specs]
+
+
+def start_sbc(phase, specs):
+    """Phase ``phase``'s (15a or 15b) ``specs`` split over child
+    processes, one a cell up to two fewer than the host's cores, each
+    running ``phase_sbc`` on its share side by side (every cell is
+    host-bound); ``join_sbc`` collects them."""
+    workers = min(len(specs), max(1, (os.cpu_count() or 1) - 2))
+    groups = [specs[i::workers] for i in range(workers)]
+    return [start_fit(phase, f"phase {phase}", g) for g in groups]
+
+
+def join_sbc(label, children, gate, paths, out=None):
+    """The children's records (into ``out`` by ``write_sbc`` when given)
+    and their launches into ``paths``; raises (after writing) when
+    ``gate`` or ``out`` and a quantity's p is at most SBC_GATE.  Returns
+    the kernels' largest errors against plain at the SBC shape."""
+    err, records = {}, []
+    for child in children:
+        e, r = join_fit(child, timeout_s=3000)
+        err.update({k: max(v, err.get(k, 0.0)) for k, v in e.items()})
+        records += r
+    if out is not None:
+        write_sbc(out, records)
+    launches, bad = sbc_report(label, err, records)
+    for k, v in launches.items():
+        paths.setdefault(k, {})[label] = v
+    if bad and (gate or out is not None):
+        raise AssertionError(f"{label}: SBC ranks non-uniform: "
+                             + "; ".join(bad))
+    return err
+
+
+def sbc_report(label, err, records):
+    """The launches by kernel of the cells' records and the quantities
+    at p at most SBC_GATE; prints the kernels' errors against plain and
+    each cell's min_p."""
+    launches, bad = {}, []
+    for out in records:
+        key = out["kernel"] + ("_f64" if out["f64_launches"] else "")
+        launches[key] = launches.get(key, 0) + out["launches"]
+        bad += [f"{out['cell']} {q} p {v['p']:.3g} {v['counts']}"
+                for q, v in out["quantities"].items() if v["p"] <= SBC_GATE]
+    print(f"{label}: kernels at the SBC shape against plain, max error "
+          + ", ".join(f"{k} {v:.3g}" for k, v in err.items()) + "; min_p "
+          + ", ".join(f"{r['cell']} {r['min_p']:.4g}" for r in records),
+          flush=True)
+    return launches, bad
+
+
+def write_sbc(path, records):
+    """``records`` into ``path`` in SBC_r05.json's schema with the card's
+    name and power limit, beside the cells of earlier runs that
+    ``SBC_torch_h100.json`` at the root holds (a cell run again is
+    replaced)."""
+    from stan4bart_torch.utils.sbc import BINS, L
+
+    cells = {}
+    if os.path.exists("SBC_torch_h100.json"):
+        with open("SBC_torch_h100.json") as fh:
+            cells = {c["cell"]: c for c in json.load(fh)["cells"]}
+    cells.update({r["cell"]: r for r in records})
+    out = {"harness": "sbc", "reps": SBC_REPS, "L": L, "bins": BINS,
+           "alpha": SBC_ALPHA, "seed": SBC_SEED, "card": card(),
+           "cells": list(cells.values()),
+           "all_pass": all(c["pass"] for c in cells.values())}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(out, fh, indent=1)
+    print(f"phase 15b: {len(records)} cells written to {path} "
+          f"({len(cells)} in all)", flush=True)
+
+
 def _fit_child(out_q, phase, args):
-    """Host-bound fit phase ``phase`` ("6", "8", "12b", "13b" or "14b") in
-    a process of its own (``start_fit``), with ``args`` after the device:
-    puts ("ok", its result) or ("error", traceback) on out_q."""
+    """Host-bound fit phase ``phase`` ("6", "8", "12b", "13b", "14b", "15a"
+    or "15b") in a process of its own (``start_fit``), with ``args`` after
+    the device: puts ("ok", its result) or ("error", traceback) on
+    out_q."""
     import traceback
 
     from stan4bart_torch.utils.device import resolve_device
@@ -2830,7 +3114,8 @@ def _fit_child(out_q, phase, args):
     try:
         fn = {"6": phase_chain, "8": phase_all_options,
               "12b": phase_deep_fit, "13b": phase_f64_fit,
-              "14b": phase_heap_fit}[phase]
+              "14b": phase_heap_fit, "15a": phase_sbc,
+              "15b": phase_sbc}[phase]
         out_q.put(("ok", fn(resolve_device("cuda"), *args)))
     except BaseException:
         out_q.put(("error", traceback.format_exc()))
@@ -3122,6 +3407,7 @@ def phase_f64_fit(device, label="phase 13b", n=10_000, chains=128,
     d, fit, launches = run_fit(label, device, n, chains, "bart_sweep_batch",
                                iters, warmup, trees, dtype=F64)
     f64 = bart_sweep_fused_batch.f64_launches
+    graph_check(label, fit)
     finite_draws(label, fit)
     if (fit.prog.dtype != F64 or f64 != launches
             or fit.final_states.bart.leaf_value.dtype != F64):
@@ -3553,12 +3839,17 @@ class Beside:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
-                    help="comma-separated phases to run (default all); "
-                    "1, 2, 4, 10a, 11a, 11b, 12a, 13a and 14a are the "
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15a",
+                    help="comma-separated phases to run (default all but "
+                    "15b); 1, 2, 4, 10a, 11a, 11b, 12a, 13a and 14a are the "
                     "kernel phases, which the kernels line needs; 10a, 10b, "
-                    "10c, 11a to 11d, 12a, 12b, 13a, 13b, 14a and 14b run "
-                    "one part of phase 10, 11, 12, 13 or 14")
+                    "10c, 11a to 11d, 12a, 12b, 13a, 13b, 14a, 14b, 15a "
+                    "and 15b run one part of phase 10, 11, 12, 13, 14 or 15")
+    ap.add_argument("--sbc-cells", default=",".join(SBC_15B),
+                    help="phase 15b's SBC cells (<cell> or <cell>/chain)")
+    ap.add_argument("--sbc-out", default="SBC_torch_h100.json",
+                    help="where phase 15b writes its cells, beside those "
+                    "SBC_torch_h100.json already holds")
     args = ap.parse_args()
     run = set(args.phases.split(","))
     if "10" in run:
@@ -3571,6 +3862,8 @@ def main():
         run |= {"13a", "13b"}
     if "14" in run:
         run |= {"14a", "14b"}
+    if "15" in run:
+        run |= {"15a", "15b"}
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3605,18 +3898,6 @@ def main():
         full = phase_full(device)
         ablate = {c: phase_ablate(device, c) for c in (256, 64)}
         lap("phase 2")
-    # launches of each kernel on each main path that ran it
-    paths = {k: {} for k in KERNELS}
-    t3 = None     # phase 3's per-phase seconds, printed beside phase 8's
-    fit3 = ev7 = None     # phase 3's fit and phase 7's P(y = 1), for 9
-    if "3" in run:
-        # run_fit holds every main path to 0 launches of the stubs
-        paths["bart_sweep_batch"]["phase 3"], fit3 = phase_main(
-            device, "phase 3", 10_000, 256, "bart_sweep_batch")
-        t3 = dict(fit3.timings, iters=fit3.draws.stan.shape[1])
-        if not {"9", "11d"} & run:   # 9 adjudicates it, 11d profiles it
-            fit3 = None
-        lap("phase 3")
     if "4" in run:
         large = {n: phase_large(device, n, c)
                  for n, c in ((50_000, 64), (51_840, 64), (200_000, 16))}
@@ -3626,8 +3907,24 @@ def main():
             {"tiled": (sweep_tiled_cuda, bart_sweep_fused_batch_tiled)},
             seed=7)["tiled"]
         lap("phase 4")
-    # phase 6's fit runs in a child process beside phase 5's, phase 8's
-    # beside phase 7's: all are host-bound
+    # launches of each kernel on each main path that ran it
+    paths = {k: {} for k in KERNELS}
+    # phase 15a's SBC cells run in a child process each beside phases 3
+    # and 5 to 9, after the kernels timed in phases 2 and 4: all are
+    # host-bound
+    child15 = start_sbc("15a", list(SBC_15A)) if "15a" in run else None
+    t3 = None     # phase 3's per-phase seconds, printed beside phase 8's
+    fit3 = ev7 = None     # phase 3's fit and phase 7's P(y = 1), for 9
+    if "3" in run:
+        # run_fit holds every main path to 0 launches of the stubs
+        paths["bart_sweep_batch"]["phase 3"], fit3 = phase_main(
+            device, "phase 3", 10_000, 256, "bart_sweep_batch")
+        t3 = dict(fit3.timings, iters=fit3.draws.stan.shape[1])
+        if not {"9", "11d"} & run:   # 9 adjudicates it, 11d profiles it
+            fit3 = None
+        lap("phase 3" + (" and 15a beside it" if child15 else ""))
+    # phase 6's fit runs in a child process beside phase 5's and phase
+    # 8's beside phase 7's: all are host-bound
     child6 = start_fit("6") if {"5", "6"} <= run else None
     if "5" in run:
         paths["bart_sweep_tiled"]["phase 5"], _ = phase_main(
@@ -3650,6 +3947,10 @@ def main():
         paths["bart_sweep_batch"]["phase 9"] = phase_algorithms(
             device, t3, fit3, ev7)
         lap("phase 9")
+    sbc_err = {}
+    if child15 is not None:
+        sbc_err = join_sbc("phase 15a", child15, True, paths)
+        lap("phase 15a (joined)")
     p11 = None     # phase 3's fit, profiled by 11d
     if "11d" in run and fit3 is not None:
         p11 = fit3
@@ -3745,6 +4046,10 @@ def main():
     if "14a" in run:
         heap = phase_heap_kernels(device)
         lap("phase 14a")
+    if "15b" in run:
+        join_sbc("phase 15b", start_sbc("15b", args.sbc_cells.split(",")),
+                 False, paths, out=args.sbc_out)
+        lap("phase 15b")
     print("wall seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; {sum(walls.values()):.1f} in all", flush=True)
@@ -3780,7 +4085,8 @@ def main():
         "replaces": "stan4bart_tpu/ops/bart_sweep_kernel.py:859",
         "launches": launches["bart_sweep_batch"],
         "launches_by_path": paths["bart_sweep_batch"],
-        "max_abs_err": max(err[0], full["max_abs_err"]),
+        "max_abs_err": max(err[0], full["max_abs_err"],
+                           sbc_err.get("bart_sweep_batch", 0.0)),
         "ms": full["ms"],
         "kernel_ms": full["ms"],
         "plain_ms": full["plain_ms"],

@@ -134,7 +134,11 @@ def tree_map(fn, *trees):
 
 class GibbsProgram:
     """Static and iteration-constant data of one model on one device; all
-    sampler state lives in GibbsState."""
+    sampler state lives in GibbsState.
+
+    ``y`` is the response of every chain, (N,), or one response per chain,
+    (C, N), for C chains each fitting its own data set over the same
+    design (simulation-based calibration, ``utils/sbc.py``)."""
 
     def __init__(
         self,
@@ -199,7 +203,7 @@ class GibbsProgram:
         self.dtype = dtype
         self.device = resolve_device(device)
         self.is_binary = pm.cfg.is_binary
-        self.N = len(y)
+        self.N = np.shape(y)[-1]
         self.y = self._t(y)
         self.warmup = int(warmup)
         self.iterations = int(iterations)
@@ -438,7 +442,7 @@ class GibbsProgram:
             anchor = pm.gram_anchor(q_anchor, stan_offset, y_stan)
             if reps > 1:
                 anchor = tuple(a.repeat_interleave(reps, 0) for a in anchor)
-            return lambda u: pm.log_prob_gram(u, anchor)
+            return pm.gram_logp(anchor)
         if reps > 1:
             stan_offset = stan_offset.repeat_interleave(reps, 0)
             if y_stan.dim() == 2:
@@ -456,6 +460,9 @@ class GibbsProgram:
         init_r) parametric starts and Stan's initial stepsize search."""
         pm, cfg = self.pm, self.bart_cfg
         C, N, dev, dt = n_chains, self.N, self.device, self.dtype
+        if self.y.dim() == 2 and self.y.shape[0] != C:
+            raise ValueError(f"a per-chain y of {self.y.shape[0]} rows "
+                             f"cannot start {C} chains")
         q0 = (torch.rand((C, pm.num_upars), generator=gen, dtype=dt,
                          device=dev) * 2.0 - 1.0) * self.init_r
         bart_offset = (self._t(bart_offset_init).expand(C, N).clone()
@@ -484,9 +491,16 @@ class GibbsProgram:
         nuts = nuts_init(q0, stepsize=self.stepsize_init)
         y_stan = latents if self.is_binary else self.y
         if self.obs_axis is None:
-            scale_y = (1.0 if self.is_binary else
-                       float(np.std(self.y.double().cpu().numpy(), ddof=1)))
-            inv_mass0 = pm.initial_inv_mass(scale_y, N)
+            if self.is_binary:
+                inv_mass0 = pm.initial_inv_mass(1.0, N)
+            else:
+                # from each chain's own y where it has one
+                ys = self.y.double().cpu().numpy()
+                inv_mass0 = (
+                    pm.initial_inv_mass(float(np.std(ys, ddof=1)), N)
+                    if ys.ndim == 1 else np.stack([
+                        pm.initial_inv_mass(float(np.std(y, ddof=1)), N)
+                        for y in ys]))
             logp = lambda u: pm.log_prob(u, stan_offset, y_stan)  # noqa: E731
         else:
             # a shard's view carries the global heuristics, and its
@@ -546,8 +560,11 @@ class GibbsProgram:
             reps = x.shape[0] // C
             qx = q.repeat(reps, 1)
             qx[:, off] = x
-            return pm.log_prob(qx, stan_offset if reps == 1
-                               else stan_offset.repeat(reps, 1), y_stan)
+            if reps == 1:
+                return pm.log_prob(qx, stan_offset, y_stan)
+            return pm.log_prob(qx, stan_offset.repeat(reps, 1),
+                               y_stan.repeat(reps, 1) if y_stan.dim() == 2
+                               else y_stan)
 
         x0 = q[:, off]
         log_y = logpost(x0) + torch.log(u_h)
@@ -1110,6 +1127,8 @@ class GibbsProgram:
             raise ValueError(
                 "pooled_adaptation is not supported obs-sharded (the "
                 "chain pool would silently become per-device-group)")
+        if self.y.dim() == 2:
+            raise ValueError("a per-chain y is not supported obs-sharded")
         lpm = copy.copy(self.pm)
         lpm.obs_axis = axis
         lpm.X = local["X"]
@@ -1159,7 +1178,7 @@ class GibbsProgram:
                            bart_offset_init=None, sigma_init=1.0,
                            keep_warmup: bool = True, callback=None,
                            verbose: int = 0, refresh: int | None = None,
-                           progress=None):
+                           progress=None, per_chain: bool = False):
         """Warmup then sampling for ``n_chains`` chains, in chunks of at
         most ``chunk_size`` iterations (None = one chunk per phase).
         After each chunk the draws move to the host, ``progress(phase,
@@ -1171,7 +1190,7 @@ class GibbsProgram:
         NamedTuple of tensors with a leading chain dimension (or None to
         store nothing), stored in place of each GibbsDraw.  As in the JAX
         package, a fit with a callback runs the per-chain ``step``; one
-        without runs ``step_batched``.
+        without runs ``step_batched`` unless ``per_chain``.
 
         Returns ``(final_states, draws, info)``: draws a GibbsDraw (or the
         callback's outputs) of numpy arrays with leading (chains,
@@ -1179,7 +1198,7 @@ class GibbsProgram:
         ``sample_s``, the per-phase seconds of the iterations, the
         completed counts and an ``interrupted`` flag.
         """
-        per_chain = callback is not None
+        per_chain = per_chain or callback is not None
         states = self.init_state(gen, n_chains, bart_offset_init, sigma_init,
                                  per_chain=per_chain)
         phases = (("warmup", self.warmup, keep_warmup, None),

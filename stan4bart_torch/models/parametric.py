@@ -220,7 +220,11 @@ def compute_beta(cfg: ParametricConfig, c, hyper, aux):
         segs = []
         z_pos = 0
         for k, nn in enumerate(cfg.num_normals):
-            prod = torch.prod(z_beta[:, z_pos: z_pos + nn], -1)
+            # a running product: torch.prod's backward tests for zeros,
+            # which synchronizes (and a CUDA graph capture refuses)
+            prod = z_beta[:, z_pos]
+            for j in range(1, nn):
+                prod = prod * z_beta[:, z_pos + j]
             z_pos += nn
             segs.append(prod * hyper["prior_scale"][k] ** nn
                         + hyper["prior_mean"][k])
@@ -463,6 +467,8 @@ class ParametricModel:
         if self._aux_prior() == 1:
             const -= dists._LOG_SQRT_2PI + _LOG_HALF
         self._prior_const = const
+        # gram_logp's CUDA graphs, by chain count
+        self._gram_graphs = {}
         self._prior_shapes_m1 = (T(np.asarray(rho_a) - 1.0),
                                  T(np.asarray(rho_b) - 1.0),
                                  T(delta - 1.0), T(shape - 1.0))
@@ -494,7 +500,10 @@ class ParametricModel:
     # -- transformed parameters ---------------------------------------------
 
     def _aux(self, c):
-        cfg, h = self.cfg, self.hyper
+        # the host's copies of the hyperparameters: reading the device's
+        # would synchronize on every evaluation (and a CUDA graph of the
+        # log-density may hold no synchronization)
+        cfg, h = self.cfg, self.hyper_np
         au = c["aux_unscaled"][:, 0]
         if cfg.prior_dist_for_aux == 0:
             return au
@@ -779,6 +788,20 @@ class ParametricModel:
               - 0.5 * quad / (aux * aux))
         return lp + self._prior_lp(c, tp) + log_jac
 
+    def gram_logp(self, anchor):
+        """``log_prob_gram`` at ``anchor`` as a callable of u (C, D).  On a
+        CUDA device (unsharded, D > 0) it is the chains' count's
+        ``GramGraph`` bound to ``anchor``, whose ``replay`` gives the
+        batched value and gradient through one CUDA graph and which
+        ``ops.nuts.value_and_grad`` takes."""
+        if (self.device.type != "cuda" or self.obs_axis is not None
+                or self.num_upars == 0):
+            return lambda u: self.log_prob_gram(u, anchor)
+        C = anchor[0].shape[0]
+        if C not in self._gram_graphs:
+            self._gram_graphs[C] = GramGraph(self, C)
+        return self._gram_graphs[C].bind(anchor)
+
     # -- exact conjugate refresh of the linear block ----------------------
 
     def enable_linear_gibbs(self) -> bool:
@@ -1045,3 +1068,65 @@ class ParametricModel:
             parts.append(v)
         return torch.as_tensor(np.concatenate(parts, axis=1),
                                dtype=self.dtype, device=self.device)
+
+
+class GramGraph:
+    """The value and gradient of ``ParametricModel.log_prob_gram`` at C
+    points of D coordinates, captured once as a CUDA graph and replayed.
+
+    Eager, an evaluation launches a few hundred kernels on (C, D)-sized
+    tensors (the constraining transforms, the covariance factors, the
+    prior terms and their backward), and the host launching them bounds
+    every leapfrog; a replay launches them as one graph, the same kernels
+    in the same order on the same shapes.  The anchor lives in static
+    buffers: ``bind`` copies a new one in and returns the graph, a
+    log-density of that anchor until the next ``bind``."""
+
+    def __init__(self, pm, C):
+        self.pm = pm
+        self.q = torch.zeros((C, pm.num_upars), dtype=pm.dtype,
+                             device=pm.device)
+        self.anchor = None
+        self.graph = None
+        self.out = None
+
+    def _body(self):
+        with torch.enable_grad():
+            x = self.q.detach().requires_grad_(True)
+            lp = self.pm.log_prob_gram(x, self.anchor)
+            (g,) = torch.autograd.grad(lp.sum(), x)
+        return lp.detach(), g
+
+    def _capture(self):
+        """Warm-up evaluations on a side stream, then the capture."""
+        cur = torch.cuda.current_stream(self.q.device)
+        side = torch.cuda.Stream(self.q.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                self._body()
+        cur.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        # another thread of the process may use the card meanwhile
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.out = self._body()
+
+    def bind(self, anchor):
+        if self.anchor is None:
+            self.anchor = tuple(a.clone() for a in anchor)
+        else:
+            for static, a in zip(self.anchor, anchor):
+                static.copy_(a)
+        return self
+
+    def __call__(self, u):
+        """The eager evaluation at the bound anchor."""
+        return self.pm.log_prob_gram(u, self.anchor)
+
+    def replay(self, q):
+        """The value and gradient at q (C, D) through the graph."""
+        if self.graph is None:
+            self._capture()
+        self.q.copy_(q)
+        self.graph.replay()
+        return self.out[0].clone(), self.out[1].clone()

@@ -897,7 +897,8 @@ def sample_probit_latents(mean, y, gen=None, u=None):
         y=1:  z = mean - ndtri(u * Phi(mean))   (> 0)
         y=0:  z = mean + ndtri(u * Phi(-mean))  (<= 0)
 
-    mean (C, N); y (N,); u optional uniforms in (0, 1) of mean's shape."""
+    mean (C, N); y (N,) or (C, N); u optional uniforms in (0, 1) of
+    mean's shape."""
     if u is None:
         u = torch.rand(mean.shape, generator=gen, dtype=mean.dtype,
                        device=mean.device)

@@ -85,7 +85,12 @@ class NutsInfo(NamedTuple):
 def value_and_grad(fn: Callable, q):
     """Per-chain log-density (C,) and its gradient (C, D); at D = 0 (a
     probit model with no parametric part) the log-density does not
-    depend on q and the gradient is empty."""
+    depend on q and the gradient is empty.  A log-density with a
+    ``replay`` (the Gram form's CUDA graph, ``models/parametric.py``
+    ``GramGraph``) computes both there."""
+    replay = getattr(fn, "replay", None)
+    if replay is not None:
+        return replay(q)
     with torch.enable_grad():
         x = q.detach().requires_grad_(True)
         lp = fn(x)

@@ -135,3 +135,27 @@ def test_verbose_initial_summary(capsys):
     assert "stan4bart: gaussian model" in out
     assert "trees = 3" in out
     assert "adapt_delta = 0.8" in out
+
+
+def test_double_bar_fit_diagonal_covariance():
+    """The JAX package's tests/test_formula.py:224-246 on the port: a ``||``
+    fit's covariance comes back as two independent 1x1 blocks, ``g.1`` and
+    ``g.1.2``, in both extract dicts, and ev equals its parts (float64, as
+    the JAX package's tests run)."""
+    import stan4bart_torch
+
+    fit = stan4bart_torch.stan4bart(
+        "y ~ bart(X1 + X2 + X3) + X4 + (1 + X4 || g.1)", _friedman(),
+        seed=3, chains=2, iter=60, warmup=30, verbose=-1,
+        bart_args={"n.trees": 10}, dtype=torch.float64, device="cpu")
+    sig = fit.extract("Sigma")
+    assert set(sig.keys()) == {"g.1", "g.1.2"}
+    assert sig["g.1"].shape[:2] == (1, 1)
+    assert sig["g.1.2"].shape[:2] == (1, 1)
+    ran = fit.extract("ranef")
+    assert set(ran.keys()) == {"g.1", "g.1.2"}
+    assert np.all(np.isfinite(sig["g.1"]))
+    ev = fit.extract("ev")
+    comp = (fit.extract("indiv.bart") + fit.extract("indiv.fixef")
+            + fit.extract("indiv.ranef"))
+    np.testing.assert_allclose(ev, comp, atol=1e-5)

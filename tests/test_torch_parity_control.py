@@ -1,5 +1,5 @@
-"""The JAX package's Stan control tests (tests/test_stan_control.py, all but
-the ``sigma_gibbs`` posterior comparison) and its front-end checks
+"""The JAX package's Stan control tests (tests/test_stan_control.py; its
+``sigma_gibbs`` posterior comparison marked ``slow``) and its front-end checks
 (tests/test_init_and_validation.py:16-94) on the port, on the CPU, with
 ``split_rhat`` held to the JAX package's.
 
@@ -116,6 +116,25 @@ def test_stan_args_seed_used(df60):
     f1 = _fit(df60, stan_args={"seed": 123, "max_treedepth": 4}, **kw)
     f2 = _fit(df60, seed=123, stan_args={"max_treedepth": 4}, **kw)
     np.testing.assert_array_equal(f1.extract("ev"), f2.extract("ev"))
+
+
+@pytest.mark.slow
+def test_sigma_gibbs_posterior_parity():
+    """tests/test_stan_control.py:95-112 on the port: the exact sigma
+    slice draw (``sigma_gibbs``) is its own Metropolis-within-Gibbs
+    kernel, so the sigma posterior matches the NUTS-only chain's within
+    Monte Carlo error at the reference's run length."""
+    df = friedman_dataframe(generate_friedman_data(150, ranef=True))
+    kw = dict(chains=2, warmup=500, iter=1500, seed=77, verbose=-1,
+              bart_args={"n.trees": 15}, dtype=torch.float64, device="cpu")
+    formula = "y ~ bart(X1+X2+X3) + X4 + (1 | g.2)"
+    base = s4b.stan4bart(formula, df, **kw)
+    sg = s4b.stan4bart(formula, df, stan_args={"sigma_gibbs": True}, **kw)
+    assert sg.prog.sigma_gibbs and not base.prog.sigma_gibbs
+    s0, s1 = base.extract("sigma"), sg.extract("sigma")
+    assert abs(s0.mean() - s1.mean()) < 0.5 * s0.std() + 0.05
+    assert 0.5 < s1.std() / s0.std() < 2.0
+    assert np.all(np.isfinite(sg.extract("ev")))
 
 
 @pytest.mark.parametrize("kw,msg", [
