@@ -251,10 +251,28 @@ printed), then:
    kernel's double build, written to ``--sbc-out`` (SBC_r05.json's schema
    with the card's name and power limit, beside the cells
    SBC_torch_h100.json holds); a p at most 1e-4 fails it after writing.
+16. runs the statistical-quality and causal-study harnesses at their
+   budgets through the user entry point, every sweep of every fit a
+   launch of the single-pass kernel: a. (in the default run, a process
+   each beside phases 3 and 5 to 9) ``utils.quality``'s weighted
+   gaussian gates (benchmarks/quality_chip.py's, n = 250, 50 trees, 3
+   chains x 1000 iterations, noise sd 1 / sqrt(w), every launch the
+   weighted path) and the held-out RMSE gate (tests/test_e2e_continuous.py
+   :147-189: 220 rows to fit, 80 held out, BART's RMSE at most least
+   squares'); b. (not in the default run; its jobs side by side in up to
+   two processes fewer than the host's cores) the plain and interweave
+   gaussian gates, the probit gates at n = 10 000 (8 chains, 400 / 900)
+   and ``utils.ihdp_study``'s synthetic study at 50 replications of 1000
+   iterations, written to ``--quality-out`` and ``--ihdp-out`` with the
+   card's name and power limit, the study held to the JAX package's
+   (IHDP_synthetic_jax_cpu.json: coverage, paired satt_est, PEHE); a
+   failed gate fails either, b after writing; ``--jobs16b`` runs a part
+   of b's jobs, written beside the records of earlier runs that the
+   root's QUALITY_torch_h100.json and IHDP_synthetic_torch_h100.json hold.
 
 Phase 4 runs before phase 3.  Phase 6's fit runs in a process of its
 own beside phase 5's, phase 8's beside phase 7's and phase 15a's two
-cells beside phases 3 and 5 to 9; the
+cells and phase 16a's fits beside phases 3 and 5 to 9; the
 short option fits of phases 6, 8 and 9 run
 after phase 10a, in this process beside phase 10b's ranks (processes of
 their own), and phase 12b's, 13b's and 14b's fits run in processes of
@@ -265,8 +283,9 @@ takes about the wall time of the longest, and the per-phase seconds of
 ``--phases 3,7,9`` runs the listed phases only (``--phases
 1,2,4,10a,11a,11b,12a,13a,14a`` the kernel phases; the kernels line needs
 those; ``10a`` to ``10c``, ``11a`` to ``11d``, ``12a``, ``12b``,
-``13a``, ``13b``, ``14a``, ``14b``, ``15a`` and ``15b`` run one part of
-phase 10, 11, 12, 13, 14 or 15; the default runs every phase but 15b).
+``13a``, ``13b``, ``14a``, ``14b``, ``15a``, ``15b``, ``16a`` and ``16b``
+run one part of phase 10, 11, 12, 13, 14, 15 or 16; the default runs
+every phase but 15b and 16b).
 Prints the
 card
 (``nvidia-smi``), a ``{"kernels": [...]}`` line, and as its last line
@@ -280,13 +299,15 @@ import argparse
 import json
 import os
 from dataclasses import replace
-import subprocess
 import sys
 import threading
 import time
 
 import numpy as np
 import torch
+
+from stan4bart_torch.utils.device import card
+from stan4bart_torch.utils.quality import centered_cor
 
 # leaf values and fits of kernel vs plain: the same float32 arithmetic
 # with the sums taken in another order (tolerances of the JAX package's
@@ -313,14 +334,6 @@ RANK_BACKEND = "gloo"
 
 FLAGSHIP = ("y ~ bart(. - g.1 - g.2 - X4 - z) + X4 + z + (1 + X4 | g.1) "
             "+ (1 | g.2)")
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def forest_setup(n, trees, chains, seed, device, dtype=torch.float32,
@@ -805,8 +818,8 @@ def launch_counters():
 
 def reset_counts():
     """Every launch count set to 0 (and every count of launches that ran
-    the in-sweep regrow, of the deep builds, of the heap builds and of
-    the float64 builds); returns the wrappers by kernel."""
+    the in-sweep regrow, of the deep builds, of the heap builds, of the
+    float64 builds and with weights); returns the wrappers by kernel."""
     counts = launch_counters()
     for fn in counts.values():
         fn.launches = 0
@@ -814,6 +827,7 @@ def reset_counts():
         fn.deep_launches = 0
         fn.heap_launches = 0
         fn.f64_launches = 0
+        fn.weighted_launches = 0
     return counts
 
 
@@ -876,10 +890,6 @@ def check_gates(label, cor, sigma, kernel, launches, iters):
           + launch_note(kernel, launches, iters), flush=True)
     if cor < 0.95 or not 0.8 < sigma < 1.4:
         raise AssertionError(f"{label} quality gates failed")
-
-
-def centered_cor(a, b):
-    return float(np.corrcoef(a - a.mean(), b - b.mean())[0, 1])
 
 
 def gaussian_gates(label, fit, d):
@@ -2861,6 +2871,10 @@ SBC_SEED = 20260819
 SBC_15A = ("kernel_f32", "kernel_f32_probit")
 SBC_15B = ("kernel_f32_tiled", "kernel_f32/chain", "continuous", "probit",
            "weights", "qr", "lkj", "interweave", "leaf_block")
+# (warmup, iterations) of 15a's cells in the default run: half of
+# SBC_r05.json's (300, 495), so that the script stays in its time (L 49,
+# 10 bins of 5 ranks each); 15b's cells run the full budget
+SBC_15A_BUDGET = (150, 245)
 # every quantity's p above tests/test_sbc.py:28-41's gate (a fixed-seed
 # run of about 22 quantities fails it by chance well under 1 % of the
 # time); p under the artifact's alpha is marked on the cell's line
@@ -2910,27 +2924,31 @@ def sbc_hold(device, label, specs):
     return err
 
 
-def sbc_cell(device, label, spec):
+def sbc_cell(device, label, spec, budget=None):
     """SBC cell ``spec`` at SBC_REPS reps (``utils.sbc.run_cell``: one
-    program of SBC_REPS chains, each fitting its own simulated data),
-    every sweep a launch of its kernel (``sbc_kernel``; the float64 cells
-    every one of its double build).  Returns the harness's record with
-    the kernel, its launches and the driver."""
+    program of SBC_REPS chains, each fitting its own simulated data) and
+    ``budget`` (warmup, iterations; the harness's by default), every
+    sweep a launch of its kernel (``sbc_kernel``; the float64 cells every
+    one of its double build).  Returns the harness's record with the
+    kernel, its launches, the driver and the budget."""
     from stan4bart_torch.utils import sbc
 
     cell, _, driver = spec.partition("/")
+    warmup, iters = budget or (sbc.WARMUP, sbc.ITERS)
     counts = reset_counts()
     out = sbc.run_cell(spec, sbc.CELLS[cell], SBC_REPS, SBC_SEED,
-                       device=device, driver=driver or "batched")
+                       device=device, driver=driver or "batched",
+                       warmup=warmup, iters=iters)
     kernel = sbc_kernel(spec)
     launches = check_launches(f"phase 15 {spec}", counts, kernel,
-                              sbc.WARMUP + sbc.ITERS + 1)
+                              warmup + iters + 1)
     f64 = counts[kernel].f64_launches
     if f64 != (launches if sbc.CELLS[cell].get("dtype") is None else 0):
         raise AssertionError(f"phase 15 {spec}: {f64} of {launches} "
                              "launches ran the float64 build")
     out.update(driver=driver or "batched", kernel=kernel,
-               launches=launches, f64_launches=f64)
+               launches=launches, f64_launches=f64, warmup=warmup,
+               iters=iters)
     print(sbc_line(label, out), flush=True)
     return out
 
@@ -2944,7 +2962,8 @@ def sbc_line(label, out):
         f"{q} chi2 {v['chi2']} p {v['p']:.4g}"
         + (" <alpha" if v["p"] < SBC_ALPHA else "") + f" {v['counts']}"
         for q, v in out["quantities"].items())
-    return (f"{label} SBC {out['cell']}: {out['reps']} reps, L {out['L']}, "
+    return (f"{label} SBC {out['cell']}: {out['reps']} reps, warmup "
+            f"{out['warmup']}, {out['iters']} iterations, L {out['L']}, "
             f"{out['launches']} launches of {out['kernel']}"
             + (" (float64 build)" if out["f64_launches"] else "")
             + f"; {qs}; min_p {out['min_p']:.4g} (gate p > {SBC_GATE}, "
@@ -3025,19 +3044,22 @@ def gram_graph_check(device, label, specs):
 def phase_sbc(device, label, specs):
     """Phase 15a / 15b in this process: ``sbc_hold`` of the cells'
     kernels and ``gram_graph_check`` at their shapes, then each cell
-    (``sbc_cell``).  Returns (the hold's errors, the cells' records)."""
+    (``sbc_cell``; 15a's at SBC_15A_BUDGET).  Returns (the hold's errors,
+    the cells' records)."""
     err = sbc_hold(device, label, specs)
     gram_graph_check(device, label, specs)
-    return err, [sbc_cell(device, label, s) for s in specs]
+    budget = SBC_15A_BUDGET if label == "phase 15a" else None
+    return err, [sbc_cell(device, label, s, budget) for s in specs]
 
 
-def start_sbc(phase, specs):
-    """Phase ``phase``'s (15a or 15b) ``specs`` split over child
-    processes, one a cell up to two fewer than the host's cores, each
-    running ``phase_sbc`` on its share side by side (every cell is
-    host-bound); ``join_sbc`` collects them."""
-    workers = min(len(specs), max(1, (os.cpu_count() or 1) - 2))
-    groups = [specs[i::workers] for i in range(workers)]
+def start_groups(phase, jobs):
+    """Phase ``phase``'s ``jobs`` (15a's or 15b's SBC cells, 16a's or 16b's
+    harness runs) split over child processes, one a job up to two fewer
+    than the host's cores, each running the phase on its share side by
+    side (every job is host-bound); ``join_sbc`` or ``join_quality``
+    collects them."""
+    workers = min(len(jobs), max(1, (os.cpu_count() or 1) - 2))
+    groups = [jobs[i::workers] for i in range(workers)]
     return [start_fit(phase, f"phase {phase}", g) for g in groups]
 
 
@@ -3102,6 +3124,230 @@ def write_sbc(path, records):
           f"({len(cells)} in all)", flush=True)
 
 
+# phase 16: the statistical-quality and causal-study harnesses
+# (stan4bart_torch/utils/quality.py, utils/ihdp_study.py) at their budgets
+IHDP_REPS, IHDP_ITERS = 50, 1000
+IHDP_JAX = "IHDP_synthetic_jax_cpu.json"
+# the records of earlier 16b runs at the root, which a run adds to
+QUALITY_JSON = "QUALITY_torch_h100.json"
+IHDP_JSON = "IHDP_synthetic_torch_h100.json"
+QUALITY_16B = ("weighted", "rmse", "probit", "plain", "interweave")
+# (warmup, iterations) of 16a's weighted fit in the default run: half of
+# quality_chip.py's (300, 1000), so that the script stays in its time;
+# its held-out fit and 16b's jobs run their harness's budget
+QUALITY_16A_BUDGET = {"weighted": (150, 450)}
+# the keys of a replication's line (benchmarks/ihdp_sim.py)
+IHDP_KEYS = ("bias", "covered", "ci_length", "pehe", "pegste", "satt_est",
+             "satt_truth", "rep")
+
+
+def counted(label, fn, iters, weighted=False):
+    """``fn()``, a harness's (record, fit), with the launch counts read
+    around it: every sweep of the fit (``iters`` iterations and the first
+    sweep) a launch of the single-pass kernel, every one with weights
+    when ``weighted`` and none when not.  Returns the record with its
+    launches and K."""
+    counts = reset_counts()
+    rec, fit = fn()
+    kernel = counts["bart_sweep_batch"]
+    launches = check_launches(label, counts, "bart_sweep_batch",
+                              iters * fit.prog.skip_bart + 1)
+    if kernel.weighted_launches != (launches if weighted else 0):
+        raise AssertionError(f"{label}: {kernel.weighted_launches} of "
+                             f"{launches} launches had weights")
+    rec.update(launches=launches, weighted_launches=kernel.weighted_launches,
+               cluster=kernel.last_cluster)
+    return rec
+
+
+def quality_job(device, job, budget=None):
+    """One harness run of phase 16 in this process: a quality gate
+    (``utils.quality.GATES``) at its harness's budget (a gaussian one at
+    ``budget``, (warmup, iterations), where given) or ``ihdp:<rep>``, a
+    replication of the synthetic IHDP study at IHDP_ITERS iterations.
+    Returns its record with its launches, wall seconds and card."""
+    from stan4bart_torch.utils import ihdp_study, quality
+
+    t0 = time.perf_counter()
+    if job.startswith("ihdp:"):
+        rep = int(job[5:])
+        rec = counted(f"phase 16 {job}", lambda: ihdp_study.synthetic_rep(
+            rep, IHDP_ITERS, device), IHDP_ITERS)
+    else:
+        kw = {} if budget is None else dict(warmup=budget[0],
+                                            iters=budget[1])
+
+        def fit():
+            rec = quality.run(job, device, **kw)
+            return rec, rec.pop("fit")
+
+        iters = kw.get("iters", {"rmse": quality.RMSE_ITER,
+                                 "probit": quality.PROBIT_ITER}.get(
+                                     job, quality.ITER))
+        rec = counted(f"phase 16 {job}", fit, iters,
+                      weighted=job == "weighted")
+    rec.update(job_wall_s=round(time.perf_counter() - t0, 1), card=card())
+    return rec
+
+
+def phase_quality(device, label, jobs):
+    """``quality_job`` of each of ``jobs`` in this process (phase 16a's
+    weighted gates at QUALITY_16A_BUDGET and its held-out gate; a share
+    of 16b's jobs); prints each quality record's values beside their
+    limits.  Returns the records by job."""
+    from stan4bart_torch.utils import quality
+
+    budgets = QUALITY_16A_BUDGET if label == "phase 16a" else {}
+    out = {}
+    for job in jobs:
+        rec = out[job] = quality_job(device, job, budgets.get(job))
+        if not job.startswith("ihdp:"):
+            budget = (f"{quality.CHAINS} chains, warmup {rec['warmup']} of {rec['iter']} "
+                      "iterations; " if "iter" in rec else "")
+            print(f"{label} {quality.report(rec)}; {budget}{rec['launches']} "
+                  f"launches of bart_sweep_batch (K={rec['cluster']}, "
+                  f"{rec['weighted_launches']} weighted), wall "
+                  f"{rec['job_wall_s']} s, fit s {rec['timings']}; {card()}",
+                  flush=True)
+    return out
+
+
+def join_quality(label, children, paths):
+    """The children's records by job, their launches into ``paths``
+    under ``label`` (``quality_failures`` reads their gates)."""
+    records = {}
+    for child in children:
+        records.update(join_fit(child, timeout_s=3000))
+    paths["bart_sweep_batch"][label] = sum(r["launches"]
+                                           for r in records.values())
+    return records
+
+
+def jobs16(spec):
+    """Phase 16b's jobs from ``--jobs16b``: comma-separated gates and
+    ``ihdp:<rep>`` or ``ihdp:<first>-<last>``."""
+    jobs = []
+    for job in spec.split(","):
+        first, _, last = job.partition("-")
+        if job.startswith("ihdp:") and last:
+            jobs += [f"ihdp:{r}" for r in range(int(first[5:]),
+                                                 int(last) + 1)]
+        else:
+            jobs.append(job)
+    return jobs
+
+
+def earlier16():
+    """The records by job of earlier 16b runs, from the root's
+    QUALITY_JSON and IHDP_JSON where they exist."""
+    records = {}
+    if os.path.exists(QUALITY_JSON):
+        with open(QUALITY_JSON) as fh:
+            records.update(json.load(fh)["records"])
+    if os.path.exists(IHDP_JSON):
+        with open(IHDP_JSON) as fh:
+            study = json.load(fh)
+        runs = {r["rep"]: r for r in study["runs"]}
+        records.update({f"ihdp:{row['rep']}": dict(runs[row["rep"]], **row)
+                        for row in study["reps"]})
+    return records
+
+
+def quality_failures(records):
+    return [job for job, r in records.items()
+            if not job.startswith("ihdp:") and not r["all_pass"]]
+
+
+def ihdp_compare(rows, path):
+    """The port's synthetic study against the JAX package's record
+    ``path`` over the replications both have: coverage within 3 binomial
+    standard errors of a difference at their pooled rate, the mean paired
+    difference of satt_est within 3 standard errors of 0, and mean PEHE
+    within 10 %.  Returns (lines of each value beside its limit, whether
+    all hold)."""
+    with open(path) as fh:
+        ref = {r["rep"]: r for r in json.load(fh)["reps"]}
+    reps = sorted(set(ref) & {r["rep"] for r in rows})
+    mine = {r["rep"]: r for r in rows}
+    n = len(reps)
+    cov = [float(np.mean([d[r]["covered"] for r in reps]))
+           for d in (mine, ref)]
+    pooled = (cov[0] + cov[1]) / 2
+    se_cov = float(np.sqrt(pooled * (1 - pooled) * 2 / n))
+    diff = np.array([mine[r]["satt_est"] - ref[r]["satt_est"] for r in reps])
+    se_diff = float(diff.std(ddof=1) / np.sqrt(n))
+    pehe = [float(np.mean([d[r]["pehe"] for r in reps]))
+            for d in (mine, ref)]
+    checks = [
+        (f"coverage {cov[0]:.4f} vs the JAX study's {cov[1]:.4f}: "
+         f"|difference| {abs(cov[0] - cov[1]):.4f} <= 3 x {se_cov:.4f}",
+         abs(cov[0] - cov[1]) <= 3 * se_cov),
+        (f"mean paired satt_est difference {diff.mean():.5f} within 3 x "
+         f"{se_diff:.5f} of 0", abs(diff.mean()) <= 3 * se_diff),
+        (f"mean PEHE {pehe[0]:.4f} vs the JAX study's {pehe[1]:.4f}: "
+         f"within 10 % ({abs(pehe[0] / pehe[1] - 1):.4f})",
+         abs(pehe[0] - pehe[1]) <= 0.1 * pehe[1]),
+    ]
+    return ([f"{n} paired reps"] + [f"{t} {'PASS' if ok else 'FAIL'}"
+                                    for t, ok in checks],
+            all(ok for _, ok in checks))
+
+
+def write_quality16(records, quality_out, ihdp_out):
+    """Phase 16's records: the quality gates (and the probit record in
+    PROBIT_QUALITY_r05.json's schema) into ``quality_out``, the synthetic
+    study's rows and aggregate into ``ihdp_out``, each run with the name
+    and power limit of the card it ran on.  Returns the study's rows."""
+    from stan4bart_torch.utils import ihdp_study
+
+    gates = {job: r for job, r in records.items()
+             if not job.startswith("ihdp:")}
+    runs = sorted((r for job, r in records.items()
+                   if job.startswith("ihdp:")), key=lambda r: r["rep"])
+    rows = [{k: r[k] for k in IHDP_KEYS} for r in runs]
+    for path, obj in ((quality_out, {
+            "harness": "stan4bart_torch.utils.quality", "card": card(),
+            "records": gates,
+            "all_pass": all(r["all_pass"] for r in gates.values())}),
+            (ihdp_out, {
+                "harness": "stan4bart_torch.utils.ihdp_study --synthetic",
+                "card": card(), "n_reps": len(rows), "iters": IHDP_ITERS,
+                "reps": rows,
+                "runs": [{k: r[k] for k in ("rep", "launches", "cluster",
+                                            "job_wall_s", "card")}
+                         for r in runs],
+                "aggregate": ihdp_study.aggregate(
+                    rows, "IHDP-synthetic aggregate", len(rows))})):
+        if path is None or not obj.get("reps", obj.get("records")):
+            continue
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as fh:
+            json.dump(obj, fh, indent=1)
+        print(f"phase 16: written to {path}", flush=True)
+    return rows
+
+
+def phase_study_report(records, quality_out, ihdp_out):
+    """Phase 16b's end: the records written (``write_quality16``), the
+    study's aggregate and its paired comparison with the JAX package's
+    (``ihdp_compare``) printed; raises, after writing, when a quality
+    gate or the comparison failed."""
+    from stan4bart_torch.utils import ihdp_study
+
+    rows = write_quality16(records, quality_out, ihdp_out)
+    agg = ihdp_study.aggregate(rows, "IHDP-synthetic aggregate", len(rows))
+    walls = [r["job_wall_s"] for r in records.values() if "rep" in r]
+    lines, ok = ihdp_compare(rows, IHDP_JAX)
+    print(f"phase 16b IHDP synthetic study, {len(rows)} reps x "
+          f"{IHDP_ITERS} iterations (2 chains, single-pass kernel): "
+          + json.dumps(agg) + f"; rep walls {min(walls)}-{max(walls)} s; "
+          + "; ".join(lines) + f"; {card()}", flush=True)
+    bad = quality_failures(records)
+    if bad or not ok:
+        raise AssertionError("phase 16b: " + ", ".join(
+            bad + ([] if ok else ["IHDP comparison with the JAX study"])))
+
+
 def _fit_child(out_q, phase, args):
     """Host-bound fit phase ``phase`` ("6", "8", "12b", "13b", "14b", "15a"
     or "15b") in a process of its own (``start_fit``), with ``args`` after
@@ -3115,7 +3361,8 @@ def _fit_child(out_q, phase, args):
         fn = {"6": phase_chain, "8": phase_all_options,
               "12b": phase_deep_fit, "13b": phase_f64_fit,
               "14b": phase_heap_fit, "15a": phase_sbc,
-              "15b": phase_sbc}[phase]
+              "15b": phase_sbc, "16a": phase_quality,
+              "16b": phase_quality}[phase]
         out_q.put(("ok", fn(resolve_device("cuda"), *args)))
     except BaseException:
         out_q.put(("error", traceback.format_exc()))
@@ -3839,17 +4086,28 @@ class Beside:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15a",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15a,16a",
                     help="comma-separated phases to run (default all but "
-                    "15b); 1, 2, 4, 10a, 11a, 11b, 12a, 13a and 14a are the "
-                    "kernel phases, which the kernels line needs; 10a, 10b, "
-                    "10c, 11a to 11d, 12a, 12b, 13a, 13b, 14a, 14b, 15a "
-                    "and 15b run one part of phase 10, 11, 12, 13, 14 or 15")
+                    "15b and 16b); 1, 2, 4, 10a, 11a, 11b, 12a, 13a and 14a "
+                    "are the kernel phases, which the kernels line needs; "
+                    "10a, 10b, 10c, 11a to 11d, 12a, 12b, 13a, 13b, 14a, "
+                    "14b, 15a, 15b, 16a and 16b run one part of phase 10, "
+                    "11, 12, 13, 14, 15 or 16")
     ap.add_argument("--sbc-cells", default=",".join(SBC_15B),
                     help="phase 15b's SBC cells (<cell> or <cell>/chain)")
     ap.add_argument("--sbc-out", default="SBC_torch_h100.json",
                     help="where phase 15b writes its cells, beside those "
                     "SBC_torch_h100.json already holds")
+    ap.add_argument("--quality-out", default="QUALITY_torch_h100.json",
+                    help="where phase 16b writes its quality gates")
+    ap.add_argument("--ihdp-out", default="IHDP_synthetic_torch_h100.json",
+                    help="where phase 16b writes its synthetic IHDP study")
+    ap.add_argument("--jobs16b", default=",".join(
+        QUALITY_16B + (f"ihdp:0-{IHDP_REPS - 1}",)),
+                    help="phase 16b's jobs: quality gates and ihdp:<rep> "
+                    "or ihdp:<first>-<last>; written beside the records "
+                    "of earlier runs that the root's QUALITY_torch_h100.json "
+                    "and IHDP_synthetic_torch_h100.json hold")
     args = ap.parse_args()
     run = set(args.phases.split(","))
     if "10" in run:
@@ -3864,6 +4122,8 @@ def main():
         run |= {"14a", "14b"}
     if "15" in run:
         run |= {"15a", "15b"}
+    if "16" in run:
+        run |= {"16a", "16b"}
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3912,7 +4172,11 @@ def main():
     # phase 15a's SBC cells run in a child process each beside phases 3
     # and 5 to 9, after the kernels timed in phases 2 and 4: all are
     # host-bound
-    child15 = start_sbc("15a", list(SBC_15A)) if "15a" in run else None
+    child15 = start_groups("15a", list(SBC_15A)) if "15a" in run else None
+    # phase 16a's weighted and held-out fits run beside them too, a child
+    # process each (the weighted fit alone takes most of their window)
+    child16 = (start_groups("16a", ["weighted", "rmse"])
+               if "16a" in run else None)
     t3 = None     # phase 3's per-phase seconds, printed beside phase 8's
     fit3 = ev7 = None     # phase 3's fit and phase 7's P(y = 1), for 9
     if "3" in run:
@@ -3951,6 +4215,13 @@ def main():
     if child15 is not None:
         sbc_err = join_sbc("phase 15a", child15, True, paths)
         lap("phase 15a (joined)")
+    q16 = {}      # phase 16's records by job
+    if child16 is not None:
+        q16 = join_quality("phase 16a", child16, paths)
+        lap("phase 16a (joined)")
+        if quality_failures(q16):
+            raise AssertionError("phase 16a: quality gates failed: "
+                                 + ", ".join(quality_failures(q16)))
     p11 = None     # phase 3's fit, profiled by 11d
     if "11d" in run and fit3 is not None:
         p11 = fit3
@@ -4047,9 +4318,17 @@ def main():
         heap = phase_heap_kernels(device)
         lap("phase 14a")
     if "15b" in run:
-        join_sbc("phase 15b", start_sbc("15b", args.sbc_cells.split(",")),
-                 False, paths, out=args.sbc_out)
+        join_sbc("phase 15b",
+                 start_groups("15b", args.sbc_cells.split(",")), False,
+                 paths, out=args.sbc_out)
         lap("phase 15b")
+    if "16b" in run:
+        # 16a's records (its weighted fit at a cut budget) stay out of
+        # the written ones
+        q16 = dict(earlier16(), **join_quality("phase 16b", start_groups(
+            "16b", jobs16(args.jobs16b)), paths))
+        lap("phase 16b")
+        phase_study_report(q16, args.quality_out, args.ihdp_out)
     print("wall seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; {sum(walls.values()):.1f} in all", flush=True)

@@ -38,8 +38,9 @@ get no regrow variates and run as without the move.
 Each wrapper's ``launches`` counts its kernel's launches,
 ``regrow_launches`` those that ran the in-sweep regrow,
 ``deep_launches`` those of the deep builds, 512 or 1024 heap slots,
-``heap_launches`` those of the heap builds (state in device memory) and
-``f64_launches`` those of the double-precision builds (for the sharded
+``heap_launches`` those of the heap builds (state in device memory),
+``f64_launches`` those of the double-precision builds and
+``weighted_launches`` those given likelihood weights (for the sharded
 sweep: tree updates and regrow updates).
 
 The cluster size K of every sweep kernel is ``cluster_size``'s choice
@@ -490,10 +491,12 @@ def _cluster(name: str, C: int, T: int, consts: SweepConsts, cluster,
 
 
 def _counted(wrapper, cfg: BartConfig, consts: SweepConsts, K: int, dtype,
-             heap: bool):
+             heap: bool, weighted: bool):
     """One launch of ``wrapper``'s kernel in clusters of K, its build for
-    ``dtype`` (the heap build when ``heap``): its counts."""
+    ``dtype`` (the heap build when ``heap``), with weights when
+    ``weighted``: its counts."""
     wrapper.launches += 1
+    wrapper.weighted_launches += int(weighted)
     wrapper.regrow_launches += int(cfg.p_regrow > 0)
     wrapper.deep_launches += int(consts.node_pad > NODE_PAD and not heap)
     wrapper.heap_launches += int(heap)
@@ -513,7 +516,8 @@ def _one_launch(name: str, wrapper, cfg: BartConfig, args, weights, cluster,
     K = _cluster(name, C, T, consts, cluster, cfg.p_regrow > 0,
                  resid0.dtype, heap)
     out = _launch(name, cfg, *args, weights, K, rg, heap)
-    _counted(wrapper, cfg, consts, K, resid0.dtype, heap)
+    _counted(wrapper, cfg, consts, K, resid0.dtype, heap,
+             weights is not None)
     return out
 
 
@@ -644,6 +648,8 @@ def sweep_sharded_cuda(cfg: BartConfig, feature, cut, lidx, tfit, resid0,
             consts.node_pad > NODE_PAD and not heap)
         bart_sweep_fused_sharded.heap_launches += int(heap)
         bart_sweep_fused_sharded.f64_launches += int(real == torch.float64)
+        bart_sweep_fused_sharded.weighted_launches += int(
+            weights is not None)
         if not opens[t]:
             continue
         rblk = torch.empty((C, 2, M + 1), dtype=real, device=dev)
@@ -908,6 +914,7 @@ for _wrapper in (bart_sweep_fused_batch, bart_sweep_fused_batch_tiled,
     _wrapper.deep_launches = 0
     _wrapper.heap_launches = 0
     _wrapper.f64_launches = 0
+    _wrapper.weighted_launches = 0
 bart_sweep_ablate.launches = 0
 bart_sweep_fused_batch.last_cluster = None
 bart_sweep_fused_batch_tiled.last_cluster = None

@@ -26,7 +26,7 @@ torch.set_num_threads(2)
 
 FORMULA = "y ~ bart(X1+X2) + X4 + (1 | g.2)"
 KW = dict(chains=4, warmup=8, iter=20, seed=3, verbose=-1,
-          bart_args={"n.trees": 4})
+          bart_args={"n.trees": 4}, stan_args={"max_treedepth": 4})
 
 
 def _df():

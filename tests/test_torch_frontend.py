@@ -141,13 +141,15 @@ def test_double_bar_fit_diagonal_covariance():
     """The JAX package's tests/test_formula.py:224-246 on the port: a ``||``
     fit's covariance comes back as two independent 1x1 blocks, ``g.1`` and
     ``g.1.2``, in both extract dicts, and ev equals its parts (float64, as
-    the JAX package's tests run)."""
+    the JAX package's tests run; NUTS's treedepth capped at 4, as this
+    checks a layout and an identity, not a posterior)."""
     import stan4bart_torch
 
     fit = stan4bart_torch.stan4bart(
         "y ~ bart(X1 + X2 + X3) + X4 + (1 + X4 || g.1)", _friedman(),
         seed=3, chains=2, iter=60, warmup=30, verbose=-1,
-        bart_args={"n.trees": 10}, dtype=torch.float64, device="cpu")
+        bart_args={"n.trees": 10}, stan_args={"max_treedepth": 4},
+        dtype=torch.float64, device="cpu")
     sig = fit.extract("Sigma")
     assert set(sig.keys()) == {"g.1", "g.1.2"}
     assert sig["g.1"].shape[:2] == (1, 1)

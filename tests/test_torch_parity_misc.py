@@ -166,9 +166,9 @@ def test_gram_fit_matches_direct_fit():
     kw = dict(chains=2, warmup=15, iter=40, seed=5,
               bart_args={"n.trees": 4}, dtype=torch.float64)
     f_on = _fit("y ~ bart(X1+X2) + X4 + (1 | g.2)", df,
-                stan_args={"gram_lik": True}, **kw)
+                stan_args={"gram_lik": True, **SHALLOW}, **kw)
     f_off = _fit("y ~ bart(X1+X2) + X4 + (1 | g.2)", df,
-                 stan_args={"gram_lik": False}, **kw)
+                 stan_args={"gram_lik": False, **SHALLOW}, **kw)
     assert f_on.prog.use_gram and not f_off.prog.use_gram
     np.testing.assert_allclose(f_on.draws.stan[:, :10],
                                f_off.draws.stan[:, :10], rtol=1e-6,
@@ -183,7 +183,7 @@ def test_logical_treatment():
         "y ~ bart(. - g.1 - g.2 - X4 - z) + X4 + z + (1 + X4 | g.1) "
         "+ (1 | g.2)", df,
         chains=3, warmup=7, iter=13, seed=0, bart_args={"n.trees": 11},
-        treatment="z")
+        stan_args=SHALLOW, treatment="z")
     ft = fit.fitted(sample="test")
     assert ft.shape == (100,) and np.all(np.isfinite(ft))
     assert not np.array_equal(np.asarray(fit.test_frame.X),

@@ -157,7 +157,7 @@ def test_tiny_fit_with_regrow(step_fn):
         "y ~ bart(. - g.1 - g.2 - X4 - z) + X4 + z + (1 | g.1)", df,
         chains=2, iter=20, warmup=10, seed=3, verbose=-1, device="cpu",
         bart_args={"n.trees": 5, "regrow_per_sweep": 2, "keep_trees": True},
-        **kw)
+        stan_args={"max_treedepth": 4}, **kw)
     assert fit.prog.bart_cfg.regrow_per_sweep == 2
     assert fit.per_chain == (step_fn == "step")
     assert np.all(np.isfinite(fit.draws.stan))
