@@ -105,7 +105,10 @@ printed), then:
    with 16 chains: one with a callback (the per-chain kernel only), one
    whole against the first iterations of a longer one in chunks and against
    its own ``save`` / ``load`` + resume (to the bit), and one with
-   ``sigma_gibbs``.
+   ``sigma_gibbs``; last, the three standalone samplers (``ops.smc
+   .smc_sample``, ``ops.advi.advi``, ``ops.nuts_driver.nuts_sample``)
+   called without ``device=`` on a small gaussian target: each result on
+   the card and finite, each wall printed;
 10. runs the multi-process paths with their ranks as processes on the
    one card (``parallel.mesh.spawn``), joined by gloo over CUDA tensors
    (NCCL refuses two ranks on one card; the backend is printed): a. the
@@ -1703,6 +1706,66 @@ def phase_algorithms(device, t3, fit3, ev7, label="phase 9", n=10_000,
                 and np.all(np.isfinite(adj["draws"]))):
             raise AssertionError(f"{sub}: gates failed")
     return launches
+
+
+def phase_samplers(label="phase 9f standalone samplers"):
+    """The standalone samplers called as a user calls them, without
+    ``device=``, so on the card by default, on the scaled gaussian target
+    of tests/test_torch_smc_advi.py (float64, P = 3) with a generator on
+    the card: SMC at 2048 particles, meanfield ADVI and 150 + 150 NUTS
+    iterations (max_treedepth 6) from a ``q0`` made on the host.  Each
+    result must lie on the card and be finite; SMC must bridge to t = 1.
+    Returns the wall seconds of each."""
+    from stan4bart_torch.ops.advi import advi
+    from stan4bart_torch.ops.nuts import NutsConfig
+    from stan4bart_torch.ops.nuts_driver import nuts_sample
+    from stan4bart_torch.ops.smc import smc_sample
+
+    f64 = torch.float64
+    mean = torch.tensor([1.0, -2.0, 0.5], dtype=f64, device="cuda")
+    sd = torch.tensor([0.5, 2.0, 1.0], dtype=f64, device="cuda")
+
+    def logp(q):
+        return -0.5 * (((q - mean) / sd) ** 2).sum(-1)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    runs = {
+        "smc_sample": lambda: smc_sample(logp, 3, 2048, gen),
+        "advi": lambda: advi(logp, 3, gen, max_iters=2000),
+        "nuts_sample": lambda: nuts_sample(
+            logp, torch.zeros(3, dtype=f64), gen, 150, 150,
+            cfg=NutsConfig(max_treedepth=6)),
+    }
+    walls, out = {}, {}
+    for name, call in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = call()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    smc, (mu, omega, info), (qs, _, state) = (
+        out["smc_sample"], out["advi"], out["nuts_sample"])
+    results = {"smc particles": smc.particles,
+               "smc log_evidence": smc.log_evidence,
+               "advi mu": mu, "advi omega": omega, "nuts draws": qs,
+               "nuts metric": state.inv_mass}
+    print(f"{label}: " + ", ".join(f"{k} {v:.2f} s"
+                                   for k, v in walls.items())
+          + f" ({sum(walls.values()):.2f} s in all); {card()}; SMC "
+          f"final_temp {float(smc.final_temp)} in {smc.n_stages} stages, "
+          f"particle means {smc.particles.mean(0).tolist()}; ADVI eta "
+          f"{info['eta']}, {info['iters']} iterations, mu {mu.tolist()}; "
+          f"NUTS draw means {qs.mean(0).tolist()} (target {mean.tolist()})",
+          flush=True)
+    for k, v in results.items():
+        if not (v.is_cuda and bool(torch.isfinite(v).all())):
+            raise AssertionError(f"{label}: {k} on {v.device}, finite "
+                                 f"{bool(torch.isfinite(v).all())}")
+    if float(smc.final_temp) != 1.0:
+        raise AssertionError(f"{label}: SMC stopped at t = "
+                             f"{float(smc.final_temp)}")
+    return walls
 
 
 def phase_algorithm_options(device, label="phase 9 options", n=2000,
@@ -4211,6 +4274,8 @@ def main():
         paths["bart_sweep_batch"]["phase 9"] = phase_algorithms(
             device, t3, fit3, ev7)
         lap("phase 9")
+        phase_samplers()
+        lap("phase 9f")
     sbc_err = {}
     if child15 is not None:
         sbc_err = join_sbc("phase 15a", child15, True, paths)

@@ -25,6 +25,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from stan4bart_torch.utils.device import check_generator, resolve_device
+
 
 def _sample_q(mu, omega, z, fullrank):
     if fullrank:
@@ -123,7 +125,7 @@ def advi(
     tol_rel_obj: float = 0.01,
     eval_every: int = 50,
     dtype=torch.float64,
-    device="cpu",
+    device="cuda",
     normals=None,
 ):
     """Optimize the ELBO; returns (mu, omega, info dict).
@@ -135,7 +137,10 @@ def advi(
     ``tol_rel_obj``.  omega is the log-sds (meanfield) or L (fullrank).
     ``normals``: an optional iterator of (n_mc, P) normals, one per
     iteration in the order the iterations run, replacing the draws from
-    ``gen``."""
+    ``gen``.  Runs on the card unless ``device="cpu"``; ``gen`` must be
+    on that device."""
+    device = resolve_device(device)
+    check_generator(gen, device)
     if family not in ("meanfield", "fullrank"):
         raise ValueError("family must be 'meanfield' or 'fullrank'")
     fullrank = family == "fullrank"

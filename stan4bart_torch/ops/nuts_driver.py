@@ -19,15 +19,20 @@ from stan4bart_torch.ops.nuts import (
     nuts_init,
     nuts_transition,
 )
+from stan4bart_torch.utils.device import check_generator, resolve_device
 
 
 @torch.no_grad()
 def nuts_sample(logdensity_fn, q0, gen, num_warmup: int, num_samples: int,
                 cfg: NutsConfig = NutsConfig(), stepsize0: float = 1.0,
-                tune_stepsize: bool = True):
+                tune_stepsize: bool = True, device="cuda"):
     """-> (positions (num_samples, P), info of (num_samples,) tensors, the
-    final NutsState without its chain axis)."""
-    q0 = torch.as_tensor(q0)[None]
+    final NutsState without its chain axis).  Runs on the card unless
+    ``device="cpu"``, with ``q0`` moved there; ``gen`` must be on that
+    device."""
+    device = resolve_device(device)
+    check_generator(gen, device)
+    q0 = torch.as_tensor(q0, device=device)[None]
     sched = make_adapt_schedule(num_warmup)
     n_sched = len(sched["adapt_stepsize"])
     state = nuts_init(q0, stepsize=stepsize0)

@@ -28,6 +28,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from stan4bart_torch.ops.nuts import value_and_grad
+from stan4bart_torch.utils.device import check_generator, resolve_device
 
 
 class SmcResult(NamedTuple):
@@ -90,8 +91,12 @@ def smc_sample(
     n_leapfrog: int = 10,
     bisect_iters: int = 26,
     dtype=torch.float64,
-    device="cpu",
+    device="cuda",
 ) -> SmcResult:
+    """Runs on the card unless ``device="cpu"``; ``gen`` must be on that
+    device."""
+    device = resolve_device(device)
+    check_generator(gen, device)
     P, n = num_params, int(n_particles)
     u = torch.randn((n, P), generator=gen, dtype=dtype, device=device)
     target = target_ess_frac * n

@@ -22,6 +22,22 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def check_generator(gen, dev: torch.device) -> None:
+    """Raise unless ``gen`` (``None``: no generator) draws on ``dev``; a
+    sampler never quietly draws on another device than the one asked
+    for."""
+    if gen is None:
+        return
+    g = gen.device
+    if g.type != dev.type or (dev.index is not None
+                              and g.index is not None
+                              and g.index != dev.index):
+        raise RuntimeError(
+            f"the generator is on {g}, the sampler on {dev}; make the "
+            f"generator with torch.Generator(device={str(dev)!r})"
+        )
+
+
 def card() -> str:
     """The first card's name and power limit, as ``nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader`` prints them."""

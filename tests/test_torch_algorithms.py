@@ -1,6 +1,6 @@
 """The port's ``algorithm`` surface and SMC adjudication through
 ``stan4bart``, mirroring tests/test_algorithms.py and
-tests/test_vi_gibbs.py on tiny fits (120 rows, 2 chains, 60 iterations,
+tests/test_vi_gibbs.py on tiny fits (120 rows, 2 chains, 20 iterations,
 10 trees, on the CPU).
 
 ``algorithm="vi"`` warns that its sigma is biased high and runs
@@ -28,7 +28,8 @@ torch.set_num_threads(2)
 
 FORMULA = ("y ~ bart(. - g.1 - g.2 - X4 - z) + X4 + z + (1 + X4 | g.1) "
            "+ (1 | g.2)")
-KW = dict(treatment="z", chains=2, warmup=30, iter=60, seed=11,
+ITER = 20
+KW = dict(treatment="z", chains=2, warmup=10, iter=ITER, seed=11,
           verbose=-1, bart_args={"n.trees": 10}, device="cpu")
 FIELDS = ("stan", "bart_train", "bart_test", "varcount", "k")
 
@@ -71,7 +72,8 @@ def test_vi_warns_and_runs_rmsprop(vi_fit):
     for name in FIELDS:
         assert np.all(np.isfinite(getattr(vi_fit.draws, name))), name
     vi = vi_fit.final_states.vi
-    assert torch.equal(vi.count, torch.full((2,), 60.0 * prog.vi_steps))
+    assert torch.equal(vi.count,
+                       torch.full((2,), float(ITER * prog.vi_steps)))
     assert vi.L_off.shape == (2, 0, 0)
 
 
@@ -123,11 +125,11 @@ def test_vi_draw_layout_equals_nuts(df, vi_fit):
 
 
 def test_vi_chunked_and_resumed_equal_uninterrupted(df, vi_fit, tmp_path):
-    """A 70-iteration fit in chunks of 7 against the 60-iteration fit run
-    whole (its first 60 iterations) and against that fit saved, loaded and
-    resumed for 10 iterations."""
-    longer = _fit(df, algorithm="vi", iter=70, chunk_size=7)
-    _assert_draws_equal(vi_fit, longer, iters=60)
+    """A fit 10 iterations longer, in chunks of 7, against the fit run
+    whole (its first ITER iterations) and against that fit saved, loaded
+    and resumed for 10 iterations."""
+    longer = _fit(df, algorithm="vi", iter=ITER + 10, chunk_size=7)
+    _assert_draws_equal(vi_fit, longer, iters=ITER)
     path = tmp_path / "vi.pkl"
     vi_fit.save(str(path))
     back = s4b.Stan4bartFit.load(str(path), device="cpu")

@@ -15,6 +15,7 @@ chains, 30 iterations (15 warmup), 5 trees, treedepth capped at 4, on
 the CPU."""
 
 import pickle
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 
 import numpy as np
@@ -45,13 +46,27 @@ def df():
 
 
 @pytest.fixture(scope="module")
-def fit(df):
+def pool():
+    """One thread in which the JAX package's fit compiles and runs beside
+    the port's work."""
+    with ThreadPoolExecutor(1) as ex:
+        yield ex
+
+
+@pytest.fixture(scope="module")
+def ref_started(pool, df):
+    return pool.submit(stan4bart_tpu.stan4bart, FORMULA, df, **KW)
+
+
+@pytest.fixture(scope="module")
+def fit(df, ref_started):
+    """The port's fit; the reference's, started first, runs meanwhile."""
     return stan4bart_torch.stan4bart(FORMULA, df, device="cpu", **KW)
 
 
 @pytest.fixture(scope="module")
-def ref_fit(df):
-    return stan4bart_tpu.stan4bart(FORMULA, df, **KW)
+def ref_fit(ref_started):
+    return ref_started.result()
 
 
 def _assert_draws_equal(a, b):

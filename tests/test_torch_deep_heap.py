@@ -204,8 +204,8 @@ def test_heap_depth_predict_trees_matches_reference():
     lv = torch.where(state.feature == tb.LEAF, lv, 0.0)
     ranks_new = np.random.default_rng(4).integers(0, cfg.n_cuts + 1,
                                                   size=(60, P))
-    ref = jax.vmap(lambda f, c, v: jb.predict_trees(
-        jcfg, f, c, v, jnp.asarray(ranks_new)))(
+    ref = jax.jit(jax.vmap(lambda f, c, v: jb.predict_trees(
+        jcfg, f, c, v, jnp.asarray(ranks_new))))(
             jnp.asarray(state.feature.numpy()), jnp.asarray(state.cut.numpy()),
             jnp.asarray(lv.numpy()))
     got = tb.predict_trees(cfg, state.feature, state.cut, lv,
@@ -252,7 +252,7 @@ def deep_fit():
     d = generate_friedman_data(120, ranef=True, causal=True)
     df = friedman_dataframe(d)
     fit = stan4bart_torch.stan4bart(
-        FLAGSHIP, df, treatment="z", chains=2, iter=12, warmup=6, seed=4,
+        FLAGSHIP, df, treatment="z", chains=2, iter=6, warmup=3, seed=4,
         verbose=-1, device="cpu", dtype=torch.float64,
         stan_args={"max_treedepth": 4},
         bart_args={"n.trees": 6, "max_depth": 12, "keep_trees": True,
@@ -263,7 +263,7 @@ def deep_fit():
 def test_heap_depth_fit_stores_predicts_and_round_trips(deep_fit, tmp_path):
     df, fit = deep_fit
     assert fit.prog.sweep_consts.node_pad == 8192
-    assert fit.draws.tree_feature.shape == (2, 12, 6, 8191)
+    assert fit.draws.tree_feature.shape == (2, 6, 6, 8191)
     for name in ("stan", "bart_train", "bart_test", "k"):
         assert np.all(np.isfinite(getattr(fit.draws, name))), name
     # predict over the stored post-warmup forests against the JAX walk
@@ -275,9 +275,9 @@ def test_heap_depth_fit_stores_predicts_and_round_trips(deep_fit, tmp_path):
     f, c, v = (np.asarray(a)[:, fit.warmup:].reshape((-1, 6, 8191))
                for a in (fit.draws.tree_feature, fit.draws.tree_cut,
                          fit.draws.tree_leaf_value))
-    ref = jax.vmap(lambda ff, cc, vv: jb.predict_trees(
-        jcfg, ff, cc, vv, ranks_new))(jnp.asarray(f), jnp.asarray(c),
-                                      jnp.asarray(v))
+    ref = jax.jit(jax.vmap(lambda ff, cc, vv: jb.predict_trees(
+        jcfg, ff, cc, vv, ranks_new)))(jnp.asarray(f), jnp.asarray(c),
+                                       jnp.asarray(v))
     got = fit._predict_bart(tf.bart_X)
     np.testing.assert_allclose(got.reshape(ref.shape), np.asarray(ref),
                                **TOL)

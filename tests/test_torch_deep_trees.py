@@ -112,8 +112,8 @@ def test_deep_sweep_matches_reference(weighted):
     assert torch.equal(node, port.leaf_idx.long())
     ranks_new = np.random.default_rng(8).integers(0, cfg.n_cuts + 1,
                                                   size=(40, P))
-    ref_pred = jax.vmap(lambda f, c, v: jb.predict_trees(
-        jcfg, f, c, v, jnp.asarray(ranks_new)))(
+    ref_pred = jax.jit(jax.vmap(lambda f, c, v: jb.predict_trees(
+        jcfg, f, c, v, jnp.asarray(ranks_new))))(
             jnp.asarray(port.feature.numpy()), jnp.asarray(port.cut.numpy()),
             jnp.asarray(port.leaf_value.numpy()))
     np.testing.assert_allclose(

@@ -11,9 +11,10 @@ over the same design (log_lik is a function of the draws, the design and
 the family) to 1e-9 relative in float64.  Then the tests of
 tests/test_loo.py:90-170 on the port's own fits.
 
-One fit per package per module: n = 120, 2 chains, 60 iterations (30
+One fit per package per module: n = 120, 2 chains, 30 iterations (15
 warmup), 10 trees, treedepth capped at 4, on the CPU."""
 
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 
 import numpy as np
@@ -40,7 +41,7 @@ torch.set_num_threads(2)
 
 FORMULA = "y ~ bart(X1 + X2 + X3 + X5) + X4 + (1 | g.2)"
 N = 120
-KW = dict(chains=2, iter=60, warmup=30, seed=11, verbose=-1,
+KW = dict(chains=2, iter=30, warmup=15, seed=11, verbose=-1,
           bart_args={"n.trees": 10}, stan_args={"max_treedepth": 4})
 EXACT = dict(rtol=1e-12, atol=1e-12)
 F64 = dict(rtol=1e-9, atol=1e-12)
@@ -56,13 +57,27 @@ def data():
 
 
 @pytest.fixture(scope="module")
-def ref_fit(data):
-    d, df, w, yb = data
-    return stan4bart_tpu.stan4bart(FORMULA, df, **KW)
+def pool():
+    """One thread in which the JAX package's fit compiles and runs beside
+    the port's work."""
+    with ThreadPoolExecutor(1) as ex:
+        yield ex
 
 
 @pytest.fixture(scope="module")
-def port_fit(data):
+def ref_started(pool, data):
+    d, df, w, yb = data
+    return pool.submit(stan4bart_tpu.stan4bart, FORMULA, df, **KW)
+
+
+@pytest.fixture(scope="module")
+def ref_fit(ref_started):
+    return ref_started.result()
+
+
+@pytest.fixture(scope="module")
+def port_fit(data, ref_started):
+    """The port's fit; the reference's, started first, runs meanwhile."""
     d, df, w, yb = data
     return stan4bart_torch.stan4bart(FORMULA, df, device="cpu",
                                      dtype=torch.float64, **KW)
@@ -188,7 +203,8 @@ def test_loo_waic_on_fit(port_fit):
     for k in ("elpd_loo", "p_loo", "looic"):
         assert np.isfinite(res[k]), k
     assert np.isfinite(w["waic"])
-    assert res["n_obs"] == N and res["n_draws"] == 60
+    assert res["n_obs"] == N and res["n_draws"] == 2 * (
+        KW["iter"] - KW["warmup"])
 
 
 def test_log_lik_weighted_and_probit_fits(data):
@@ -196,7 +212,7 @@ def test_log_lik_weighted_and_probit_fits(data):
     / w_i, and Bernoulli(ev), each within 1e-10 relative of the density
     rebuilt from extract (tests/test_loo.py:142)."""
     d, df, w, yb = data
-    small = dict(KW, iter=20, warmup=10, bart_args={"n.trees": 5})
+    small = dict(KW, iter=12, warmup=6, bart_args={"n.trees": 5})
     fit = stan4bart_torch.stan4bart(FORMULA, df, weights=w, device="cpu",
                                     dtype=torch.float64, **small)
     ll = fit.log_lik()

@@ -2,8 +2,9 @@
 parallel/mesh.py), as tests/test_multihost.py holds the JAX package's.
 
 Two gloo ranks on the CPU (``mesh.spawn``) fit the JAX worker's tiny
-model (n = 60, 4 trees, 4 chains, 15 warmup of 40 iterations) inside one
-world.  The port has one generator per chain group, seeded by
+model (n = 60, 4 trees, 4 chains; 8 warmup of 16 iterations, the
+contracts being identities) inside one world.  The port has one
+generator per chain group, seeded by
 ``multihost.rank_seed``, so the contract is: both ranks hold the same
 gathered draws, and rank r's block of chains is, to the bit, the
 single-process fit of its 2 chains with its seed (both run on one CPU
@@ -24,7 +25,7 @@ from stan4bart_torch.parallel import _mh_worker as worker
 from stan4bart_torch.parallel import mesh, multihost
 from stan4bart_torch.parallel.diagnostics import ess, split_rhat
 
-KW = dict(chains=4, warmup=15, iter=40, seed=42, verbose=-1,
+KW = dict(chains=4, warmup=8, iter=16, seed=42, verbose=-1,
           bart_args={"n.trees": 4})
 # a warmup of 20 has one metric window, ending at iteration 17
 POOLED = dict(KW, iter=30, warmup=20,
@@ -40,7 +41,8 @@ def _welford(seed=0, C=4, D=5):
 @pytest.fixture(scope="module")
 def world():
     count, mean, m2 = _welford()
-    cases = [("fit_case", dict(key="chain", diagnostics=True)),
+    cases = [("fit_case", dict(key="chain", diagnostics=True,
+                               warmup=KW["warmup"], iter=KW["iter"])),
              ("fit_case", dict(POOLED, key="pooled")),
              ("pooled_metric_case", dict(key="metric", count=count,
                                          mean=mean, m2=m2)),
@@ -71,7 +73,7 @@ def test_both_ranks_hold_the_same_gathered_draws(world):
     for name in a["draws"]:
         np.testing.assert_array_equal(a["draws"][name], b["draws"][name],
                                       err_msg=name)
-    assert a["draws"]["stan"].shape[:2] == (4, 40)
+    assert a["draws"]["stan"].shape[:2] == (4, KW["iter"])
     assert np.all(np.isfinite(a["draws"]["stan"]))
 
 

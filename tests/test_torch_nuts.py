@@ -31,7 +31,7 @@ torch.set_num_threads(2)
 FLAGSHIP = ("y ~ bart(. - g.1 - g.2 - X4 - z) + X4 + z + (1 + X4 | g.1) "
             "+ (1 | g.2)")
 C = 4
-MAX_DEPTH = 6
+MAX_DEPTH = 4
 TOL = dict(rtol=1e-9, atol=1e-9)
 
 
@@ -80,9 +80,9 @@ def test_transition_matches_on_replayed_draws(problem, flags):
 
     states = jax.vmap(init)(jnp.asarray(U))
     keys = jax.random.split(jax.random.PRNGKey(100), C)
-    ref_state, ref_info = jax.tree_util.tree_map(np.asarray, jax.vmap(
-        lambda st, k, a: jn.nuts_transition(
-            lambda u: ref_lpg(u, a), st, k, cfg, *flags))(
+    ref_state, ref_info = jax.tree_util.tree_map(np.asarray, jax.jit(
+        jax.vmap(lambda st, k, a: jn.nuts_transition(
+            lambda u: ref_lpg(u, a), st, k, cfg, *flags)))(
                 states, keys, ref_anchor))
 
     def replay(key):
@@ -121,8 +121,8 @@ def test_transition_matches_on_replayed_draws(problem, flags):
 def test_init_stepsize_matches(problem):
     U, inv, ref_lpg, ref_anchor, port_logp = problem
     keys = jax.random.split(jax.random.PRNGKey(7), C)
-    ref = jax.vmap(lambda u, k, a: jn.init_stepsize(
-        lambda x: ref_lpg(x, a), u, jnp.asarray(inv), 1.0, k))(
+    ref = jax.jit(jax.vmap(lambda u, k, a: jn.init_stepsize(
+        lambda x: ref_lpg(x, a), u, jnp.asarray(inv), 1.0, k)))(
             jnp.asarray(U), keys, ref_anchor)
     mom = jax.vmap(lambda k: jax.random.normal(k, (len(inv),),
                                                jnp.float64))(keys)

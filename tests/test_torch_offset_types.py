@@ -6,7 +6,7 @@ both packages on the same float64 model, user offset, parameter vectors
 and BART fits: equal to 1e-12 (the same sums). The linear / level
 interweave flags equal the reference's for every type, with its warning
 on an explicit ``level_gibbs=True``. Then one small fit of the port per
-type (n = 120, 2 chains, 30 iterations, 10 trees, treedepth capped at
+type (n = 120, 2 chains, 10 iterations, 10 trees, treedepth capped at
 4, on the CPU): finite draws, the level interweave off (asked off for
 the default type), and the last iteration's offsets replaced as the
 type says
@@ -136,7 +136,7 @@ def fits(data):
                                 ("default", np.full(N, 3.0))):
         out[offset_type] = (offset, stan4bart_torch.stan4bart(
             FORMULA, df, offset=offset, offset_type=offset_type, chains=2,
-            warmup=15, iter=30, seed=13, verbose=-1, device="cpu",
+            warmup=5, iter=10, seed=13, verbose=-1, device="cpu",
             dtype=torch.float64, bart_args={"n.trees": 10},
             # the interweave moves b after the offset is formed; off for
             # the default type too, so the last draw row is the offset's;

@@ -5,8 +5,10 @@ no-ranef model, split probabilities, factor levels, weights, ``subset``,
 the direct one, a logical treatment).
 
 Each property is asserted of the port's own fit, at the reference's
-sizes, tolerances and seeds; an identity the reference holds at 1e-10
-runs in float64, as the reference's tests do.  The model frames that
+tolerances and seeds; the statistical ones (the no-ranef model's R^2,
+the weights' noise ratio) at the reference's sizes, the identities and
+the wiring checks in fewer iterations.  An identity the reference holds
+at 1e-10 runs in float64, as the reference's tests do.  The model frames that
 ``weights``, ``offset`` and ``subset`` build are held to the JAX
 package's ``build_model_frame`` on the same input.  Fits that check
 wiring, not a posterior, cap the NUTS treedepth at 4."""
@@ -38,7 +40,7 @@ def _fit(formula, df, **kw):
 
 def test_rng_reproducibility():
     df = _small_df()
-    kw = dict(chains=2, warmup=20, iter=50, bart_args={"n.trees": 5},
+    kw = dict(chains=2, warmup=6, iter=12, bart_args={"n.trees": 5},
               stan_args=SHALLOW)
     f1 = _fit("y ~ bart(X1 + X2) + X4", df, seed=123, **kw)
     f2 = _fit("y ~ bart(X1 + X2) + X4", df, seed=123, **kw)
@@ -67,7 +69,7 @@ def test_bart_args_reach_sampler():
     df = _small_df()
     sp = np.zeros(2)
     sp[0] = 1.0  # every split on X1
-    fit = _fit("y ~ bart(X1 + X2) + X4", df, chains=1, warmup=30, iter=80,
+    fit = _fit("y ~ bart(X1 + X2) + X4", df, chains=1, warmup=10, iter=25,
                seed=2, stan_args=SHALLOW,
                bart_args={"n.trees": 7, "power": 3.0, "base": 0.8,
                           "split.probs": sp})
@@ -88,7 +90,7 @@ def test_factor_levels():
         "f": np.array(["a", "b", "c", "d"])[rng.integers(0, 3, n)],
         "g": np.array(["u", "v", "w"])[rng.integers(0, 3, n)],
     }
-    kw = dict(chains=1, warmup=15, iter=40, seed=1,
+    kw = dict(chains=1, warmup=5, iter=10, seed=1,
               bart_args={"n.trees": 4}, stan_args=SHALLOW)
     fit = _fit("y ~ bart(x1 + f) + (1 | g)", df, **kw)
     assert np.all(np.isfinite(fit.extract("ev")))
@@ -135,7 +137,7 @@ def test_weights_offset_subset_frames_match_reference():
 
 def test_subset_offset_test_accessors():
     df = _small_df(120)
-    kw = dict(chains=1, warmup=15, iter=40, seed=2,
+    kw = dict(chains=1, warmup=5, iter=10, seed=2,
               bart_args={"n.trees": 4}, stan_args=SHALLOW)
     fit = _fit("y ~ bart(X1 + X2) + X4", df, subset=np.arange(100), **kw)
     assert fit.mf.N == 100
@@ -163,7 +165,7 @@ def test_gram_fit_matches_direct_fit():
     """The Gram-compressed likelihood reproduces the direct one (an exact
     reformulation; float64 round-off over the first 10 draws)."""
     df = friedman_dataframe(generate_friedman_data(90, ranef=True))
-    kw = dict(chains=2, warmup=15, iter=40, seed=5,
+    kw = dict(chains=2, warmup=6, iter=12, seed=5,
               bart_args={"n.trees": 4}, dtype=torch.float64)
     f_on = _fit("y ~ bart(X1+X2) + X4 + (1 | g.2)", df,
                 stan_args={"gram_lik": True, **SHALLOW}, **kw)

@@ -11,11 +11,14 @@ have the same draw layout and, the stepsize path being deterministic, the
 same ``stan`` rows but lp__ (float64; lp__ depends on the latents).  The
 gaussian pure-BART model keeps aux (D = 1) and mirrors
 tests/test_misc_parity.py:52-60.  One JAX fit per family, n = 100, 2
-chains, 20 / 40 iterations, 10 trees.
+chains, 20 / 40 iterations, 10 trees, each in a thread of its own beside
+the port's fits.
 
 ``stan4bart(dtype=)`` takes float32 and float64 as torch dtypes, names or
 numpy dtypes, as the JAX package does, and names what it takes when given
 anything else."""
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -40,16 +43,20 @@ LAYOUT = ("stan", "ev", "indiv.bart", "indiv.fixef", "indiv.ranef", "ppd",
 
 @pytest.fixture(scope="module")
 def fits():
-    out = {}
-    for family in FAMILIES:
-        d = generate_friedman_data(100, ranef=True,
-                                   binary=family == "binomial")
-        df = friedman_dataframe(d)
-        ref = stan4bart_tpu.stan4bart(FORMULA, df, **KW)
-        port = stan4bart_torch.stan4bart(FORMULA, df, device="cpu",
-                                         dtype=torch.float64, **KW)
-        out[family] = (df, ref, port)
-    return out
+    """Each family's data and both packages' fits; the reference's fits
+    compile and run in threads of their own beside the port's."""
+    dfs = {family: friedman_dataframe(generate_friedman_data(
+        100, ranef=True, binary=family == "binomial"))
+        for family in FAMILIES}
+    with ThreadPoolExecutor(len(FAMILIES)) as pool:
+        refs = {family: pool.submit(stan4bart_tpu.stan4bart, FORMULA,
+                                    dfs[family], **KW)
+                for family in FAMILIES}
+        ports = {family: stan4bart_torch.stan4bart(
+            FORMULA, dfs[family], device="cpu", dtype=torch.float64, **KW)
+            for family in FAMILIES}
+        return {family: (dfs[family], refs[family].result(), ports[family])
+                for family in FAMILIES}
 
 
 @pytest.mark.parametrize("family", FAMILIES)

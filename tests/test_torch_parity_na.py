@@ -59,8 +59,8 @@ def test_na_frames_match_reference(na_action):
 
 
 def test_na_exclude_reinserts():
-    fit = _fit("y ~ bart(X1+X2) + X4", _na_df(), chains=1, warmup=15,
-               iter=40, seed=0, na_action="exclude",
+    fit = _fit("y ~ bart(X1+X2) + X4", _na_df(), chains=1, warmup=5,
+               iter=10, seed=0, na_action="exclude",
                bart_args={"n.trees": 4}, stan_args=SHALLOW)
     assert fit.mf.N == 87
     ev = fit.extract("ev")
@@ -74,7 +74,7 @@ def test_na_omit_drops():
     df = friedman_dataframe(generate_friedman_data(90))
     df["X1"] = df["X1"].copy()
     df["X1"][[3, 17]] = np.nan
-    fit = _fit("y ~ bart(X1+X2) + X4", df, chains=1, warmup=15, iter=40,
+    fit = _fit("y ~ bart(X1+X2) + X4", df, chains=1, warmup=5, iter=10,
                seed=0, na_action="omit", bart_args={"n.trees": 4},
                stan_args=SHALLOW)
     assert fit.mf.N == 88
@@ -83,7 +83,7 @@ def test_na_omit_drops():
 
 def test_new_level_draws_shared_within_level():
     df = friedman_dataframe(generate_friedman_data(80, ranef=True))
-    fit = _fit(RANEF, df, chains=1, warmup=15, iter=40, seed=0,
+    fit = _fit(RANEF, df, chains=1, warmup=5, iter=10, seed=0,
                bart_args={"n.trees": 4}, stan_args=SHALLOW)
     new = {c: np.asarray(df[c])[:6].copy() for c in df}
     new["g.2"] = np.array(["newA", "newA", "newA", "newB", "newB", "newB"],
@@ -97,7 +97,7 @@ def test_new_level_draws_shared_within_level():
 
 def test_continue_sampling_chunked_equals_single_execution():
     df = friedman_dataframe(generate_friedman_data(80, ranef=True))
-    fit = _fit(RANEF, df, chains=2, warmup=15, iter=30, seed=4,
+    fit = _fit(RANEF, df, chains=2, warmup=5, iter=10, seed=4,
                bart_args={"n.trees": 5}, stan_args=SHALLOW)
     whole = fit.continue_sampling(12)
     chunked = fit.continue_sampling(12, chunk_size=5)
@@ -105,7 +105,7 @@ def test_continue_sampling_chunked_equals_single_execution():
     np.testing.assert_array_equal(whole.draws.bart_train,
                                   chunked.draws.bart_train)
     # a float32 fit named as a string resumes on the chain-blocked driver
-    fit32 = _fit(RANEF, df, chains=2, warmup=10, iter=20, seed=4,
+    fit32 = _fit(RANEF, df, chains=2, warmup=4, iter=8, seed=4,
                  dtype="float32", stan_args=SHALLOW,
                  bart_args={"n.trees": 5, "sweep_kernel": True})
     assert fit32.prog.dtype == torch.float32
@@ -117,17 +117,17 @@ def test_continue_sampling_chunked_equals_single_execution():
 @pytest.mark.parametrize("skip,want", [
     ({"bart": 2, "stan": 3}, (2, 3)), ((2, 2), (2, 2)), (3, (3, 3))])
 def test_skip_thinning(skip, want):
-    fit = _fit(RANEF, _df(), chains=1, warmup=10, iter=30, seed=3,
+    fit = _fit(RANEF, _df(), chains=1, warmup=6, iter=12, seed=3,
                skip=skip, bart_args={"n.trees": 4}, stan_args=SHALLOW)
     assert (fit.prog.skip_bart, fit.prog.skip_stan) == want
     # one stored draw per iteration whatever the thinning
-    assert fit.draws.stan.shape[1] == 30
+    assert fit.draws.stan.shape[1] == 12
     assert np.all(np.isfinite(fit.extract("ev")))
 
 
 def test_cores_fused_sweep_dispatch():
     df = _df()
-    kw = dict(chains=4, warmup=12, iter=30, seed=11, stan_args=SHALLOW,
+    kw = dict(chains=4, warmup=6, iter=12, seed=11, stan_args=SHALLOW,
               bart_args={"n.trees": 4, "sweep_kernel": True},
               dtype="float32")
     f_cores = _fit(RANEF, df, cores=4, **kw)
@@ -141,7 +141,7 @@ def test_cores_fused_sweep_dispatch():
 
 
 def test_cores_keep_fits_false_dispatch():
-    fit = _fit(RANEF, _df(), chains=4, cores=4, warmup=8, iter=20, seed=3,
+    fit = _fit(RANEF, _df(), chains=4, cores=4, warmup=4, iter=8, seed=3,
                keep_fits=False, dtype="float32", stan_args=SHALLOW,
                bart_args={"n.trees": 4, "sweep_kernel": True})
     assert fit.draws is None  # the reference stores nothing

@@ -14,10 +14,11 @@ chain and chain-batched drivers store the same forests to the bit, every
 spelling of the option is accepted, a fit without it refuses to predict,
 and Z b (which ev and predict add) is the same from the dense design and
 from the per-row gather, new levels included. One fit per package: n =
-120, 2 chains, 60 iterations (30 warmup), 10 trees, treedepth capped at
+120, 2 chains, 20 iterations (10 warmup), 10 trees, treedepth capped at
 4, on the CPU; a
 ``cuda``-marked test holds ``predict`` on the card against the CPU."""
 
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 
 import numpy as np
@@ -40,7 +41,10 @@ torch.set_num_threads(2)
 
 FORMULA = "y ~ bart(X1 + X2 + X3 + X5) + X4 + z + (1 | g.2)"
 N = 120
-KW = dict(treatment="z", chains=2, iter=60, warmup=30, seed=3, verbose=-1,
+ITER, WARMUP = 20, 10
+KEPT = ITER - WARMUP
+KW = dict(treatment="z", chains=2, iter=ITER, warmup=WARMUP, seed=3,
+          verbose=-1,
           bart_args={"n.trees": 10, "keep_trees": True},
           stan_args={"max_treedepth": 4})
 
@@ -52,12 +56,26 @@ def df():
 
 
 @pytest.fixture(scope="module")
-def ref_fit(df):
-    return stan4bart_tpu.stan4bart(FORMULA, df, **KW)
+def pool():
+    """One thread in which the JAX package's fit compiles and runs beside
+    the port's work."""
+    with ThreadPoolExecutor(1) as ex:
+        yield ex
 
 
 @pytest.fixture(scope="module")
-def port_fit(df):
+def ref_started(pool, df):
+    return pool.submit(stan4bart_tpu.stan4bart, FORMULA, df, **KW)
+
+
+@pytest.fixture(scope="module")
+def ref_fit(ref_started):
+    return ref_started.result()
+
+
+@pytest.fixture(scope="module")
+def port_fit(df, ref_started):
+    """The port's fit; the reference's, started first, runs meanwhile."""
     return stan4bart_torch.stan4bart(FORMULA, df, device="cpu",
                                      dtype=torch.float64, **KW)
 
@@ -80,9 +98,9 @@ def test_stored_forest_shapes(port_fit):
     """(chains, iterations, trees, max_nodes) int32 structure and float
     leaves, one per stored iteration, warmup included."""
     d = port_fit.draws
-    assert d.tree_feature.shape == (2, 60, 10, 127)
+    assert d.tree_feature.shape == (2, ITER, 10, 127)
     assert d.tree_feature.dtype == d.tree_cut.dtype == np.int32
-    assert d.tree_leaf_value.shape == (2, 60, 10, 127)
+    assert d.tree_leaf_value.shape == (2, ITER, 10, 127)
     assert np.all(np.isfinite(d.tree_leaf_value))
 
 
@@ -115,12 +133,12 @@ def test_predict_components(port_fit, df):
 def test_predict_new_rows_offset_and_ppd(port_fit, df):
     new = {k: np.asarray(v)[:30] for k, v in df.items()}
     ev = port_fit.predict(new, type="ev")
-    assert ev.shape == (30, 60) and np.all(np.isfinite(ev))
+    assert ev.shape == (30, 2 * KEPT) and np.all(np.isfinite(ev))
     np.testing.assert_allclose(
         port_fit.predict(new, type="ev", offset=np.full(30, 2.0)), ev + 2.0,
         atol=1e-10)
     ppd = port_fit.predict(new, type="ppd", combine_chains=False)
-    assert ppd.shape == (30, 30, 2) and np.all(np.isfinite(ppd))
+    assert ppd.shape == (30, KEPT, 2) and np.all(np.isfinite(ppd))
 
 
 @pytest.mark.parametrize("type_", ["indiv.bart", "ev"])
@@ -165,14 +183,14 @@ def test_trees_export(port_fit):
     tr = port_fit.trees()
     assert set(tr) == {"chain", "sample", "tree", "n", "var", "value"}
     assert tr["tree"].max() == 9
-    assert len(np.unique(tr["sample"])) == port_fit.iterations - 30
+    assert len(np.unique(tr["sample"])) == port_fit.iterations - WARMUP
     assert (tr["var"] == -1).sum() > 0
     first_rows = np.flatnonzero(
         np.r_[True, (np.diff(tr["tree"]) != 0)
               | (np.diff(tr["sample"]) != 0) | (np.diff(tr["chain"]) != 0)])
     assert np.all(tr["n"][first_rows] == N)
     leaves = tr["var"] == -1
-    assert tr["n"][leaves].sum() == N * 10 * 30 * 2
+    assert tr["n"][leaves].sum() == N * 10 * KEPT * 2
 
 
 @pytest.mark.parametrize("dense", [True, False])

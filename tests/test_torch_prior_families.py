@@ -76,7 +76,8 @@ def _hold(rpm, ppm, rmf, off, seed=1):
     np.testing.assert_allclose(np.asarray(ref_lp), lp.detach().numpy(),
                                **TOL)
     np.testing.assert_allclose(np.asarray(ref_g), g.numpy(), **TOL)
-    ref_draw = np.asarray(jax.vmap(rpm.constrained_draw)(jnp.asarray(U)))
+    ref_draw = np.asarray(jax.jit(jax.vmap(rpm.constrained_draw))(
+        jnp.asarray(U)))
     np.testing.assert_allclose(
         ref_draw, ppm.constrained_draw(torch.as_tensor(U)).numpy(), **TOL)
     np.testing.assert_allclose(np.asarray(rpm.initial_inv_mass(1.7, 120)),

@@ -10,7 +10,7 @@ JAX package, on the CPU.
   float64, for the gaussian, weighted and probit cells.
 - ``chi2_pvalue`` equals a direct numpy / scipy computation and the JAX
   harness's, on even and uneven bins.
-- A tiny ``run_cell`` (8 reps, warmup 10, 45 iterations thinned by 5,
+- A tiny ``run_cell`` (8 reps, warmup 5, 18 iterations thinned by 2,
   so L = 9) returns the JAX harness's record with ranks in [0, L].
 - ``slow``: tests/test_sbc.py:28-41's in-suite gate through the port, 64
   reps of ``continuous`` and ``leaf_block``, every p above 1e-4."""
@@ -163,10 +163,11 @@ def test_chi2_pvalue_matches_direct_computation(ref, L_):
 
 def test_tiny_run_cell_schema():
     out = sbc.run_cell("continuous", sbc.CELLS["continuous"], 8, seed=1,
-                       device="cpu", warmup=10, iters=45, verbose=False)
+                       device="cpu", warmup=5, iters=18, thin=2,
+                       verbose=False)
     assert set(out) == {"cell", "reps", "L", "quantities", "min_p", "pass",
                         "wall_s", "timings", "nuts"}
-    assert out["nuts"]["leapfrogs_lockstep"] >= 45
+    assert out["nuts"]["leapfrogs_lockstep"] >= 18
     assert 0.0 <= out["nuts"]["divergent"] <= 1.0
     assert out["cell"] == "continuous" and out["reps"] == 8
     assert out["L"] == 9

@@ -26,15 +26,15 @@ C = 4
 
 def _program(cell, y, **kw):
     """``sbc.build_cell``'s program for ``cell`` on the CPU, rebuilt with
-    response ``y`` and ``kw`` (warmup 6, 6 iterations, NUTS trees of
-    depth at most 5 to keep the identities cheap)."""
+    response ``y`` and ``kw`` (warmup 4, 4 iterations, NUTS trees of
+    depth at most 4 to keep the identities cheap)."""
     mf, pm, prog, cfg = sbc.build_cell(sbc.CELLS[cell], seed=0,
-                                       device="cpu", warmup=6, iters=6)
-    args = dict(weights=prog.weights, warmup=6, iterations=6,
+                                       device="cpu", warmup=4, iters=4)
+    args = dict(weights=prog.weights, warmup=4, iterations=4,
                 dtype=torch.float64, device="cpu",
                 linear_gibbs=prog.linear_gibbs, level_gibbs=prog.level_gibbs,
                 leaf_block=prog.leaf_block,
-                nuts_cfg=NutsConfig(max_treedepth=5))
+                nuts_cfg=NutsConfig(max_treedepth=4))
     args.update(kw)
     return pm, GibbsProgram(pm, cfg, y, mf.bart_X, **args)
 
@@ -117,7 +117,8 @@ def test_per_chain_y_must_match_the_chains():
 
 def test_tiny_probit_run_cell():
     out = sbc.run_cell("probit", sbc.CELLS["probit"], 8, seed=1,
-                       device="cpu", warmup=10, iters=45, verbose=False)
+                       device="cpu", warmup=5, iters=18, thin=2,
+                       verbose=False)
     assert out["L"] == 9 and out["reps"] == 8
     assert "aux.1" not in out["quantities"]
     assert list(out["quantities"])[-3:] == ["f.0", "f.1", "f.mean"]

@@ -42,7 +42,7 @@ def test_smc_gaussian_target():
     def logp(q):
         return -0.5 * (((q - mean) / sd) ** 2).sum(-1)
 
-    res = tsmc.smc_sample(logp, 3, 2048, _gen(0))
+    res = tsmc.smc_sample(logp, 3, 2048, _gen(0), device="cpu")
     assert float(res.final_temp) == 1.0
     u = res.particles.numpy()
     assert np.allclose(u.mean(axis=0), mean.numpy(), atol=0.15)
@@ -55,7 +55,7 @@ def test_smc_evidence_estimate():
     def logp(q):
         return -0.5 * (q * q).sum(-1) / s ** 2
 
-    res = tsmc.smc_sample(logp, d, 4096, _gen(1))
+    res = tsmc.smc_sample(logp, d, 4096, _gen(1), device="cpu")
     logZ_true = 0.5 * d * np.log(2 * np.pi * s ** 2) - 0.5 * d * np.log(
         2 * np.pi)
     assert abs(float(res.log_evidence) - logZ_true) < 0.25
@@ -160,7 +160,8 @@ def _advi_both(seed, family, **kw):
     key = jax.random.PRNGKey(seed)
     n_mc = kw.get("n_mc", 10)
     mu, omega, info = tadvi.advi(logp, k, None, family=family,
-                                 normals=_ref_normals(key, n_mc, k), **kw)
+                                 normals=_ref_normals(key, n_mc, k),
+                                 device="cpu", **kw)
     r_mu, r_omega, r_info = jadvi.advi(logp_j, k, key, family=family, **kw)
     assert (info["eta"], info["iters"]) == (r_info["eta"], r_info["iters"])
     np.testing.assert_allclose(mu.numpy(), np.asarray(r_mu), rtol=1e-7,
@@ -186,7 +187,8 @@ def test_advi_fullrank_recovers_covariance():
 def test_advi_draws_from_q():
     """The port's own generator end to end: ADVI, then draws from q."""
     logp, _, mean, cov, k = _conjugate_problem(seed=2)
-    mu, omega, _ = tadvi.advi(logp, k, _gen(2), max_iters=2000)
+    mu, omega, _ = tadvi.advi(logp, k, _gen(2), max_iters=2000,
+                              device="cpu")
     draws = tadvi.advi_draws(mu, omega, _gen(3), 4000).numpy()
     assert draws.shape == (4000, k)
     assert np.allclose(draws.mean(axis=0), mu.numpy(), atol=0.1)
@@ -240,7 +242,8 @@ def test_nuts_sample_scaled_normal():
 
     qs, info, state = nuts_sample(logp, torch.zeros(3, dtype=f64), _gen(1),
                                   num_warmup=250, num_samples=300,
-                                  cfg=NutsConfig(max_treedepth=6))
+                                  cfg=NutsConfig(max_treedepth=6),
+                                  device="cpu")
     assert qs.shape == (300, 3)
     assert all(x.shape == (300,) for x in info)
     assert state.q.shape == state.inv_mass.shape == (3,)
